@@ -1,0 +1,1 @@
+"""accel: see the package docstring of instantvnr_torch."""

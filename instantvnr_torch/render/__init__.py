@@ -1,0 +1,1 @@
+"""render: see the package docstring of instantvnr_torch."""

@@ -1,0 +1,145 @@
+"""Package rules of the PyTorch port.
+
+- No module of instantvnr_torch, and not chip_smoke.py, imports jax or
+  instantvnr_tpu (checked on the source with ast, so lazy imports inside
+  functions count too).
+- Entry points default to the card: built without a device on a machine
+  without CUDA they raise instead of running on the CPU.
+- A kernel wrapper given CPU tensors takes its plain version and never
+  builds or loads the CUDA library.
+"""
+import ast
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from instantvnr_torch import api
+from instantvnr_torch.config import ModelConfig, NetworkConfig
+from instantvnr_torch.ops import cuda_lib
+from instantvnr_torch.ops import fused_mlp as fm
+from instantvnr_torch.ops import slab_composite as sc
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "instantvnr_tpu")
+
+
+def _port_sources():
+    files = sorted(glob.glob(os.path.join(ROOT, "instantvnr_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    return files
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_never_imports_jax_or_the_reference():
+    files = _port_sources()
+    assert len(files) > 20 and os.path.exists(files[-1])
+    bad = [(os.path.relpath(p, ROOT), m) for p in files
+           for m in _imported_roots(p) if m in FORBIDDEN]
+    assert bad == []
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.NeuralVolume(ModelConfig(), dims=(32, 32, 32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.SimpleVolume.synthetic((16, 16, 16))
+    nv = api.NeuralVolume(ModelConfig(), dims=(16, 16, 16), device="cpu")
+    from instantvnr_torch.render.decoded import DecodedRenderer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DecodedRenderer(8, 8, nv.macrocell, None, (16, 16, 16))
+
+
+def test_unported_modes_raise_naming_roadmap():
+    cfg = ModelConfig(network=NetworkConfig(n_neurons=16, n_hidden_layers=1))
+    from instantvnr_torch.config import EncodingConfig
+
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=2,
+                                              n_features_per_level=2,
+                                              log2_hashmap_size=8),
+                      network=cfg.network)
+    nv = api.NeuralVolume(cfg, dims=(16, 16, 16), device="cpu")
+    for mode in (api.RenderMode.NEURAL_WAVEFRONT,
+                 api.RenderMode.ISOSURFACE_DECODED,
+                 api.RenderMode.FULL_SHADOW_DECODED):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            api.VNRenderer(nv, 8, 8, mode)
+    r = api.VNRenderer(nv, 8, 8)
+    for call in (lambda: r.set_slab_shading("gradient"),
+                 lambda: r.enable_shadows(), lambda: nv.train(10)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    # an eye inside the volume looking back along the principal axis has
+    # no slab factorization; its wavefront fallback is not ported
+    from instantvnr_torch.render.camera import Camera
+
+    r.set_camera(Camera(eye=(0.0, 0.0, 2.0), center=(0.0, 0.0, 6.0),
+                        up=(0, 1, 0), fovy=179.0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.render()
+
+
+def test_cpu_wrappers_never_build(monkeypatch):
+    def refuse():
+        raise AssertionError("a CPU call reached the CUDA library")
+
+    monkeypatch.setattr(cuda_lib, "load_library", refuse)
+    monkeypatch.setattr(cuda_lib, "_build", refuse)
+    rng = np.random.default_rng(0)
+    ws = [torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32)),
+          torch.from_numpy(rng.standard_normal((16, 1)).astype(np.float32))]
+    x = torch.from_numpy(rng.standard_normal((33, 16)).astype(np.float32))
+    n_mlp, n_sc = fm.counter.launches, sc.counter.launches
+    y = fm.fused_mlp_apply(ws, x, NetworkConfig(n_neurons=16,
+                                                n_hidden_layers=1))
+    assert y.shape == (33, 1)
+    d, hi, wi, ay, ax = 3, 5, 6, 4, 4
+    f = lambda *s: torch.from_numpy(rng.random(s).astype(np.float32))  # noqa
+    ctrl = torch.zeros((4, 8))
+    ctrl[:, 0] = torch.tensor([0.0, 1.0, 1.0, 1.0])
+    ctrl[1:, 4] = 1.0
+    ctrl[:, 6] = 1.0
+    color, alpha = sc.composite_slabs(f(d, ay, ax), f(d, hi, ay), f(d, wi, ax),
+                                      torch.ones(d, hi), torch.ones(d, wi),
+                                      f(hi, wi), ctrl)
+    assert color.shape == (hi, wi, 3) and alpha.shape == (hi, wi)
+    assert (fm.counter.launches, sc.counter.launches) == (n_mlp, n_sc)
+
+
+def test_loader_is_lazy():
+    """Importing every module of the port builds and loads nothing: the
+    CUDA library is loaded only from a wrapper given CUDA tensors."""
+    import subprocess
+    import sys
+
+    code = (
+        "import glob, importlib, os\n"
+        "for p in sorted(glob.glob('instantvnr_torch/**/*.py', "
+        "recursive=True)):\n"
+        "    importlib.import_module(p[:-3].replace(os.sep, '.')"
+        ".removesuffix('.__init__'))\n"
+        "from instantvnr_torch.ops import cuda_lib\n"
+        "assert cuda_lib.load_library.cache_info().currsize == 0\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+    srcs = [os.path.basename(p) for p in cuda_lib._sources()]
+    assert {"fused_mlp.cu", "slab_composite.cu"} <= set(srcs)
