@@ -114,7 +114,7 @@ def _check_tcnn(spec: HashGridSpec):
     if spec.paired:
         raise NotImplementedError(
             "hash_variant='paired' is not ported yet (ROADMAP 'Next "
-            "slices' item 6, data and model breadth)")
+            "slices' item 5, data and model breadth)")
 
 
 def init_hash_table(generator: torch.Generator, spec: HashGridSpec,

@@ -16,9 +16,9 @@ from instantvnr_torch.models.metrics import decode_slab
 from instantvnr_torch.render.camera import Camera
 from instantvnr_torch.render.slabmarch import (
     FALLBACK_ITEM,
-    SHADING_ITEM,
     SlabSettings,
     camera_arrays,
+    compute_gradient_volumes,
     principal_axis,
     slab_occupancy_from_macrocell,
     slab_path_valid,
@@ -64,6 +64,11 @@ class DecodedRenderer:
             self.decoded = torch.zeros((dz, dy, dx), dtype=torch.float32,
                                        device=self.device)
         self._frame = None
+        self._gradients = None  # [3, dz, dy, dx], built lazily for shading
+        self.shadow_volume = None  # optional [dz, dy, dx] transmittance
+        self._shadow_light = None  # sticky (light, rate): refreshed on decode
+        # shadows owned by the FULL_SHADOW_DECODED mode (api.VNRenderer)
+        self._mode_shadows = False
 
     # -- progressive decoding (reference decode-progressive loop) ---------
 
@@ -86,6 +91,8 @@ class DecodedRenderer:
             n = max(0, min(self.slab_blob, dz - z0))
             self.decoded[z0:z0 + n] = blob[:n]
             self._next_blob += 1
+        self._gradients = None  # the decoded content changed
+        self._refresh_shadows()
 
     def decode_all(self):
         self.decode_progressive(self.n_blobs)
@@ -120,10 +127,32 @@ class DecodedRenderer:
 
         self.tf = tf
         self.mc = mcmod.update_max_opacity(self.mc, tf)
+        self._refresh_shadows()
+
+    def _refresh_shadows(self):
+        """Recompute the sticky shadow volume after a grid or TF change."""
+        if self._shadow_light is not None:
+            light, rate = self._shadow_light
+            self.enable_shadows(light, sampling_rate=rate)
 
     def enable_shadows(self, light_dir=None, sampling_rate: float = 1.0):
-        raise NotImplementedError("shadow volumes are not ported yet: "
-                                  + SHADING_ITEM)
+        """Compute the shadow volume from the current decoded grid
+        (reference generate_shadow_map / MethodShadowMap). Sticky: once
+        enabled it is recomputed whenever the grid or the transfer function
+        changes; call again with another light_dir to move the light."""
+        from instantvnr_torch.render.shadow import shadow_volume_for
+
+        light = (light_dir if light_dir is not None
+                 else self.settings.light_dir)
+        self._shadow_light = (tuple(float(v) for v in light),
+                              float(sampling_rate))
+        self.shadow_volume = shadow_volume_for(self.decoded, self.tf,
+                                               self._shadow_light[0],
+                                               sampling_rate)
+
+    def disable_shadows(self):
+        self._shadow_light = None
+        self.shadow_volume = None
 
     # -- frame loop -------------------------------------------------------
 
@@ -137,17 +166,18 @@ class DecodedRenderer:
                 "degenerate camera for the slab path (the frustum looks "
                 "backward along the principal axis); its wavefront fallback "
                 "is not ported yet: " + FALLBACK_ITEM)
-        if self.settings.shading != "none":
-            raise NotImplementedError(
-                f"slab shading {self.settings.shading!r} is not ported yet: "
-                + SHADING_ITEM)
         d_slab = self.decoded.shape[0 if axis == 2 else (1 if axis == 1 else 2)]
         occ = (slab_occupancy_from_macrocell(self.mc, axis, flipped, d_slab)
                if self.settings.skip_empty_slabs else None)
+        grad = None
+        if self.settings.shading == "gradient":
+            if self._gradients is None:
+                self._gradients = compute_gradient_volumes(self.decoded)
+            grad = self._gradients
         self._frame = slab_render(
             self.decoded, self.tf, camera_arrays(cam, self.device),
             self.width, self.height, self.settings, axis, flipped, occ,
-            self.transform)
+            self.transform, grad, self.shadow_volume)
         return self._frame
 
     def mapframe(self) -> np.ndarray:

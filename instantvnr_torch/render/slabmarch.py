@@ -1,4 +1,4 @@
-"""Slab-compositing volume renderer, the unshaded path (counterpart of
+"""Slab-compositing volume renderer (counterpart of
 `instantvnr_tpu/render/slabmarch.py`).
 
 Perspective shear-warp factorization: pick the principal volume axis,
@@ -6,12 +6,15 @@ composite axis-aligned slabs front to back into an intermediate image on
 the reference plane through the eye (each slab's projection is a uniform
 scale about the epipole, so it resamples with two banded interpolation
 matrices, My [hi, ay] and Mx [wi, ax]), then one final 2-D projective warp
-to the screen. The per-slab loop runs in the slab compositor
-(ops/slab_composite.py): the CUDA kernel on the card, its plain version on
-the CPU.
+to the screen. The per-slab loop runs in a slab compositor
+(ops/slab_composite.py): `composite_slabs` unshaded, `composite_slabs_ext`
+with gradient shading (the value and its central-difference world gradient
+resampled with the same matrices, shaded with the scivis model) and/or a
+shadow volume (render/shadow.py); the CUDA kernels on the card, their plain
+versions on the CPU.
 
-Gradient shading, shadow volumes and the wavefront fallback for degenerate
-cameras are later items of the port and raise NotImplementedError.
+The wavefront fallback for degenerate cameras is a later item of the port
+and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,14 +25,13 @@ import numpy as np
 import torch
 
 from instantvnr_torch.render.camera import Camera
+from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
 from instantvnr_torch.render.transform import clip_bounds
 from instantvnr_torch.utils.math import normalize
 from instantvnr_torch.utils.tfn import TransferFunction
 
-# ROADMAP items that port the parts of the slab path this module refuses
-SHADING_ITEM = ("ROADMAP 'Next slices' item 1 (composite_slabs_ext: slab "
-                "gradient shading and shadow volumes)")
-FALLBACK_ITEM = ("ROADMAP 'Next slices' item 5 (exact marchers: "
+# the ROADMAP item that ports the part of the slab path this module refuses
+FALLBACK_ITEM = ("ROADMAP 'Next slices' item 3 (exact marchers: "
                  "render/raymarch.py, the wavefront fallback of degenerate "
                  "slab cameras)")
 
@@ -40,7 +42,26 @@ class SlabSettings:
     density_scale: float = 1.0
     supersample: float = 1.0  # intermediate image resolution multiplier
     skip_empty_slabs: bool = True
-    shading: str = "none"  # only "none" is ported
+    shading: str = "none"  # "none" | "gradient" (scivis, raytracing.h:224-246)
+    shading_scale: float = 0.95  # scivis_shading_scale lerp
+    light_dir: tuple = DEFAULT_LIGHT  # instantvnr_types.h:148
+    shadow_ambient: float = 0.35  # floor when a shadow volume is attached
+
+
+def compute_gradient_volumes(volume: torch.Tensor) -> torch.Tensor:
+    """Central-difference gradient of the grid with clamped edges, WORLD
+    components: [3, dz, dy, dx] = (∂/∂x, ∂/∂y, ∂/∂z) from volume axes
+    (2, 1, 0). Computed once per decode; 3× the volume's memory."""
+
+    def central(dim):
+        n = volume.shape[dim]
+        lo = torch.cat([volume.narrow(dim, 0, 1), volume.narrow(dim, 0, n - 1)],
+                       dim=dim)
+        hi = torch.cat([volume.narrow(dim, 1, n - 1),
+                        volume.narrow(dim, n - 1, 1)], dim=dim)
+        return (hi - lo) * 0.5
+
+    return torch.stack([central(2), central(1), central(0)])
 
 
 def principal_axis(cam: Camera, scale=None) -> tuple[int, bool]:
@@ -142,11 +163,11 @@ class _FrameGeometry(NamedTuple):
     bounds: tuple          # (x_lo, x_hi, y_lo, y_hi) intermediate domain
     xs: torch.Tensor       # [wi] intermediate pixel centers
     ys: torch.Tensor       # [hi]
-    corr_exp: torch.Tensor  # [hi, wi] opacity-correction exponent
+    dt: torch.Tensor       # [hi, wi] world step between slabs
 
 
 def frame_geometry(dims_w, d_slab: int, ax_n: int, ay_n: int, cam_arrays,
-                   xform, perm, flipped: bool, settings: SlabSettings,
+                   xform, perm, flipped: bool, supersample: float,
                    width: int, height: int) -> _FrameGeometry:
     """Camera/clip-derived frame state in PERMUTED voxel space."""
     dev = dims_w.device
@@ -175,17 +196,16 @@ def frame_geometry(dims_w, d_slab: int, ax_n: int, ay_n: int, cam_arrays,
     y_lo = torch.minimum(zero, e[1] + sigma_far * (0.0 - e[1]))
     y_hi = torch.maximum(zero + ay_n, e[1] + sigma_far * (ay_n - e[1]))
 
-    wi = int(width * settings.supersample)
-    hi = int(height * settings.supersample)
+    wi = int(width * supersample)
+    hi = int(height * supersample)
     xs = x_lo + (torch.arange(wi, dtype=torch.float32, device=dev) + 0.5) \
         * (x_hi - x_lo) / wi
     ys = y_lo + (torch.arange(hi, dtype=torch.float32, device=dev) + 0.5) \
         * (y_hi - y_lo) / hi
 
-    dt = _pixel_dt(xs, ys, e, z_ref, s_perm)
-    corr_exp = settings.sampling_rate * settings.density_scale * dt
     return _FrameGeometry(e, s_perm, clo, chi, z_ref, in_front,
-                          (x_lo, x_hi, y_lo, y_hi), xs, ys, corr_exp)
+                          (x_lo, x_hi, y_lo, y_hi), xs, ys,
+                          _pixel_dt(xs, ys, e, z_ref, s_perm))
 
 
 def camera_arrays(cam: Camera, device) -> tuple:
@@ -202,29 +222,36 @@ def slab_composite_args(volume: torch.Tensor, tf: TransferFunction,
                         cam_arrays, width: int, height: int,
                         settings: SlabSettings, axis: int, flipped: bool,
                         slab_occupancy: torch.Tensor | None = None,
-                        xform=None):
-    """The per-frame inputs of the slab compositor. Returns (args, warp):
-    `composite_slabs(*args)` composites the intermediate image and
-    `_final_warp(color, alpha, *warp)` maps it to the screen."""
-    from instantvnr_torch.ops.slab_composite import pack_controls, pack_lut
+                        xform=None, grad_volumes: torch.Tensor | None = None,
+                        shadow_volume: torch.Tensor | None = None):
+    """The per-frame inputs of the slab compositor. Returns
+    (compositor, args, warp): `compositor(*args)` composites the
+    intermediate image and `_final_warp(color, alpha, *warp)` maps it to the
+    screen. The compositor is `composite_slabs_ext` when gradient shading
+    (settings.shading == "gradient" with grad_volumes [3, dz, dy, dx]) or a
+    shadow volume [dz, dy, dx] is on, else `composite_slabs`, as the JAX
+    package dispatches (slabmarch.py:455-473)."""
+    from instantvnr_torch.ops.slab_composite import (composite_slabs,
+                                                     composite_slabs_ext,
+                                                     pack_controls, pack_lut,
+                                                     pack_misc)
     from instantvnr_torch.render.transform import default_transform
 
-    if settings.shading != "none":
-        raise NotImplementedError(
-            f"slab shading {settings.shading!r} is not ported yet: "
-            + SHADING_ITEM)
     dev = volume.device
     dz, dy, dx = volume.shape
     dims_w = torch.tensor([dx, dy, dz], dtype=torch.float32, device=dev)
     if xform is None:
         xform = default_transform((dx, dy, dz), dev)
+    use_shading = settings.shading == "gradient" and grad_volumes is not None
+    use_shadow = shadow_volume is not None
 
     vol, perm = _permute_volume(volume, axis, flipped)
     d_slab, ay_n, ax_n = vol.shape
     geo = frame_geometry(dims_w, d_slab, ax_n, ay_n, cam_arrays, xform,
-                         perm, flipped, settings, width, height)
+                         perm, flipped, settings.supersample, width, height)
     e, _, clo, chi, z_ref, in_front = geo[:6]
-    (x_lo, x_hi, y_lo, y_hi), xs, ys, corr_exp = geo[6:]
+    (x_lo, x_hi, y_lo, y_hi), xs, ys, dt = geo[6:]
+    corr_exp = settings.sampling_rate * settings.density_scale * dt
 
     if slab_occupancy is None:
         slab_occupancy = torch.ones((d_slab,), dtype=torch.bool, device=dev)
@@ -234,26 +261,49 @@ def slab_composite_args(volume: torch.Tensor, tf: TransferFunction,
         e, z_ref, xs, ys, d_slab, ax_n, ay_n)
     keep = slab_occupancy & (z_ks >= clo[2]) & (z_ks <= chi[2])
     covy, covx = _coverage_masks(my_all, mx_all, x_src, y_src, clo, chi, keep)
-    args = (vol, my_all, mx_all, covy, covx, corr_exp.contiguous(),
-            pack_controls(tf), pack_lut(tf))
     warp = (cam_arrays, width, height, perm, flipped, e, z_ref, x_lo, x_hi,
             y_lo, y_hi, xs.shape[0], ys.shape[0], xform.scale)
-    return args, warp
+    if not (use_shading or use_shadow):
+        args = (vol, my_all, mx_all, covy, covx, corr_exp.contiguous(),
+                pack_controls(tf), pack_lut(tf))
+        return composite_slabs, args, warp
+
+    if use_shading:
+        fields = torch.stack(
+            [vol] + [_permute_volume(grad_volumes[i], axis, flipped)[0]
+                     for i in range(3)], dim=1)  # [D, 4, ay, ax]
+    else:
+        fields = vol[:, None]
+    svol = (_permute_volume(shadow_volume, axis, flipped)[0] if use_shadow
+            else None)
+    # the light flips against the view (renderer.cpp:98-100)
+    light = torch.as_tensor(settings.light_dir, dtype=torch.float32,
+                            device=dev)
+    cam_fwd = cam_arrays[1] - cam_arrays[0]
+    light = torch.where(torch.dot(cam_fwd, light) > 0, -light, light)
+    light = light / torch.linalg.vector_norm(light)
+    eye_w = cam_arrays[0] / xform.scale + 0.5 * dims_w  # voxel, world order
+    size_z = dims_w[perm[2]]
+    zw = size_z - z_ks if flipped else z_ks  # unflipped permuted voxel z
+    misc = pack_misc(settings.shadow_ambient, settings.shading_scale, light,
+                     eye_w, xform.scale)
+    args = (fields, svol, my_all, mx_all, covy, covx, corr_exp.contiguous(),
+            x_src, y_src, zw, pack_controls(tf), misc, perm, pack_lut(tf))
+    return composite_slabs_ext, args, warp
 
 
 @torch.no_grad()
 def slab_render(volume: torch.Tensor, tf: TransferFunction, cam_arrays,
                 width: int, height: int, settings: SlabSettings, axis: int,
                 flipped: bool, slab_occupancy: torch.Tensor | None = None,
-                xform=None) -> torch.Tensor:
+                xform=None, grad_volumes: torch.Tensor | None = None,
+                shadow_volume: torch.Tensor | None = None) -> torch.Tensor:
     """Render one frame → rgba [height·width, 4] (row-major, bottom-left
     origin)."""
-    from instantvnr_torch.ops.slab_composite import composite_slabs
-
-    args, warp = slab_composite_args(volume, tf, cam_arrays, width, height,
-                                     settings, axis, flipped, slab_occupancy,
-                                     xform)
-    color, alpha_img = composite_slabs(*args)
+    compositor, args, warp = slab_composite_args(
+        volume, tf, cam_arrays, width, height, settings, axis, flipped,
+        slab_occupancy, xform, grad_volumes, shadow_volume)
+    color, alpha_img = compositor(*args)
     return _final_warp(color, alpha_img, *warp)
 
 

@@ -20,6 +20,7 @@ from instantvnr_torch import api
 from instantvnr_torch.config import ModelConfig, NetworkConfig
 from instantvnr_torch.ops import cuda_lib
 from instantvnr_torch.ops import fused_mlp as fm
+from instantvnr_torch.ops import iso_sweep as isw
 from instantvnr_torch.ops import slab_composite as sc
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,23 +80,28 @@ def test_unported_modes_raise_naming_roadmap():
                       network=cfg.network)
     nv = api.NeuralVolume(cfg, dims=(16, 16, 16), device="cpu")
     for mode in (api.RenderMode.NEURAL_WAVEFRONT,
-                 api.RenderMode.ISOSURFACE_DECODED,
-                 api.RenderMode.FULL_SHADOW_DECODED):
+                 api.RenderMode.FULL_SHADOW_REFERENCE,
+                 api.RenderMode.PATHTRACE_DECODED):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.VNRenderer(nv, 8, 8, mode)
     r = api.VNRenderer(nv, 8, 8)
-    for call in (lambda: r.set_slab_shading("gradient"),
-                 lambda: r.enable_shadows(), lambda: nv.train(10)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nv.train(10)
     # an eye inside the volume looking back along the principal axis has
-    # no slab factorization; its wavefront fallback is not ported
+    # no slab factorization; neither the slab path's wavefront fallback
+    # nor the isosurface's brute-force marcher is ported
     from instantvnr_torch.render.camera import Camera
 
-    r.set_camera(Camera(eye=(0.0, 0.0, 2.0), center=(0.0, 0.0, 6.0),
-                        up=(0, 1, 0), fovy=179.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render()
+    back = Camera(eye=(0.0, 0.0, 2.0), center=(0.0, 0.0, 6.0), up=(0, 1, 0),
+                  fovy=179.0)
+    r_iso = api.VNRenderer(nv, 8, 8, api.RenderMode.ISOSURFACE_DECODED)
+    for renderer in (r, r_iso):
+        renderer.set_camera(back)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            renderer.render()
+    # the decoded-slab knobs belong to DECODED_SLAB
+    with pytest.raises(ValueError, match="DECODED_SLAB"):
+        r_iso.set_slab_shading("gradient")
 
 
 def test_cpu_wrappers_never_build(monkeypatch):
@@ -108,7 +114,8 @@ def test_cpu_wrappers_never_build(monkeypatch):
     ws = [torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32)),
           torch.from_numpy(rng.standard_normal((16, 1)).astype(np.float32))]
     x = torch.from_numpy(rng.standard_normal((33, 16)).astype(np.float32))
-    n_mlp, n_sc = fm.counter.launches, sc.counter.launches
+    counters = (fm.counter, sc.counter, sc.ext_counter, isw.counter)
+    before = [c.launches for c in counters]
     y = fm.fused_mlp_apply(ws, x, NetworkConfig(n_neurons=16,
                                                 n_hidden_layers=1))
     assert y.shape == (33, 1)
@@ -122,7 +129,20 @@ def test_cpu_wrappers_never_build(monkeypatch):
                                       torch.ones(d, hi), torch.ones(d, wi),
                                       f(hi, wi), ctrl)
     assert color.shape == (hi, wi, 3) and alpha.shape == (hi, wi)
-    assert (fm.counter.launches, sc.counter.launches) == (n_mlp, n_sc)
+    fields = f(d, 4, ay, ax)
+    misc = torch.tensor([0.35, 0.95, 0.6, 0.7, 0.4, 2.0, 2.0, -9.0, 1.0, 1.0,
+                         1.0])
+    color, _ = sc.composite_slabs_ext(
+        fields, f(d, ay, ax), f(d, hi, ay), f(d, wi, ax), torch.ones(d, hi),
+        torch.ones(d, wi), f(hi, wi), f(d, wi), f(d, hi), f(d), ctrl, misc,
+        (0, 1, 2))
+    assert color.shape == (hi, wi, 3)
+    found, hit_z, hit_g = isw.iso_sweep(fields, f(d, hi, ay), f(d, wi, ax),
+                                        torch.ones(d, hi), torch.ones(d, wi),
+                                        0.5)
+    assert found.shape == hit_z.shape == (hi, wi) and hit_g.shape == (hi, wi,
+                                                                     3)
+    assert [c.launches for c in counters] == before
 
 
 def test_loader_is_lazy():
@@ -142,4 +162,32 @@ def test_loader_is_lazy():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
     srcs = [os.path.basename(p) for p in cuda_lib._sources()]
-    assert {"fused_mlp.cu", "slab_composite.cu"} <= set(srcs)
+    assert {"fused_mlp.cu", "slab_composite.cu", "iso_sweep.cu"} <= set(srcs)
+    assert set(cuda_lib.SIGNATURES) == {
+        "fused_mlp_forward", "slab_composite_forward",
+        "slab_composite_ext_forward", "iso_sweep_forward"}
+
+
+def test_ctypes_signatures_match_sources():
+    """Each C entry point's ctypes argtypes (cuda_lib.SIGNATURES) match the
+    parameter list of its definition in csrc/ (the card is the only place
+    the library is built, so a mismatch would show only there)."""
+    import ctypes
+    import re
+
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float, "longlong": ctypes.c_longlong}
+    defs = {}
+    for path in cuda_lib._sources():
+        with open(path) as f:
+            src = f.read()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src):
+            types = []
+            for p in params.split(","):
+                t = " ".join(p.split()[:-1]).replace("const ", "")
+                types.append(kinds[t.replace(" ", "")])
+            defs[name] = tuple(types)
+    assert set(cuda_lib.SIGNATURES) <= set(defs)
+    for name, argtypes in cuda_lib.SIGNATURES.items():
+        assert tuple(argtypes) == defs[name], name

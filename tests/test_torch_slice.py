@@ -8,9 +8,12 @@ at small size: a 4-level, 16-wide schema, a 32³ vorts volume, 40×40 frames.
   macrocell's range-max alpha agree at atol 1e-6;
 - a frame from the SAME decoded grid agrees with the JAX Pallas compositor
   (interpret mode) at atol 2e-5, for the camera, clipped/scaled and
-  custom-TF cases of tests/test_slab_pallas.py;
+  custom-TF cases of tests/test_slab_pallas.py; shaded and shadowed frames
+  (composite_slabs_ext) at atol 2e-4, the tolerance at which the JAX
+  package holds its own shaded kernel (test_slab_pallas.py:99);
 - the end-to-end frame (each package decodes its own grid from the same
-  weights) agrees at atol 5e-3;
+  weights) agrees at atol 5e-3, in DECODED_SLAB plain and shaded,
+  FULL_SHADOW_DECODED and ISOSURFACE_DECODED;
 - BSON checkpoints cross between the packages (the port's writer is
   byte-identical) and both nlohmann-written fixtures load.
 """
@@ -46,6 +49,7 @@ from instantvnr_torch.models.metrics import psnr_arrays
 from instantvnr_torch.models.network import params_from_numpy
 from instantvnr_torch.render.camera import Camera
 from instantvnr_torch.render.decoded import DecodedRenderer
+from instantvnr_torch.render.slabmarch import SlabSettings
 from instantvnr_torch.render.transform import default_transform
 from instantvnr_torch.utils import tfn
 from instantvnr_torch.utils.tfn import bake_transfer_function
@@ -55,6 +59,7 @@ SCHEMA = dict(encoding=dict(n_levels=4, n_features_per_level=2,
               network=dict(n_neurons=16, n_hidden_layers=2))
 W = H = 40
 FRAME_ATOL = 2e-5
+EXT_FRAME_ATOL = 2e-4
 E2E_ATOL = 5e-3
 CUSTOM_TF = dict(
     colors=((0.0, 1.0, 0.1, 0.1), (0.5, 0.1, 1.0, 0.1), (1.0, 0.1, 0.1, 1.0)),
@@ -152,16 +157,19 @@ def test_classify_matches(tfc):
                                            jnp.asarray(hi))))
 
 
-def _frames(scenes, eye, xform=None, tfc=None, fovy=40):
+def _frames(scenes, eye, xform=None, tfc=None, fovy=40, shading="none",
+            shadows=False):
     jvol, tvol = scenes
     jtf = j_bake(JTFConfig(**(tfc or {})))
     ttf = bake_transfer_function(TransferFunctionConfig(**(tfc or {})),
                                  device="cpu")
     jr = JDecodedRenderer(W, H, jmc.build(jvol.data, jvol.dims, jtf), jtf,
                           jvol.dims, initial_volume=jvol.data,
-                          settings=JSlabSettings(pallas_compositor=True))
+                          settings=JSlabSettings(pallas_compositor=True,
+                                                 shading=shading))
     tr = DecodedRenderer(W, H, mcmod.build(tvol.data, tvol.dims, ttf), ttf,
-                         tvol.dims, initial_volume=tvol.data, device="cpu")
+                         tvol.dims, initial_volume=tvol.data, device="cpu",
+                         settings=SlabSettings(shading=shading))
     jr.set_camera(JCamera(eye=eye, center=(0, 0, 0), up=(0, 1, 0), fovy=fovy))
     tr.set_camera(Camera(eye=eye, center=(0, 0, 0), up=(0, 1, 0), fovy=fovy))
     if xform is not None:
@@ -170,6 +178,9 @@ def _frames(scenes, eye, xform=None, tfc=None, fovy=40):
         tr.set_transform(default_transform(tvol.dims, "cpu")._replace(
             **{k: torch.tensor(v, dtype=torch.float32)
                for k, v in xform.items()}))
+    if shadows:
+        jr.enable_shadows()
+        tr.enable_shadows()
     jr.render()
     tr.render()
     return jr.mapframe(), tr.mapframe()
@@ -196,6 +207,25 @@ def test_frame_from_same_grid_custom_tf(scenes):
     np.testing.assert_allclose(got, ref, atol=FRAME_ATOL)
 
 
+@pytest.mark.parametrize("shading,shadows", [
+    ("gradient", False), ("none", True), ("gradient", True)],
+    ids=["shaded", "shadowed", "shaded+shadowed"])
+def test_ext_frame_from_same_grid(scenes, shading, shadows):
+    ref, got = _frames(scenes, (25, -18, -62), fovy=42, shading=shading,
+                       shadows=shadows)
+    assert np.isfinite(got).all() and ref[..., 3].max() > 0.05
+    np.testing.assert_allclose(got, ref, atol=EXT_FRAME_ATOL)
+
+
+def test_ext_frame_from_same_grid_clipped_scaled(scenes):
+    xf = dict(clip_lower=[4.0, 0.0, 6.0], clip_upper=[28.0, 25.0, 30.0],
+              scale=[1.0, 1.4, 0.8])
+    ref, got = _frames(scenes, (8, -6, -75), xform=xf, fovy=38,
+                       shading="gradient")
+    assert ref[..., 3].max() > 0.05
+    np.testing.assert_allclose(got, ref, atol=EXT_FRAME_ATOL)
+
+
 def test_end_to_end_frame(nets):
     jnv, tnv = nets
     cam = dict(eye=(12.0, 8.0, -64.0), center=(0, 0, 0), up=(0, 1, 0),
@@ -220,6 +250,153 @@ def test_end_to_end_frame(nets):
     jr.render()
     tr.render()
     np.testing.assert_allclose(tr.mapframe(), jr.mapframe(), atol=E2E_ATOL)
+
+
+E2E_CAM = dict(eye=(12.0, 8.0, -64.0), center=(0, 0, 0), up=(0, 1, 0),
+               fovy=45.0)
+
+
+def _facade_pair(nets, mode):
+    jnv, tnv = nets
+    jr = japi.VNRenderer(jnv, W, H, japi.RenderMode(int(mode)))
+    jr.set_camera(JCamera(**E2E_CAM))
+    tr = api.VNRenderer(tnv, W, H, mode)
+    tr.set_camera(Camera(**E2E_CAM))
+    return jr, tr
+
+
+def _render_both(jr, tr):
+    jr.render()
+    tr.render()
+    ref, got = jr.mapframe(), tr.mapframe()
+    assert got.shape == (H, W, 4) and np.isfinite(got).all()
+    return ref, got
+
+
+def test_end_to_end_slab_shading(nets):
+    jr, tr = _facade_pair(nets, api.RenderMode.DECODED_SLAB)
+    plain, _ = _render_both(jr, tr)
+    jr.set_slab_shading("gradient")
+    tr.set_slab_shading("gradient")
+    ref, got = _render_both(jr, tr)
+    assert ref[..., 3].max() > 0.05
+    assert np.abs(ref[..., :3] - plain[..., :3]).max() > 1e-2  # shaded
+    np.testing.assert_allclose(got, ref, atol=E2E_ATOL)
+    # shadows on top, then the plain look back
+    jr.enable_shadows()
+    tr.enable_shadows()
+    ref, got = _render_both(jr, tr)
+    np.testing.assert_allclose(got, ref, atol=E2E_ATOL)
+    for r in (jr, tr):
+        r.set_slab_shading("none")
+        r.disable_shadows()
+    ref, got = _render_both(jr, tr)
+    np.testing.assert_allclose(got, ref, atol=E2E_ATOL)
+    np.testing.assert_allclose(got, plain, atol=E2E_ATOL)
+
+
+def test_end_to_end_full_shadow(nets):
+    jr, tr = _facade_pair(nets, api.RenderMode.FULL_SHADOW_DECODED)
+    assert tr._shadow_light_used == jr._shadow_light_used
+    assert tr._impl._mode_shadows
+    ref, got = _render_both(jr, tr)
+    assert ref[..., 3].max() > 0.05
+    np.testing.assert_allclose(got, ref, atol=E2E_ATOL)
+    # a camera move that keeps the flipped light keeps the shadow volume;
+    # one that flips it back recomputes the volume
+    before = tr._impl.shadow_volume
+    tr.set_camera(Camera(**dict(E2E_CAM, eye=(14.0, 8.0, -64.0))))
+    assert tr._impl.shadow_volume is before
+    cam = dict(E2E_CAM, eye=(40.0, 50.0, 30.0))
+    jr.set_camera(JCamera(**cam))
+    tr.set_camera(Camera(**cam))
+    assert tr._shadow_light_used == jr._shadow_light_used
+    assert tr._impl.shadow_volume is not before
+    shadowed, got = _render_both(jr, tr)
+    np.testing.assert_allclose(got, shadowed, atol=E2E_ATOL)
+    # the plain mode drops the mode's shadows: brighter than the shadowed
+    tr.set_mode(api.RenderMode.DECODED_SLAB)
+    assert tr._impl.shadow_volume is None and not tr._impl._mode_shadows
+    assert tr._impl.settings.shadow_ambient == 0.35
+    tr.render()
+    base = tr.mapframe()
+    assert got[..., :3].sum() < base[..., :3].sum()
+    assert got[..., :3].max() <= base[..., :3].max() + 1e-4
+
+
+def test_end_to_end_isosurface(nets):
+    jnv, tnv = nets
+    iso = float(np.median(tnv.decode_volume().numpy()))
+    jr, tr = _facade_pair(nets, api.RenderMode.ISOSURFACE_DECODED)
+    for r in (jr, tr):
+        r.set_isovalue(iso)
+    ref, got = _render_both(jr, tr)
+    assert ref[..., 3].mean() > 0.05
+    np.testing.assert_allclose(got, ref, atol=E2E_ATOL)
+    # refresh_params re-decodes into the iso grid; the same params give the
+    # same grid, held by identity in decode_volume's cache
+    grid = tr._impl.grid
+    tr.refresh_params()
+    assert tr._impl.grid is grid
+
+
+def test_decode_volume_through_render_params():
+    """`NeuralVolume.decode_volume` decodes through `render_params` (the
+    bf16 table + packed levels of the 2^19 schema), the JAX package's
+    (api.py:564) through the raw f32 params: in the port the two paths give
+    the same grid bit for bit, since the bf16 compute rounds the gathered
+    rows either way, and the grid agrees with the JAX package's within the
+    decode tolerance of test_decode_all_matches."""
+    from instantvnr_torch.models.metrics import decode_volume
+
+    jsv = japi.SimpleVolume(j_synthetic_volume((16, 16, 16), kind="vorts"))
+    jnv = japi.NeuralVolume(JModelConfig(), jsv)
+    rng = np.random.default_rng(5)
+    p = jnv.state.params
+    params_np = {"table": rng.uniform(-1.0, 1.0, p["table"].shape).astype(
+        np.float32), "mlp": [(rng.standard_normal(w.shape) * np.sqrt(
+            2.0 / w.shape[0])).astype(np.float32) for w in p["mlp"]]}
+    jnv.state = jnv.state._replace(params={
+        "table": jnp.asarray(params_np["table"]),
+        "mlp": [jnp.asarray(w) for w in params_np["mlp"]]})
+    tnv = api.NeuralVolume(ModelConfig(), api.SimpleVolume(
+        synthetic_volume((16, 16, 16), kind="vorts", device="cpu"),
+        device="cpu"), device="cpu")
+    tnv.params = params_from_numpy(params_np, "cpu")
+    got = tnv.decode_volume()
+    assert tnv.decode_volume() is got  # identity-cached on params
+    raw = decode_volume(tnv.field, tnv.params, tnv.dims)
+    np.testing.assert_array_equal(got.numpy(), raw.numpy())
+    ref = np.asarray(jnv.decode_volume())
+    assert ref.std() > 0.05
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-2, rtol=2e-2)
+    assert np.abs(got.numpy() - ref).mean() <= 1e-3
+
+
+def test_caches_follow_decode_and_tf(nets):
+    """The gradient volumes are dropped on every decode (a stale cache would
+    shade the old field) and a sticky shadow volume is recomputed on every
+    decode and transfer-function edit."""
+    _, tnv = nets
+    dec = tnv.ensure_decoded(W, H)
+    dec.settings = dataclasses.replace(dec.settings, shading="gradient")
+    dec.set_camera(Camera(**E2E_CAM))
+    dec.enable_shadows((0.2, 0.9, 0.3))
+    dec.render()
+    grads, shadow = dec._gradients, dec.shadow_volume
+    assert grads is not None and shadow is not None
+    dec.decode_progressive(1)
+    assert dec._gradients is None and dec.shadow_volume is not shadow
+    dec.render()
+    assert dec._gradients is not grads
+    shadow = dec.shadow_volume
+    dec.set_transfer_function(bake_transfer_function(
+        TransferFunctionConfig(**CUSTOM_TF), device="cpu"))
+    assert dec.shadow_volume is not shadow
+    assert dec._shadow_light == ((0.2, 0.9, 0.3), 1.0)
+    dec.disable_shadows()
+    dec.settings = dataclasses.replace(dec.settings, shading="none")
+    dec.set_transfer_function(tnv.simple.tf)
 
 
 def test_bson_crosses_packages(nets, tmp_path):
