@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's training and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
 Builds the CUDA kernels from instantvnr_torch/csrc with nvcc, holds each
 kernel to its plain PyTorch version at the main path's shapes and times
-both, then drives the main path through the user-facing entry points:
-SimpleVolume.synthetic (vorts 128³) → NeuralVolume(ModelConfig()), the
-2^19 reference schema with seeded random weights → VNRenderer(512²,
-DECODED_SLAB): one full decode and an orbit of frames; then on the same
-decode four more orbits: gradient shading, shading + shadows,
-FULL_SHADOW_DECODED and ISOSURFACE_DECODED. Launch counts, reset before
-each of these paths and read after it, prove which kernels each ran. A
-breakdown shows where a blob's and a frame's time goes; then a BSON
-checkpoint round trip. Any failed phase raises, so the script exits
+both, then drives the main paths through the user-facing entry points:
+
+- serving: SimpleVolume.synthetic (vorts 128³) → NeuralVolume(ModelConfig()),
+  the 2^19 reference schema with seeded random weights → VNRenderer(512²,
+  DECODED_SLAB): one full decode and an orbit of frames; then on the same
+  decode four more orbits: gradient shading, shading + shadows,
+  FULL_SHADOW_DECODED and ISOSURFACE_DECODED; a breakdown of a blob and a
+  frame; a BSON checkpoint round trip;
+- training: NeuralVolume.train(1000) at B = 2^16 on the 2^14 layout (PSNR
+  and SSIM against the reference's bar, and against a control loop built
+  here from the plain functions), on the 2^19 reference schema over three
+  seeds, a breakdown of a step, and the online loop: rounds of train(10),
+  a full re-decode and a frame.
+
+Launch counts, reset before each of these paths and read after it, prove
+which kernels each ran. Any failed phase raises, so the script exits
 non-zero. The last line is the JSON result; the line before it lists every
 kernel with its numbers.
 """
@@ -62,6 +69,34 @@ ISO_ATOL = 1e-3
 # denominator 1, test 2, fraction 2 + select 1 + clamp 2, sign 4, newly 4,
 # z 1, hit_z 3, hit_g 18, found 1)
 SHADE_OPS, SHADOW_OPS, ISO_OPS = 112, 8, 40
+# training: the reference's batch and step count (BENCH_r05's quality bar
+# is 56.62 dB / SSIM 0.9997 at 2^14, a median of 52.85 dB at 2^19)
+TRAIN_BATCH = 1 << 16
+TRAIN_STEPS = 1000
+SEEDS_2E14 = (0, 1, 2, 3, 4)
+SEEDS_2E19 = (0, 1, 2)
+TAIL_CHUNKS = 10  # the PSNR after each of the last 10 chunks of 10 steps
+ONLINE_ROUNDS = 5
+# bars: SSIM (kernel runs' median) and the 2^19 median are asserted; the
+# 55 dB of one 2^14 run is reported against the measured spread (PERF.md);
+# the kernel path may not lose more than KERNEL_LOSS_MAX_DB against its
+# plain control, as the mean over 5 seeds of each run's tail median (the
+# TPU's Pallas training lost 6 dB, instantvnr_tpu/models/network.py:214-220;
+# a run's tail median spreads over about 2 dB, so a difference of two such
+# means has a standard error of about 1.2 dB: 4 dB is 3 of them)
+PSNR_BAR_2E14, SSIM_MIN, PSNR_MIN_2E19 = 55.0, 0.999, 49.0
+KERNEL_LOSS_MAX_DB = 4.0
+TRAIN_KERNELS = ("fused_mlp_train_forward", "fused_mlp_backward",
+                 "hash_encode_forward", "hash_encode_backward")
+# the MLP backward against its plain version, as a share of each
+# gradient's largest entry: dW sums float32 products in another order;
+# dx is rounded to bf16 (one step is 2^-8 of its value)
+MLP_DW_RTOL, MLP_DX_RTOL = 1e-3, 1e-2
+# the hash grid: bf16 features within a bf16 step at |v| ≤ 2 (the 8-corner
+# sum in another order); the gradient table summed by float atomics in a
+# varying order, held as tests/test_ops.py:257 holds its oracle
+HASH_FWD_ATOL = 1e-2
+HASH_BWD_ATOL, HASH_BWD_RTOL = 5e-4, 1e-4
 
 
 def log(obj):
@@ -81,6 +116,29 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, pattern, iters=20):
+    """Mean device time per call of the kernels whose names contain
+    `pattern`, from torch.profiler: the kernel alone, without the host
+    time of its wrapper (which a call of a kernel under 0.2 ms can
+    exceed, so CUDA events around the calls would time the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(kernel_us(e) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(p in e.name for p in pattern)) / iters / 1e3
+
+
+def kernel_us(event):
+    return getattr(event, "device_time", None) or event.cuda_time
 
 
 def bound_ms(n_bytes, n_ops, peak_ops):
@@ -164,6 +222,524 @@ def phase_fused_mlp(torch, rows):
     log(rec)
     if not ok:
         raise AssertionError(f"fused_mlp kernel disagrees: {rec}")
+    return rec
+
+
+def phase_fused_mlp_train(torch):
+    """The training form at the reference widths and B = 2^16: the forward
+    kernel (y, zs) and the backward kernel (every dW, dx) against the plain
+    training form on the same inputs."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField, params_from_numpy
+    from instantvnr_torch.ops import fused_mlp as fm
+
+    field = NeuralField.from_config(ModelConfig())
+    cfg = field.cfg.network
+    ws = params_from_numpy(seeded_params(field, SEED + 5), "cuda")["mlp"]
+    rng = np.random.default_rng(SEED + 6)
+    b = TRAIN_BATCH
+    x = torch.tensor(rng.standard_normal((b, field.spec.n_output_dims)
+                                         ).astype(np.float32),
+                     device="cuda").to(torch.bfloat16)
+    # an L1 loss's cotangent: ±1/B
+    g = torch.tensor(np.sign(rng.standard_normal((b, 1))).astype(np.float32)
+                     / b, device="cuda")
+    z1, zs1 = fm._kernel_train_forward(ws, x, cfg)
+    z2, zs2 = fm._plain_train_forward(ws, x, cfg)
+    dx1, dw1 = fm._kernel_backward(ws, x, zs1, z1, g, cfg)
+    dx2, dw2 = fm._plain_backward(ws, x, zs2, z2, g, cfg)
+    torch.cuda.synchronize()
+
+    def rel_err(a, r):
+        return float((a.float() - r.float()).abs().max()
+                     / r.float().abs().max())
+
+    fwd_err = max(float((z1 - z2).abs().max()), float((zs1 - zs2).abs().max()))
+    fwd_ok = all(bool((a - r).abs().le(MLP_ATOL + MLP_RTOL * r.abs()).all())
+                 for a, r in ((z1, z2), (zs1, zs2)))
+    dw_err = max(rel_err(a, r) for a, r in zip(dw1, dw2))
+    dx_err = rel_err(dx1, dx2)
+    bwd_abs = max([float((a - r).abs().max()) for a, r in zip(dw1, dw2)]
+                  + [float((dx1.float() - dx2.float()).abs().max())])
+    fwd_call = cuda_ms(torch, lambda: fm._kernel_train_forward(ws, x, cfg))
+    fwd_ms = device_ms(torch, lambda: fm._kernel_train_forward(ws, x, cfg),
+                       ("fused_mlp_kernel",))
+    fwd_plain = cuda_ms(torch, lambda: fm._plain_train_forward(ws, x, cfg))
+    bwd_call = cuda_ms(torch, lambda: fm._kernel_backward(ws, x, zs1, z1, g,
+                                                          cfg))
+    bwd_ms = device_ms(torch, lambda: fm._kernel_backward(ws, x, zs1, z1, g,
+                                                          cfg),
+                       ("fused_mlp_backward_kernel", "sum_partials_kernel"))
+    bwd_plain = cuda_ms(torch, lambda: fm._plain_backward(ws, x, zs2, z2, g,
+                                                          cfg))
+    # library: a bf16 torch.matmul chain, forward, and its autograd backward
+    wb = [w.to(torch.bfloat16).requires_grad_() for w in ws]
+    xl = x.clone().requires_grad_()
+
+    def chain():
+        h = xl
+        for w in wb[:-1]:
+            h = torch.relu(torch.matmul(h, w))
+        return torch.matmul(h, wb[-1])
+
+    lib_fwd = cuda_ms(torch, chain)
+    y_lib = chain()
+    g16 = g.to(torch.bfloat16)
+    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        y_lib, [xl] + wb, g16, retain_graph=True))
+    widths = [tuple(w.shape) for w in ws]
+    macs = b * sum(a * c for a, c in widths)
+    w_bytes = sum(2 * a * c for a, c in widths)
+    fb_ms, fb_by = bound_ms(nbytes(x, z1, zs1) + w_bytes, 2 * macs,
+                            H100_BF16_FLOPS)
+    # the backward's products take float32 cotangents: float32 rate
+    bb_ms, bb_by = bound_ms(nbytes(x, zs1, z1, g, dx1, *dw1) + w_bytes,
+                            4 * macs, H100_FP32_FLOPS)
+    fwd = {"phase": "fused_mlp_train_forward", "rows": b,
+           "max_abs_err": fwd_err, "tol": f"atol=rtol={MLP_ATOL}",
+           "ms": fwd_ms, "call_ms": fwd_call, "plain_ms": fwd_plain,
+           "library_ms": lib_fwd,
+           "bound_ms": fb_ms, "bound_by": fb_by,
+           "mbytes": (nbytes(x, z1, zs1) + w_bytes) / 1e6}
+    bwd = {"phase": "fused_mlp_backward", "rows": b, "max_abs_err": bwd_abs,
+           "dw_max_rel_err": dw_err, "dx_max_rel_err": dx_err,
+           "tol": f"dW {MLP_DW_RTOL}, dx {MLP_DX_RTOL} of the largest entry",
+           "ms": bwd_ms, "call_ms": bwd_call, "plain_ms": bwd_plain,
+           "library_ms": lib_bwd, "bound_ms": bb_ms, "bound_by": bb_by,
+           "gflop": 4 * macs / 1e9}
+    log(fwd)
+    log(bwd)
+    if not fwd_ok or dw_err > MLP_DW_RTOL or dx_err > MLP_DX_RTOL:
+        raise AssertionError(f"fused MLP training kernels disagree: {fwd} "
+                             f"{bwd}")
+    return fwd, bwd
+
+
+def _dense_oracle(torch, spec, coords, g, levels):
+    """float64 np.add.at of each corner's bf16-rounded product of weight
+    and cotangent row, over the given levels → {level: [size, F]}."""
+    from instantvnr_torch.ops import hash_encoding as he
+
+    b, nl, nf = coords.shape[0], spec.n_levels, spec.n_features
+    idx, w = he.corner_indices_and_weights(spec, coords)
+    idx = idx.reshape(b, nl, 8)
+    contrib = (g.to(torch.bfloat16).reshape(b, nl, 1, nf)
+               * w.to(torch.bfloat16).reshape(b, nl, 8, 1))
+    out = {}
+    for lvl in levels:
+        off, size = spec.level_offsets[lvl], spec.level_sizes[lvl]
+        ref = np.zeros((size, nf))
+        np.add.at(ref, (idx[:, lvl] - off).reshape(-1).cpu().numpy(),
+                  contrib[:, lvl].double().reshape(-1, nf).cpu().numpy())
+        out[lvl] = ref
+    return out
+
+
+def phase_hash_encode(torch, name, log2):
+    """The hash-grid kernels on a layout of the reference schema at
+    B = 2^16 in bf16 compute from the f32 master table, as a training step
+    runs them: forward against the plain gather, backward against the plain
+    index_add_ and, on the 2^19 layout's dense levels, a float64 oracle."""
+    from instantvnr_torch.config import EncodingConfig
+    from instantvnr_torch.ops import hash_encoding as he
+
+    spec = he.HashGridSpec.from_config(EncodingConfig(log2_hashmap_size=log2))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + log2)
+    table = torch.rand((spec.n_entries, spec.n_features), generator=gen,
+                       device="cuda") * 2.0 - 1.0
+    b = TRAIN_BATCH
+    coords = torch.rand((b, 3), generator=gen, device="cuda")
+    g = torch.randn((b, spec.n_output_dims), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    bf16 = torch.bfloat16
+    n = spec.n_entries
+    out = he.hash_encode(table, coords, spec, bf16)
+    ref = he.hash_encode_reference(table, coords, spec, bf16)
+    grad = he._kernel_backward(n, coords, spec, g, bf16)
+    grad_ref = he._plain_backward(n, coords, spec, g, bf16)
+    torch.cuda.synchronize()
+    fwd_err = float((out.float() - ref.float()).abs().max())
+    bwd_err = float((grad - grad_ref).abs().max())
+    bwd_ok = bool((grad - grad_ref).abs().le(
+        HASH_BWD_ATOL + HASH_BWD_RTOL * grad_ref.abs()).all())
+    oracle_err = None
+    dense = [lvl for lvl in range(spec.n_levels) if spec.level_is_dense[lvl]]
+    if log2 == 19:
+        for lvl, ref_l in _dense_oracle(torch, spec, coords, g, dense).items():
+            off, size = spec.level_offsets[lvl], spec.level_sizes[lvl]
+            got = grad[off:off + size].double().cpu().numpy()
+            err = np.abs(got - ref_l)
+            oracle_err = max(oracle_err or 0.0, float(err.max()))
+            bwd_ok &= bool((err <= HASH_BWD_ATOL
+                            + HASH_BWD_RTOL * np.abs(ref_l)).all())
+    idx, w = he.corner_indices_and_weights(spec, coords)
+    rows = int(torch.unique(idx).numel())
+    row_bytes = spec.n_features * 4
+    fwd_call = cuda_ms(torch, lambda: he._kernel_forward(table, coords,
+                                                         spec, bf16))
+    fwd_ms = device_ms(torch, lambda: he._kernel_forward(table, coords, spec,
+                                                         bf16),
+                       ("hash_encode_forward_kernel",))
+    fwd_plain = cuda_ms(torch, lambda: he._gather_encode(table, coords, spec,
+                                                         bf16))
+    bwd_call = cuda_ms(torch, lambda: he._kernel_backward(n, coords, spec,
+                                                          g, bf16))
+    # the wrapper's zeroing of the gradient table is the function's too
+    bwd_ms = device_ms(torch, lambda: he._kernel_backward(n, coords, spec, g,
+                                                          bf16),
+                       ("hash_encode_backward_kernel", "FillFunctor"))
+    bwd_plain = cuda_ms(torch, lambda: he._plain_backward(n, coords, spec, g,
+                                                          bf16))
+    # library yardsticks on precomputed corners (timed only): a weighted
+    # embedding_bag sum, and index_add_ of the weighted cotangents
+    bags = idx.reshape(-1, 8)
+    bag_w = w.reshape(-1, 8)
+    lib_fwd = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        bags, table, per_sample_weights=bag_w, mode="sum"))
+    contrib = (g.float().reshape(b, spec.n_levels, 1, spec.n_features)
+               * w.reshape(b, spec.n_levels, 8, 1)).reshape(-1,
+                                                            spec.n_features)
+    flat = idx.reshape(-1)
+    lib_bwd = cuda_ms(torch, lambda: torch.zeros_like(table).index_add_(
+        0, flat, contrib))
+    # bytes: each distinct row once, coords, the features (forward); coords,
+    # the cotangent and the whole f32 gradient table written (backward)
+    fwd_bytes = rows * row_bytes + nbytes(coords, out)
+    bwd_bytes = nbytes(coords, g, grad) + rows * row_bytes
+    lanes = b * spec.n_levels
+    fwd_ops = lanes * (12 + 8 * (5 + 3 * spec.n_features))
+    bwd_ops = lanes * 8 * (5 + 2 * spec.n_features)
+    fb_ms, fb_by = bound_ms(fwd_bytes, fwd_ops, H100_FP32_FLOPS)
+    bb_ms, bb_by = bound_ms(bwd_bytes, bwd_ops, H100_FP32_FLOPS)
+    common = {"layout": f"2^{log2}", "batch": b, "levels": spec.n_levels,
+              "features": spec.n_features, "table_mb": nbytes(table) / 1e6,
+              "gathered_mb": lanes * 8 * row_bytes / 1e6,
+              "distinct_rows": rows}
+    fwd = {"phase": f"hash_encode_forward[{name}]", **common,
+           "max_abs_err": fwd_err, "tol": HASH_FWD_ATOL, "ms": fwd_ms,
+           "call_ms": fwd_call, "plain_ms": fwd_plain, "library_ms": lib_fwd, "bound_ms": fb_ms,
+           "bound_by": fb_by, "mbytes": fwd_bytes / 1e6}
+    bwd = {"phase": f"hash_encode_backward[{name}]", **common,
+           "max_abs_err": bwd_err, "oracle_max_abs_err": oracle_err,
+           "tol": f"atol={HASH_BWD_ATOL}, rtol={HASH_BWD_RTOL}",
+           "ms": bwd_ms, "call_ms": bwd_call, "plain_ms": bwd_plain,
+           "library_ms": lib_bwd, "bound_ms": bb_ms, "bound_by": bb_by,
+           "mbytes": bwd_bytes / 1e6}
+    log(fwd)
+    log(bwd)
+    if not fwd_err <= HASH_FWD_ATOL or not bwd_ok:
+        raise AssertionError(f"hash-grid kernels disagree: {fwd} {bwd}")
+    return fwd, bwd
+
+
+def launches_during(fn):
+    """(fn(), the launches of every kernel counter made while fn ran)."""
+    before = {n: c.launches for n, c in counters().items()}
+    out = fn()
+    return out, {n: c.launches - before[n] for n, c in counters().items()}
+
+
+def add_launches(total, delta):
+    for n, v in delta.items():
+        total[n] = total.get(n, 0) + v
+
+
+def run_training(torch, sv, cfg, seed, name):
+    """TRAIN_STEPS steps through the facade, chunks of 10 at B = 2^16: a
+    warm-up (the online macrocell update at its end), 100 steps timed with
+    CUDA events, then the last TAIL_CHUNKS chunks of 10 with the PSNR
+    after each (the tail). Launches are counted over the
+    train() calls alone, not over the PSNR decodes between them."""
+    from instantvnr_torch import api
+
+    nv = api.NeuralVolume(cfg, sv, seed=seed, device="cuda",
+                          train_batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    t0 = time.perf_counter()
+    warmup = TRAIN_STEPS - 100 - 10 * TAIL_CHUNKS
+    _, d = launches_during(lambda: nv.train(warmup, chunk=10))
+    add_launches(launches, d)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, d = launches_during(lambda: nv.train(100, fast_mode=True, chunk=10))
+    end.record()
+    torch.cuda.synchronize()
+    add_launches(launches, d)
+    ms = start.elapsed_time(end) / 100
+    tail = []
+    for _ in range(TAIL_CHUNKS):
+        _, d = launches_during(lambda: nv.train(10, fast_mode=True))
+        add_launches(launches, d)
+        tail.append(nv.get_psnr())
+    wall_s = time.perf_counter() - t0
+    rec = {"phase": name, "seed": seed, "steps": nv.get_training_step(),
+           "batch": TRAIN_BATCH, "ms_per_step": ms,
+           "msamples_per_s": TRAIN_BATCH / ms / 1e3, "wall_s": wall_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "psnr_tail": tail,
+           "psnr_tail_median": float(np.median(tail)),
+           "loss": nv.get_training_loss(),
+           "test_loss": nv.get_testing_loss(), "psnr": tail[-1],
+           "ssim": nv.get_mssim()}
+    expect = {n: (TRAIN_STEPS if n in TRAIN_KERNELS else 0)
+              for n in counters()}
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches} != {expect}")
+    return nv, rec
+
+
+def run_plain_control(torch, sv, cfg, seed, name, mlp_fn):
+    """The same seed, batch, steps and PSNR tail as run_training, in a loop
+    built here from the plain functions (plain hash encode, `mlp_fn`,
+    adam_update) on CUDA tensors: no kernel may launch in its steps."""
+    from instantvnr_torch import api
+    from instantvnr_torch.data.sampler import sample_static
+    from instantvnr_torch.models.metrics import psnr_vs
+    from instantvnr_torch.models.optimizer import adam_update, mlp_l2_mask
+    from instantvnr_torch.ops.hash_encoding import hash_encode_reference
+
+    nv = api.NeuralVolume(cfg, sv, seed=seed, device="cuda",
+                          train_batch=TRAIN_BATCH)
+    field, vol = nv.field, sv.volume.data
+    state = nv.state
+    params, opt = state.params, state.opt
+
+    def step(params, opt):
+        coords, targets = sample_static(vol, state.generator, TRAIN_BATCH)
+        live = [p.detach().requires_grad_() for p in
+                [params["table"], *params["mlp"]]]
+        feats = hash_encode_reference(live[0], coords, field.spec,
+                                      torch.bfloat16)
+        pred = mlp_fn(live[1:], feats, field.cfg.network)
+        loss = torch.mean(torch.abs(pred - targets))
+        grads = torch.autograd.grad(loss, live)
+        return adam_update(field.cfg.optimizer, params,
+                           {"table": grads[0], "mlp": list(grads[1:])}, opt,
+                           l2_mask=mlp_l2_mask(params)), loss
+
+    launches, tail = {}, []
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_STEPS + 1):
+        ((params, opt), loss), d = launches_during(lambda: step(params, opt))
+        add_launches(launches, d)
+        if i > TRAIN_STEPS - 10 * TAIL_CHUNKS and i % 10 == 0:
+            tail.append(float(psnr_vs(field, params, vol)))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError(f"{name}: the plain loop launched {launches}")
+    nv.state = state._replace(params=params, opt=opt, loss=loss.detach())
+    return {"phase": name, "seed": seed, "steps": TRAIN_STEPS,
+            "wall_s": wall_s, "launches_in_steps": launches,
+            "psnr_tail": tail, "psnr_tail_median": float(np.median(tail)),
+            "loss": nv.get_training_loss(),
+            "test_loss": nv.get_testing_loss(), "psnr": tail[-1],
+            "ssim": nv.get_mssim()}
+
+
+def phase_training(torch, sv):
+    """train_2e14 through the kernels against its plain control and the
+    bf16-cotangent autograd of mlp_apply, over SEEDS_2E14; then train_2e19
+    over SEEDS_2E19. The 1000-step PSNR swings by several dB from one
+    10-step chunk to the next, so each run records the PSNR after each of
+    its last 10 chunks, and the variants compare the mean over seeds of
+    each run's tail median."""
+    from instantvnr_torch.config import EncodingConfig, ModelConfig
+    from instantvnr_torch.ops import fused_mlp as fm
+    from instantvnr_torch.ops.mlp import mlp_apply
+
+    cfg14 = ModelConfig(encoding=EncodingConfig(log2_hashmap_size=14))
+    mlps = {"plain": fm.fused_mlp_train_reference,
+            "autodiff": lambda w, x, c: mlp_apply(
+                w, x, c, compute_dtype=torch.bfloat16)}
+    runs = {"kernel": [], "plain": [], "autodiff": []}
+    for seed in SEEDS_2E14:
+        _, rec = run_training(torch, sv, cfg14, seed,
+                              f"train_2e14[seed {seed}]")
+        log(rec)
+        runs["kernel"].append(rec)
+        for kind, fn in mlps.items():
+            rec = run_plain_control(torch, sv, cfg14, seed,
+                                    f"train_2e14_{kind}_control[seed {seed}]",
+                                    fn)
+            log(rec)
+            runs[kind].append(rec)
+    k14 = runs["kernel"][0]
+    pooled = {kind: float(np.median([v for r in rs for v in r["psnr_tail"]]))
+              for kind, rs in runs.items()}
+    mean_tail = {kind: float(np.mean([r["psnr_tail_median"] for r in rs]))
+                 for kind, rs in runs.items()}
+    at_1000 = {kind: [r["psnr"] for r in rs] for kind, rs in runs.items()}
+    ssim_med = float(np.median([r["ssim"] for r in runs["kernel"]]))
+    summary = {
+        "phase": "train_2e14", "seeds": list(SEEDS_2E14),
+        "psnr_seed0_step1000": k14["psnr"], "ssim_seed0": k14["ssim"],
+        "ms_per_step_seed0": k14["ms_per_step"],
+        "psnr_pooled_tail_median": pooled,
+        "psnr_mean_of_tail_medians": mean_tail, "psnr_step1000": at_1000,
+        "ssim_median_kernel": ssim_med,
+        "kernel_minus_plain_db": mean_tail["kernel"] - mean_tail["plain"],
+        "bar_55db_seed0_met": k14["psnr"] >= PSNR_BAR_2E14,
+        "bar_55db_pooled_met": pooled["kernel"] >= PSNR_BAR_2E14,
+        "bar_within_1db_of_control_met":
+            abs(mean_tail["kernel"] - mean_tail["plain"]) <= 1.0,
+        "reference": "56.621 dB, SSIM 0.9997 (BENCH_r05, one TPU run)"}
+    log(summary)
+    if (ssim_med < SSIM_MIN
+            or summary["kernel_minus_plain_db"] < -KERNEL_LOSS_MAX_DB):
+        raise AssertionError(f"train_2e14 fails its checks: {summary}")
+    runs19 = []
+    nv19 = None
+    for seed in SEEDS_2E19:
+        nv, rec = run_training(torch, sv, ModelConfig(), seed,
+                               f"train_2e19[seed {seed}]")
+        log(rec)
+        runs19.append(rec)
+        if nv19 is None:
+            nv19 = nv
+    psnrs = [r["psnr"] for r in runs19]
+    summary19 = {
+        "phase": "train_2e19", "seeds": list(SEEDS_2E19),
+        "psnr_median": float(np.median(psnrs)),
+        "psnr_spread": max(psnrs) - min(psnrs),
+        "psnr_pooled_tail_median": float(np.median(
+            [v for r in runs19 for v in r["psnr_tail"]])),
+        "ssim_median": float(np.median([r["ssim"] for r in runs19])),
+        "ms_per_step_median": float(np.median(
+            [r["ms_per_step"] for r in runs19])),
+        "max_memory_allocated": max(r["max_memory_allocated"]
+                                    for r in runs19),
+        "reference": "median 52.845 dB, spread 3.754 dB, SSIM 0.9996 "
+                     "(BENCH_r05)"}
+    log(summary19)
+    if summary19["psnr_median"] < PSNR_MIN_2E19:
+        raise AssertionError(f"train_2e19 misses its bar: {summary19}")
+    return k14, nv19
+
+
+def phase_train_breakdown(torch, nv):
+    """Where a training step's time goes at 2^19: each stage of one step
+    alone (CUDA events, on the trained params and a fresh batch), then the
+    device time of 20 steps by kernel from torch.profiler, and the device's
+    busy share of their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instantvnr_torch.data.sampler import sample_static
+    from instantvnr_torch.models import trainer
+    from instantvnr_torch.models.optimizer import adam_update, mlp_l2_mask
+    from instantvnr_torch.ops import fused_mlp as fm
+    from instantvnr_torch.ops import hash_encoding as he
+
+    field, vol = nv.field, nv.simple.volume.data
+    spec, net, bf16 = field.spec, field.cfg.network, torch.bfloat16
+    state = nv.state
+    params = state.params
+    coords, targets = sample_static(vol, state.generator, TRAIN_BATCH)
+    feats = he._kernel_forward(params["table"], coords, spec, bf16)
+    z_out, zs = fm._kernel_train_forward(params["mlp"], feats, net)
+    g = torch.sign(z_out - targets) / TRAIN_BATCH
+    _, grads = trainer.value_and_grad(field, params, coords, targets)
+
+    def step():
+        return trainer.train_step(field, vol, state, TRAIN_BATCH)
+
+    rec = {"phase": "train_breakdown", "layout": "2^19",
+           "sample_ms": cuda_ms(torch, lambda: sample_static(
+               vol, state.generator, TRAIN_BATCH)),
+           "hash_forward_ms": cuda_ms(torch, lambda: he._kernel_forward(
+               params["table"], coords, spec, bf16)),
+           "mlp_forward_ms": cuda_ms(torch, lambda: fm._kernel_train_forward(
+               params["mlp"], feats, net)),
+           "mlp_backward_ms": cuda_ms(torch, lambda: fm._kernel_backward(
+               params["mlp"], feats, zs, z_out, g, net)),
+           # the features stand in for the cotangent: same shape and type
+           "hash_backward_ms": cuda_ms(torch, lambda: he._kernel_backward(
+               spec.n_entries, coords, spec, feats, bf16)),
+           "zero_grad_table_ms": cuda_ms(torch, lambda: torch.zeros_like(
+               params["table"])),
+           "adam_ms": cuda_ms(torch, lambda: adam_update(
+               field.cfg.optimizer, params, grads, state.opt,
+               l2_mask=mlp_l2_mask(params))),
+           "value_and_grad_ms": cuda_ms(torch, lambda: trainer.value_and_grad(
+               field, params, coords, targets)),
+           "step_ms": cuda_ms(torch, step)}
+    n = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    nv.train(n, fast_mode=True)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        nv.train(n, fast_mode=True)
+        torch.cuda.synchronize()
+    groups = {"fused_mlp_backward": ("fused_mlp_backward_kernel",
+                                     "sum_partials_kernel"),
+              "fused_mlp_train_forward": ("fused_mlp_kernel",),
+              "hash_encode_backward": ("hash_encode_backward_kernel",),
+              "hash_encode_forward": ("hash_encode_forward_kernel",),
+              "adam (multi-tensor elementwise)": ("multi_tensor_apply",),
+              "zero fill": ("FillFunctor",)}
+    device = {name: 0.0 for name in list(groups) + ["other"]}
+    n_kernels = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        us = kernel_us(ev)
+        name = next((k for k, pats in groups.items()
+                     if any(p in ev.name for p in pats)), "other")
+        device[name] += us / 1e3 / n
+    busy = sum(device.values())
+    rec.update({"profiled_steps": n, "device_ms_per_step": device,
+                "device_busy_ms_per_step": busy,
+                "ms_per_step_unprofiled": step_ms,
+                "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+                "device_ops_per_step": n_kernels / n})
+    log(rec)
+    return rec
+
+
+def phase_online_loop(torch, nv):
+    """The paper's in-loop mode at 2^19: rounds of train(10), a full
+    re-decode and one 512² DECODED_SLAB frame; every round re-decodes and
+    its frame differs from the last."""
+    from instantvnr_torch import api
+
+    r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode.DECODED_SLAB)
+    r.set_camera(orbit(1, N_FRAMES, max(DIMS)))
+    r.render()
+    prev = r.mapframe()
+    rounds = []
+    for i in range(ONLINE_ROUNDS):
+        for c in counters().values():
+            c.reset()
+        t0 = time.perf_counter()
+        nv.train(10)
+        nv.ensure_decoded(SIZE, SIZE)
+        r.render()
+        frame = r.mapframe()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: c.launches for n, c in counters().items()}
+        change = float(np.abs(frame - prev).max())
+        rounds.append({"ms": ms, "launches": launches, "frame_change": change,
+                       "alpha_max": float(frame[..., 3].max())})
+        expect = {n: 0 for n in counters()}
+        expect.update({n: 10 for n in TRAIN_KERNELS},
+                      fused_mlp=8, composite_slabs=1)
+        if launches != expect or not change > 0.0 or \
+                not np.isfinite(frame).all():
+            raise AssertionError(f"online round {i}: {rounds[-1]}, "
+                                 f"expected launches {expect}")
+        prev = frame
+    rec = {"phase": "online_loop", "layout": "2^19", "rounds": rounds,
+           "ms_per_round": float(np.mean([x["ms"] for x in rounds[1:]]))}
+    log(rec)
     return rec
 
 
@@ -510,10 +1086,16 @@ def phase_breakdown(torch, nv, renderer, r_iso):
 def counters():
     """Every kernel's launch counter, by kernel name."""
     from instantvnr_torch.ops import fused_mlp as fm
+    from instantvnr_torch.ops import hash_encoding as he
     from instantvnr_torch.ops import iso_sweep as isw
     from instantvnr_torch.ops import slab_composite as sc
 
-    return {"fused_mlp": fm.counter, "composite_slabs": sc.counter,
+    return {"fused_mlp": fm.counter,
+            "fused_mlp_train_forward": fm.train_forward_counter,
+            "fused_mlp_backward": fm.backward_counter,
+            "hash_encode_forward": he.counter,
+            "hash_encode_backward": he.backward_counter,
+            "composite_slabs": sc.counter,
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter}
 
 
@@ -651,6 +1233,9 @@ def main() -> int:
     vol = sv.volume.data
     blob_rows = DIMS[0] * DIMS[1] * 16
     mlp = phase_fused_mlp(torch, blob_rows)
+    mlp_train = phase_fused_mlp_train(torch)
+    hashes = {log2: phase_hash_encode(torch, f"2^{log2}", log2)
+              for log2 in (14, 19)}
     knots = np.linspace(0.0, 1.0, 70)
     alphas = np.random.default_rng(SEED + 4).uniform(0.0, 0.9, 70)
     tf70 = bake_transfer_function(TransferFunctionConfig(
@@ -720,30 +1305,47 @@ def main() -> int:
     log({"phase": "bson_roundtrip", "alpha_max": float(f2[..., 3].max()),
          "bytes": ckpt_bytes})
 
+    # -- training: 2^14 against its controls, 2^19 over three seeds -------
+    train14, nv19 = phase_training(torch, sv)
+    phase_train_breakdown(torch, nv19)
+    phase_online_loop(torch, nv19)
+
     # launches: totals over the main-path runs (the plain orbit with its
-    # decode, then the four views)
+    # decode, then the four views; the 1000 steps of train_2e14)
     runs = [plain] + views
     total = {name: sum(v["launches"][name] for v in runs)
              for name in counters()}
     total["fused_mlp"] += decode_launches + views[-1]["decode_launches"]
+    for name in TRAIN_KERNELS:
+        total[name] = train14["launches"][name]
     csrc = "instantvnr_torch/csrc/"
     tpu = "instantvnr_tpu/ops/pallas/"
 
     def row(name, source, replaces, rec):
         return {"name": name, "route": "cuda", "source": csrc + source,
-                "replaces": tpu + replaces, "launches": total[name],
+                "replaces": replaces, "launches": total[name],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
     kernels = [
-        row("fused_mlp", "fused_mlp.cu", "fused_mlp.py:135", mlp),
-        row("composite_slabs", "slab_composite.cu", "slab_composite.py:242",
-            comp),
+        row("fused_mlp", "fused_mlp.cu", tpu + "fused_mlp.py:135", mlp),
+        row("fused_mlp_train_forward", "fused_mlp.cu",
+            tpu + "fused_mlp.py:135", mlp_train[0]),
+        row("fused_mlp_backward", "fused_mlp.cu", tpu + "fused_mlp.py:200",
+            mlp_train[1]),
+        # the hash grid has no TPU kernel: these replace XLA's gather and
+        # its autodiff scatter in hash_encode (rows of the 2^19 layout)
+        row("hash_encode_forward", "hash_encode.cu",
+            "instantvnr_tpu/ops/hash_encoding.py:332", hashes[19][0]),
+        row("hash_encode_backward", "hash_encode.cu",
+            "instantvnr_tpu/ops/hash_encoding.py:332", hashes[19][1]),
+        row("composite_slabs", "slab_composite.cu",
+            tpu + "slab_composite.py:242", comp),
         row("composite_slabs_ext", "slab_composite.cu",
-            "slab_composite.py:292", ext["shaded+shadow"]),
-        row("iso_sweep", "iso_sweep.cu", "iso_sweep.py:99", iso),
+            tpu + "slab_composite.py:292", ext["shaded+shadow"]),
+        row("iso_sweep", "iso_sweep.cu", tpu + "iso_sweep.py:99", iso),
     ]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from instantvnr_torch.config import MACROCELL_SIZE_MIP
+from instantvnr_torch.utils.device import device_constant
 from instantvnr_torch.utils.tfn import TransferFunction, max_alpha_in_range
 
 MACROCELL_SIZE = 1 << MACROCELL_SIZE_MIP
@@ -81,6 +82,49 @@ def compute_value_ranges(mc: MacroCell, volume: torch.Tensor) -> MacroCell:
     lo = -F.max_pool3d(F.pad(-v, pads, value=-float("inf")), w + 2, stride=w)
     return MacroCell(value_lo=lo[0, 0].contiguous(),
                      value_hi=hi[0, 0].contiguous(),
+                     max_opacity=mc.max_opacity, volume_dims=mc.volume_dims)
+
+
+_SPLAT = tuple((c & 1, (c >> 1) & 1, (c >> 2) & 1) for c in range(8))
+
+
+def update_explicit(mc: MacroCell, coords: torch.Tensor,
+                    values: torch.Tensor) -> MacroCell:
+    """Online update from a training batch (macrocell.cu:42-73): coords
+    [B,3] in [0,1]³, values [B] or [B,1]. Each sample updates its cell and,
+    when its voxel lies on a cell boundary, the neighbour cells across it
+    (an 8-way splat), as one scatter-min and one scatter-max; targets
+    outside the grid go to a spare slot that is dropped."""
+    values = values.reshape(-1).to(torch.float32)
+    dev = values.device
+    i64 = torch.int64
+    vdims = mc.volume_dims
+    mx, my, mz = mc.dims
+    mdims = device_constant((mx, my, mz), i64, dev)
+    voxel = torch.minimum(
+        torch.clamp(torch.floor(coords * device_constant(
+            tuple(float(d) for d in vdims), torch.float32, dev)).to(i64),
+            min=0),
+        device_constant(tuple(d - 1 for d in vdims), i64, dev))  # [B,3]
+    w = MACROCELL_SIZE
+    rem = voxel % w
+    shift = torch.where(rem == 0, -1, torch.where(rem == w - 1, 1, 0))
+    targets = (voxel[:, None, :]
+               + device_constant(_SPLAT, i64, dev) * shift[:, None, :])
+    cell = targets >> MACROCELL_SIZE_MIP  # [B,8,3]
+    valid = ((cell >= 0) & (cell < mdims)).all(dim=-1)
+    n_cells = mx * my * mz
+    flat = (cell[..., 2] * my + cell[..., 1]) * mx + cell[..., 0]
+    flat = torch.where(valid, flat, n_cells).reshape(-1)
+    vals8 = values[:, None].expand(-1, 8).reshape(-1)
+
+    def scatter(base, reduce):
+        out = torch.cat([base.reshape(-1), base.new_zeros(1)])
+        out = out.scatter_reduce(0, flat, vals8, reduce, include_self=True)
+        return out[:n_cells].reshape(base.shape)
+
+    return MacroCell(value_lo=scatter(mc.value_lo, "amin"),
+                     value_hi=scatter(mc.value_hi, "amax"),
                      max_opacity=mc.max_opacity, volume_dims=mc.volume_dims)
 
 

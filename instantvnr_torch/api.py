@@ -30,7 +30,16 @@ from instantvnr_torch.config import (
     load_model_config,
 )
 from instantvnr_torch.data.volume import Volume, synthetic_volume
-from instantvnr_torch.models.network import NeuralField, init_params
+from instantvnr_torch.models.network import NeuralField
+from instantvnr_torch.models.optimizer import adam_init
+from instantvnr_torch.models.trainer import (
+    DEFAULT_TRAIN_BATCH,
+    TrainState,
+    create_train_state,
+    derived_generator,
+    test_loss,
+    train_steps,
+)
 from instantvnr_torch.render.camera import Camera
 from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
 from instantvnr_torch.render.transform import default_transform
@@ -65,8 +74,8 @@ _PORTED_MODES = (RenderMode.DECODED_SLAB, RenderMode.FULL_SHADOW_DECODED,
 # shadow-modulated wavefront)
 _MARCHERS_ITEM = ("ROADMAP 'Next slices' item 3 (exact marchers: wavefront, "
                   "brick cache and path tracing)")
-_TRAINING_ITEM = ("ROADMAP 'Next slices' item 1 (training: optimizer, "
-                  "trainer, the hash-grid and fused-MLP backward kernels)")
+_NPZ_ITEM = ("ROADMAP 'Next slices' item 2 (main-path CLI and bench, "
+             "with native .npz checkpoints for --resume)")
 
 
 class SimpleVolume:
@@ -98,15 +107,25 @@ class SimpleVolume:
         return self.volume.dims
 
 
-class NeuralVolume:
-    """The neural representation (reference NeuralVolumeContext /
-    NeuralVolume, core/network.h:29-107), inference only.
+@dataclasses.dataclass
+class TrainingStatistics:
+    """NeuralVolume::statistics (network.cu:762-767)."""
 
-    `params` holds {"table", "mlp"} on `device`; assign a new dict to swap
-    the weights (renderers re-derive their inference params by identity)."""
+    step: int
+    loss: float
+
+
+class NeuralVolume:
+    """The neural representation and its trainer (reference
+    NeuralVolumeContext / NeuralVolume, core/network.h:29-107).
+
+    `params` holds {"table", "mlp"} on `device`; each training step, and
+    each assignment, makes a new dict, and renderers re-derive their
+    inference params by identity."""
 
     def __init__(self, model_config, simple: SimpleVolume | None = None,
-                 dims=None, seed: int = 0, device="cuda"):
+                 dims=None, seed: int = 0, device="cuda",
+                 train_batch: int = DEFAULT_TRAIN_BATCH):
         self.device = resolve_device(device)
         if not isinstance(model_config, ModelConfig):
             model_config = load_model_config(model_config)
@@ -114,9 +133,12 @@ class NeuralVolume:
         self.field = NeuralField.from_config(model_config)
         self.simple = simple
         self.dims = tuple(simple.dims) if simple is not None else tuple(dims)
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        self.params = init_params(gen, self.field, device=self.device)
+        self.train_batch = train_batch
+        self.state: TrainState = create_train_state(self.field, seed,
+                                                    self.device)
         self.step = 0
+        # the inference macrocell, updated online from training batches
+        # (reference m_macrocell)
         self._mc_needs_rebuild = False
         self.macrocell = mcmod.allocate(self.dims, self.device)
         self._decoder = None
@@ -124,9 +146,116 @@ class NeuralVolume:
         self._decode_cache = None  # (params, grid) of the last decode_volume
         self.transform = default_transform(self.dims, self.device)
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError("training is not ported yet: "
-                                  + _TRAINING_ITEM)
+    @property
+    def params(self) -> dict:
+        return self.state.params
+
+    @params.setter
+    def params(self, params: dict):
+        """New weights; the optimizer restarts (fresh Adam moments), the
+        sample stream goes on."""
+        self.state = self.state._replace(params=params,
+                                         opt=adam_init(params))
+
+    # -- training -----------------------------------------------------------
+
+    def train(self, steps: int, fast_mode: bool = False,
+              chunk: int = 10) -> TrainingStatistics:
+        """Run `steps` training steps in chunks of `chunk`
+        (vnrNeuralVolumeTrain, api.cpp:222 → Impl::train,
+        network.cu:231-259). fast_mode skips the online macrocell update."""
+        if self.simple is None:
+            raise ValueError("training needs a reference volume (simple=...)")
+        vol = self.simple.volume.data
+        done = 0
+        while done < steps:
+            n = min(chunk, steps - done)
+            self.state = train_steps(self.field, vol, self.state, n,
+                                     self.train_batch)
+            done += n
+        self.step += steps
+        if not fast_mode:
+            self._update_macrocell_online()
+        return self.statistics()
+
+    def _update_macrocell_online(self):
+        """Online macrocell refresh from a fresh sample batch and the TF's
+        opacity (the reference updates from the training batch,
+        network.cu:770-779), on a generator derived from the sample
+        stream."""
+        from instantvnr_torch.ops.trilinear import sample_volume_tex
+
+        gen = derived_generator(self.state.generator, 0x6d63)
+        coords = torch.rand((self.train_batch, 3), generator=gen,
+                            dtype=torch.float32, device=self.device)
+        values = sample_volume_tex(self.simple.volume.data, coords)
+        mc = mcmod.update_explicit(self.macrocell, coords, values)
+        self.macrocell = mcmod.update_max_opacity(mc, self.simple.tf)
+
+    def statistics(self) -> TrainingStatistics:
+        return TrainingStatistics(step=self.step, loss=float(self.state.loss))
+
+    def get_training_loss(self) -> float:
+        """vnrNeuralVolumeGetTrainingLoss (api.cpp:300-305)."""
+        return float(self.state.loss)
+
+    def get_training_step(self) -> int:
+        """vnrNeuralVolumeGetTrainingStep (api.cpp:307-312)."""
+        return self.step
+
+    def set_model(self, model_config):
+        """vnrNeuralVolumeSetModel (api.cpp:258-267): a new architecture and
+        a fresh training state."""
+        if not isinstance(model_config, ModelConfig):
+            model_config = load_model_config(model_config)
+        self.cfg = model_config
+        self.field = NeuralField.from_config(model_config)
+        self.state = create_train_state(self.field, 0, self.device)
+        self.step = 0
+        self._decoder = None
+
+    def set_params(self, params):
+        """vnrNeuralVolumeSetParams (api.cpp:269-278): weights from a BSON
+        checkpoint path or an already-decoded document. The optimizer
+        restarts, as the reference's deserialize_params does (Adam moments
+        are not in the interchange format)."""
+        from instantvnr_torch.serializer import (load_checkpoint,
+                                                 load_checkpoint_doc)
+
+        if isinstance(params, str):
+            if params.endswith(".npz"):
+                raise NotImplementedError(
+                    "native .npz checkpoints are not ported yet: " + _NPZ_ITEM)
+            field, p, mc, dims, meta = load_checkpoint(params, self.device)
+        else:
+            field, p, mc, dims, meta = load_checkpoint_doc(params, self.device)
+        if dims is not None and tuple(dims) != tuple(self.dims):
+            if self.simple is not None:
+                # the reference refuses a checkpoint of other dims
+                # (network.cu:886-893)
+                raise ValueError(
+                    f"checkpoint volume dims {tuple(dims)} != this volume's "
+                    f"{tuple(self.dims)}")
+            # no ground truth: adopt the checkpoint's dims, as
+            # from_checkpoint does
+            self.dims = tuple(dims)
+            self.macrocell = mcmod.allocate(self.dims, self.device)
+            self.transform = default_transform(self.dims, self.device)
+            self._decoder = None
+        if (field.cfg.encoding != self.cfg.encoding
+                or field.cfg.network != self.cfg.network):
+            self.cfg = field.cfg  # the checkpoint's own model section
+            self.field = field
+            self._decoder = None
+        self.params = p
+        self.step = int(meta.get("step", 0))
+        if mc is not None:
+            tf = self.simple.tf if self.simple is not None else \
+                bake_transfer_function(TransferFunctionConfig(),
+                                       device=self.device)
+            self.macrocell = mcmod.update_max_opacity(mc, tf)
+        elif self.simple is None:
+            self._mc_needs_rebuild = True
 
     # -- inference / decoding ---------------------------------------------
 
@@ -220,18 +349,54 @@ class NeuralVolume:
         self._decode_cache = (self.params, grid)
         return grid
 
+    # -- metrics ------------------------------------------------------------
+
+    def get_psnr(self) -> float:
+        """PSNR of the decoded grid (decode_volume, identity-cached, so a
+        PSNR then SSIM report pays one decode)."""
+        from instantvnr_torch.models.metrics import psnr_arrays
+
+        return float(psnr_arrays(self.decode_volume(),
+                                 self.simple.volume.data))
+
+    def get_mssim(self) -> float:
+        from instantvnr_torch.models.metrics import ssim_arrays
+
+        return float(ssim_arrays(self.decode_volume(),
+                                 self.simple.volume.data))
+
+    def get_testing_loss(self) -> float:
+        return float(test_loss(self.field, self.simple.volume.data,
+                               self.state, self.train_batch))
+
+    def get_macrocell_psnr(self) -> float:
+        """PSNR of the online macrocell's value ranges against the ground
+        truth's (reference macrocell min/max PSNR, network.cu:628-698), over
+        the cells the online update touched."""
+        gt = self.simple.macrocell
+        got = self.macrocell
+        touched = got.value_hi >= got.value_lo
+        if not bool(touched.any()):
+            return 0.0
+        err = torch.cat([(got.value_lo - gt.value_lo)[touched],
+                         (got.value_hi - gt.value_hi)[touched]])
+        mse = float((err.double() ** 2).mean())
+        return float(10.0 * np.log10(1.0 / max(mse, 1e-20)))
+
     # -- serialization ----------------------------------------------------
 
     def save_params(self, path: str):
-        """vnrNeuralVolumeSerializeParams: the reference BSON format."""
+        """vnrNeuralVolumeSerializeParams: the reference BSON format, with
+        the training step and loss."""
         if path.endswith(".npz"):
             raise NotImplementedError(
-                "native .npz checkpoints are not ported yet: " + _TRAINING_ITEM)
+                "native .npz checkpoints are not ported yet: " + _NPZ_ITEM)
         from instantvnr_torch.serializer import save_checkpoint
 
         mc = self.simple.macrocell if self.simple is not None else self.macrocell
         save_checkpoint(path, self.field, self.params, mc, self.dims,
-                        groundtruth_mc=self.simple is not None, step=self.step)
+                        groundtruth_mc=self.simple is not None, step=self.step,
+                        loss=float(self.state.loss))
 
     @classmethod
     def from_checkpoint(cls, path: str, simple: SimpleVolume | None = None,
@@ -240,7 +405,7 @@ class NeuralVolume:
         renders without any ground truth."""
         if path.endswith(".npz"):
             raise NotImplementedError(
-                "native .npz checkpoints are not ported yet: " + _TRAINING_ITEM)
+                "native .npz checkpoints are not ported yet: " + _NPZ_ITEM)
         from instantvnr_torch.serializer import load_checkpoint
 
         dev = resolve_device(device)

@@ -1,14 +1,13 @@
 """The neural field: hash encoding + MLP, f: [0,1]³ → R (counterpart of
-`instantvnr_tpu/models/network.py`, inference only).
+`instantvnr_tpu/models/network.py`).
 
 Parameters keep the JAX package's layout, a plain dict
 
     {"table": [T, F] float32, "mlp": [W0, W1, ...]}   (Wi [fan_in, fan_out])
 
 so both packages compare like for like and share BSON checkpoints.
-`render_params` adds the inference-only keys: "_render" (marker: the
-decoder MLP goes through the fused kernel) and, for big schemas,
-"packed" (corner-packed dense-level tables).
+`render_params` derives the inference params of one update (for big
+schemas a bf16 table plus "packed", corner-packed dense-level tables).
 """
 from __future__ import annotations
 
@@ -88,11 +87,13 @@ def params_from_numpy(params_np: dict, device="cuda") -> Params:
 
 def network_apply(params: Params, coords: torch.Tensor,
                   field: NeuralField) -> torch.Tensor:
-    """coords [B,3] in [0,1]³ → values [B,1] float32 (inference).
+    """coords [B,3] in [0,1]³ → values [B,1] float32; differentiable with
+    respect to params that require grad.
 
-    Render params in bf16 compute run the decoder through the fused MLP
-    (the kernel on CUDA tensors, its plain version on CPU tensors); other
-    params run the plain MLP, as the JAX package leaves them to XLA."""
+    In bf16 compute the MLP runs through the fused MLP: its training form
+    when a weight or the features require grad, its inference form
+    otherwise (the kernels on CUDA tensors, their plain versions on CPU
+    tensors). Other compute types run the plain MLP under autograd."""
     compute_dtype = field.compute_dtype
     if "packed" in params:
         feats = hash_encode_packed(params["table"], params["packed"], coords,
@@ -100,7 +101,7 @@ def network_apply(params: Params, coords: torch.Tensor,
     else:
         feats = hash_encode(params["table"], coords, field.spec,
                             compute_dtype=compute_dtype)
-    if "_render" in params and compute_dtype == torch.bfloat16:
+    if compute_dtype == torch.bfloat16:
         from instantvnr_torch.ops.fused_mlp import fused_mlp_apply
 
         return fused_mlp_apply(params["mlp"], feats, field.cfg.network)
@@ -116,12 +117,11 @@ def render_params(params: Params, field: NeuralField) -> Params:
     Call once per parameter update, not per frame."""
     mlp = [w.detach().clone() for w in params["mlp"]]
     if field.spec.n_params < _BIG_SCHEMA_PARAMS:
-        return {"table": params["table"].detach().clone(), "mlp": mlp,
-                "_render": ()}
+        return {"table": params["table"].detach().clone(), "mlp": mlp}
     table = params["table"].detach().to(torch.bfloat16)
     if table.data_ptr() == params["table"].data_ptr():
         table = table.clone()  # already bf16: .to() aliased it
-    out = {"table": table, "mlp": mlp, "_render": ()}
+    out = {"table": table, "mlp": mlp}
     packed = packed_dense_tables(table, field.spec)
     if packed:
         out["packed"] = packed

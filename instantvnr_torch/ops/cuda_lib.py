@@ -40,6 +40,17 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, w, y, B, n_in, width, n_hidden, n_out, act, out_act, stream
     "fused_mlp_forward": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, z_out, zs, B, n_in, width, n_hidden, n_out, act, stream
+    "fused_mlp_train_forward": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # x, w, zs, z_out, g, dx, dx_bf16, partials, dw, B, n_in, width,
+    # n_hidden, n_out, act, out_act, stream
+    "fused_mlp_backward": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I,
+                           _I, _I, _I, _I, _P),
+    # table, coords, out, B, L, F, scales, levels, table_bf16, out_bf16,
+    # stream
+    "hash_encode_forward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _P),
+    # coords, g, grad, B, L, F, scales, levels, g_bf16, stream
+    "hash_encode_backward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _P),
     # vol, my, mx, covy, covx, corr, ctrl, kc, lut, n_lut, out,
     # D, ay, ax, hi, wi, term_thresh, stream
     "slab_composite_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,

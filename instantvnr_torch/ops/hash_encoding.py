@@ -1,4 +1,4 @@
-"""Multi-resolution hash-grid encoding, forward only (counterpart of
+"""Multi-resolution hash-grid encoding (counterpart of
 `instantvnr_tpu/ops/hash_encoding.py`).
 
 Semantics mirror tiny-cuda-nn's GridEncoding (reference
@@ -16,9 +16,16 @@ The hash multiplies must wrap as uint32. Torch has few uint32 ops, so the
 products are taken in int64 (exact: a coordinate < 2^31 times a prime
 < 2^32 stays below 2^63) and masked to 32 bits before the xor and the mod.
 
-This is plain PyTorch on every device, as the JAX package computes it in
-XLA outside any Pallas kernel; a hand-written hash-grid kernel is a later
-item of the port.
+`hash_encode` is differentiable with respect to the table. For CUDA
+tensors its forward is the kernel `hash_encode_forward` and its backward
+`hash_encode_backward` (`csrc/hash_encode.cu`); CPU tensors take the plain
+version, `hash_encode_reference`: a gather forward and an `index_add_`
+backward. Both accumulate the table gradient in float32 whatever the
+compute type. (The JAX package differentiates its gather with XLA, which
+scatters into the gathered rows' type, bf16 once a table of ≥ 32 MB is
+pre-cast: ROADMAP Queue 3.) The gradient with respect to the coordinates
+is not ported. `hash_encode_packed`, the decode's gather of corner-packed
+dense levels, is plain PyTorch on every device.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ import numpy as np
 import torch
 
 from instantvnr_torch.config import EncodingConfig
+from instantvnr_torch.ops import cuda_lib
+from instantvnr_torch.utils.device import device_constant
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -102,8 +111,9 @@ class HashGridSpec:
 
 
 # the 8 corner offsets of a cell, [8, 3], x fastest (tcnn_impl_decoder.cu:101-118)
-_CORNERS = np.array(
-    [[(c >> 0) & 1, (c >> 1) & 1, (c >> 2) & 1] for c in range(8)], np.int64)
+_CORNER_TUPLES = tuple(((c >> 0) & 1, (c >> 1) & 1, (c >> 2) & 1)
+                       for c in range(8))
+_CORNERS = np.array(_CORNER_TUPLES, np.int64)
 
 # pre-cast tables of at least this many f32 bytes to the 16-bit compute
 # dtype before the gather (identical numerics, half the gathered bytes)
@@ -137,7 +147,7 @@ def corner_indices_and_weights(spec: HashGridSpec, coords: torch.Tensor):
     """Flat table indices [B, L·8] (int64) and trilinear weights [B, L·8]
     (float32) of all levels for coords [B, 3] in [0,1]³."""
     _check_tcnn(spec)
-    corners = torch.as_tensor(_CORNERS, device=coords.device)  # [8,3]
+    corners = device_constant(_CORNER_TUPLES, torch.int64, coords.device)
     coords = coords.to(torch.float32)
     idx_parts, w_parts = [], []
     for lvl in range(spec.n_levels):
@@ -163,17 +173,158 @@ def corner_indices_and_weights(spec: HashGridSpec, coords: torch.Tensor):
     return torch.cat(idx_parts, dim=1), torch.cat(w_parts, dim=1)
 
 
-def hash_encode(table: torch.Tensor, coords: torch.Tensor, spec: HashGridSpec,
-                compute_dtype=torch.float32) -> torch.Tensor:
-    """Encode [B,3] coords → [B, L·F] features in `compute_dtype`: the
-    gathered row times the weight is rounded to compute dtype, then the 8
-    corners are summed in compute dtype."""
+def _gather_encode(table, coords, spec, compute_dtype, corners=None):
+    """The plain forward: the gathered row times the weight is rounded to
+    the compute type, then the 8 corners are summed (PyTorch accumulates a
+    16-bit sum in float32 and rounds it once). `corners`: the coords'
+    (indices, weights), if already computed."""
     b = coords.shape[0]
-    indices, weights = corner_indices_and_weights(spec, coords)
+    indices, weights = corners or corner_indices_and_weights(spec, coords)
     feats = _precast_for_gather(table, compute_dtype)[indices]
     feats = feats.to(compute_dtype) * weights.to(compute_dtype)[..., None]
     feats = feats.reshape(b, spec.n_levels, 8, spec.n_features).sum(dim=2)
     return feats.reshape(b, spec.n_levels * spec.n_features)
+
+
+def _plain_backward(n_entries, coords, spec, g, compute_dtype, corners=None):
+    """The plain backward: each corner's weight times the cotangent row,
+    rounded to the compute type (the transpose of the forward's product),
+    index_add_-ed into a float32 table → [T, F] float32."""
+    b, nf = coords.shape[0], spec.n_features
+    indices, weights = corners or corner_indices_and_weights(spec, coords)
+    gc = g.to(compute_dtype).reshape(b, spec.n_levels, 1, nf)
+    wc = weights.to(compute_dtype).reshape(b, spec.n_levels, 8, 1)
+    contrib = (gc * wc).to(torch.float32).reshape(-1, nf)
+    grad = torch.zeros((n_entries, nf), dtype=torch.float32, device=g.device)
+    return grad.index_add_(0, indices.reshape(-1), contrib)
+
+
+counter = cuda_lib.LaunchCounter()  # hash_encode_forward
+backward_counter = cuda_lib.LaunchCounter()  # hash_encode_backward
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_KERNEL_FEATURES = (1, 2, 4, 8)
+_MAX_LEVELS = 32
+
+
+def _level_arrays(spec: HashGridSpec):
+    """Host arrays the kernels read: scales [L] float32 and (res, size,
+    offset, dense) [L, 4] int32."""
+    scales = np.asarray(spec.scales, np.float32)
+    levels = np.array([[r, s, o, int(d)] for r, s, o, d in zip(
+        spec.resolutions, spec.level_sizes, spec.level_offsets,
+        spec.level_is_dense)], np.int32)
+    return scales, levels
+
+
+def _kernel_args(table_or_none, coords, spec, compute_dtype):
+    """Validate what the kernels take; → (coords, scales, levels)."""
+    _check_tcnn(spec)
+    if (compute_dtype not in _KERNEL_DTYPES
+            or spec.n_features not in _KERNEL_FEATURES
+            or spec.n_levels > _MAX_LEVELS or coords.dtype != torch.float32
+            or (table_or_none is not None
+                and (table_or_none.dtype not in _KERNEL_DTYPES
+                     or table_or_none.device != coords.device))):
+        raise ValueError(
+            f"hash-grid kernels take f32/bf16 tables and compute types, "
+            f"F in {_KERNEL_FEATURES}, at most {_MAX_LEVELS} levels and f32 "
+            f"coords on one device (got table "
+            f"{getattr(table_or_none, 'dtype', None)}, compute "
+            f"{compute_dtype}, F {spec.n_features}, coords {coords.dtype})")
+    return (coords.contiguous(), *_level_arrays(spec))
+
+
+def _kernel_forward(table, coords, spec, compute_dtype):
+    coords, scales, levels = _kernel_args(table, coords, spec, compute_dtype)
+    table = table.contiguous()
+    if table.data_ptr() % 16:  # the kernel's vector loads need alignment
+        table = table.clone()
+    b = coords.shape[0]
+    out = torch.empty((b, spec.n_output_dims), dtype=compute_dtype,
+                      device=coords.device)
+    cuda_lib.load_library().call(
+        "hash_encode_forward", table.data_ptr(), coords.data_ptr(),
+        out.data_ptr(), b, spec.n_levels, spec.n_features, scales.ctypes.data,
+        levels.ctypes.data, int(table.dtype == torch.bfloat16),
+        int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(coords.device).cuda_stream)
+    counter.launches += 1
+    return out
+
+
+def _kernel_backward(n_entries, coords, spec, g, compute_dtype):
+    coords, scales, levels = _kernel_args(None, coords, spec, compute_dtype)
+    g = g.to(compute_dtype).contiguous()
+    grad = torch.zeros((n_entries, spec.n_features), dtype=torch.float32,
+                       device=coords.device)
+    cuda_lib.load_library().call(
+        "hash_encode_backward", coords.data_ptr(), g.data_ptr(),
+        grad.data_ptr(), coords.shape[0], spec.n_levels, spec.n_features,
+        scales.ctypes.data, levels.ctypes.data,
+        int(compute_dtype == torch.bfloat16),
+        torch.cuda.current_stream(coords.device).cuda_stream)
+    backward_counter.launches += 1
+    return grad
+
+
+class _Encode(torch.autograd.Function):
+    """hash_encode, differentiable with respect to the table."""
+
+    @staticmethod
+    def forward(ctx, table, coords, spec, compute_dtype, kernel):
+        ctx.meta = (table.shape[0], table.dtype, spec, compute_dtype, kernel)
+        if kernel:
+            ctx.save_for_backward(coords)
+            return _kernel_forward(table, coords, spec, compute_dtype)
+        # the plain backward reuses the forward's corners
+        corners = corner_indices_and_weights(spec, coords)
+        ctx.save_for_backward(coords, *corners)
+        return _gather_encode(table, coords, spec, compute_dtype, corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, *corners = ctx.saved_tensors
+        n_entries, dtype, spec, compute_dtype, kernel = ctx.meta
+        if kernel:
+            grad = _kernel_backward(n_entries, coords, spec, g, compute_dtype)
+        else:
+            grad = _plain_backward(n_entries, coords, spec, g, compute_dtype,
+                                   tuple(corners))
+        return grad.to(dtype), None, None, None, None
+
+
+def _needs_table_grad(table, coords) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    if coords.requires_grad:
+        raise NotImplementedError(
+            "hash_encode: the gradient with respect to the coordinates is "
+            "not ported")
+    return table.requires_grad
+
+
+def hash_encode_reference(table: torch.Tensor, coords: torch.Tensor,
+                          spec: HashGridSpec,
+                          compute_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of `hash_encode`, on any device."""
+    if _needs_table_grad(table, coords):
+        return _Encode.apply(table, coords, spec, compute_dtype, False)
+    return _gather_encode(table, coords, spec, compute_dtype)
+
+
+def hash_encode(table: torch.Tensor, coords: torch.Tensor, spec: HashGridSpec,
+                compute_dtype=torch.float32) -> torch.Tensor:
+    """Encode [B,3] coords → [B, L·F] features in `compute_dtype`: each
+    gathered row times its weight is rounded to the compute type, then the
+    8 corners are summed. Differentiable with respect to `table`."""
+    if coords.device.type == "cpu":
+        return hash_encode_reference(table, coords, spec, compute_dtype)
+    if coords.device.type != "cuda":
+        raise ValueError(f"unsupported device {coords.device}")
+    if _needs_table_grad(table, coords):
+        return _Encode.apply(table, coords, spec, compute_dtype, True)
+    return _kernel_forward(table, coords, spec, compute_dtype)
 
 
 def packed_dense_tables(table: torch.Tensor, spec: HashGridSpec) -> dict:

@@ -6,6 +6,8 @@ the plain versions on the CPU.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -18,3 +20,13 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+@functools.lru_cache(maxsize=64)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """A small constant tensor on `device`, made once per process and never
+    written to. Making it per call would copy from the host, and a copy to
+    a CUDA device from pageable memory waits for the stream: the host could
+    then no longer run ahead of the card."""
+    return torch.tensor(values, dtype=dtype, device=device)

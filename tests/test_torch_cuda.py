@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from instantvnr_torch.config import NetworkConfig
+from instantvnr_torch.config import EncodingConfig, NetworkConfig
 from instantvnr_torch.ops import fused_mlp as fm
+from instantvnr_torch.ops import hash_encoding as he
 from instantvnr_torch.ops import iso_sweep as isw
 from instantvnr_torch.ops import slab_composite as sc
 
@@ -54,6 +55,104 @@ def test_fused_mlp_kernel_matches_plain(cuda, width, n_hidden, n_in, n_out,
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                atol=2e-2, rtol=2e-2)
     assert float((got - ref).abs().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("width,n_hidden,n_in,n_out,act,out_act", [
+    (64, 4, 64, 1, "ReLU", "None"),
+    (16, 2, 8, 4, "Sine", "Squareplus"),
+    (32, 0, 40, 1, "ReLU", "Squareplus"),
+    (128, 3, 128, 3, "Squareplus", "None"),
+])
+def test_fused_mlp_training_kernels_match_plain(cuda, width, n_hidden, n_in,
+                                                n_out, act, out_act):
+    """The training forward (y and the saved pre-activations) and the
+    backward (every dW, dx) against the plain training form: outputs at
+    the MLP tolerance, dW within 1e-3 and the bf16 dx within 1e-2 of their
+    largest entries."""
+    rng = np.random.default_rng(width + n_hidden)
+    widths = [n_in] + [width] * n_hidden + [n_out]
+    ws = [torch.tensor(rng.standard_normal((a, b)).astype(np.float32)
+                       * np.sqrt(2.0 / a), device=cuda)
+          for a, b in zip(widths[:-1], widths[1:])]
+    b = 1001
+    x = torch.tensor(rng.standard_normal((b, n_in)).astype(np.float32),
+                     device=cuda).to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((b, n_out)).astype(np.float32),
+                     device=cuda)
+    cfg = NetworkConfig(n_neurons=width, n_hidden_layers=n_hidden,
+                        activation=act, output_activation=out_act)
+    grads = {}
+    for kernel in (True, False):
+        tw = [w.clone().requires_grad_() for w in ws]
+        tx = x.clone().requires_grad_()
+        before = (fm.train_forward_counter.launches,
+                  fm.backward_counter.launches)
+        y = (fm.fused_mlp_apply(tw, tx, cfg) if kernel
+             else fm.fused_mlp_train_reference(tw, tx, cfg))
+        (y * g).sum().backward()
+        torch.cuda.synchronize()
+        launched = (fm.train_forward_counter.launches - before[0],
+                    fm.backward_counter.launches - before[1])
+        assert launched == ((1, 1) if kernel else (0, 0))
+        grads[kernel] = (y.detach(), tx.grad, [w.grad for w in tw])
+    (y1, dx1, dw1), (y2, dx2, dw2) = grads[True], grads[False]
+    np.testing.assert_allclose(y1.cpu().numpy(), y2.cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    assert dx1.dtype == torch.bfloat16
+    for got, ref, tol in [(dx1, dx2, 1e-2)] + [(a, r, 1e-3)
+                                               for a, r in zip(dw1, dw2)]:
+        ref = ref.float().cpu().numpy()
+        np.testing.assert_allclose(got.float().cpu().numpy(), ref, rtol=0,
+                                   atol=tol * np.abs(ref).max())
+    z1, zs1 = fm._kernel_train_forward(ws, x, cfg)
+    z2, zs2 = fm._plain_train_forward(ws, x, cfg)
+    np.testing.assert_allclose(zs1.cpu().numpy(), zs2.cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(z1.cpu().numpy(), z2.cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("n_features", [2, 8])
+@pytest.mark.parametrize("table_dtype,compute", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+def test_hash_encode_kernels_match_plain(cuda, n_features, table_dtype,
+                                         compute):
+    """Forward (dense and hashed levels, a ragged batch) against the plain
+    gather: f32 at atol 1e-5, bf16 at one bf16 step (the 8-corner sum runs
+    in another order). Backward (f32 table) against the plain index_add_
+    at atol 5e-4, rtol 1e-4: float atomics add in a varying order."""
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        n_levels=6, n_features_per_level=n_features, log2_hashmap_size=12,
+        base_resolution=4))
+    assert any(spec.level_is_dense) and not all(spec.level_is_dense)
+    rng = np.random.default_rng(n_features)
+    tdt, cdt = getattr(torch, table_dtype), getattr(torch, compute)
+    table = torch.tensor(rng.uniform(-1, 1, (spec.n_entries, n_features)
+                                     ).astype(np.float32), device=cuda).to(tdt)
+    b = 10007
+    c = rng.random((b, 3)).astype(np.float32)
+    c[:4] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]]
+    coords = torch.tensor(c, device=cuda)
+    before = he.counter.launches
+    got = he.hash_encode(table, coords, spec, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert he.counter.launches == before + 1 and got.dtype == cdt
+    ref = he.hash_encode_reference(table, coords, spec, compute_dtype=cdt)
+    atol = 1e-5 if compute == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol, rtol=0)
+    if table_dtype != "float32":
+        return
+    g = torch.tensor(rng.standard_normal((b, spec.n_output_dims)).astype(
+        np.float32), device=cuda).to(cdt)
+    grads = []
+    for encode in (he.hash_encode, he.hash_encode_reference):
+        t = table.clone().requires_grad_()
+        encode(t, coords, spec, compute_dtype=cdt).backward(g)
+        grads.append(t.grad.cpu().numpy())
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(grads[0], grads[1], atol=5e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("lut", [False, True])

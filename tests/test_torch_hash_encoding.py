@@ -9,7 +9,14 @@ and coords.
   side sums the 8 bf16-rounded corner products in bf16 in its own order.
   Levels with res ≥ 128 hash, so this case catches a uint32 wrap fault.
 - Corner indices must be equal exactly.
+- Table gradients: equal to `jax.grad(hash_encode)` (rtol 1e-6) on a layout
+  under 32 MB, in f32 and bf16 compute; against a float64 `np.add.at`
+  oracle at B = 2^16 (atol 5e-4, rtol 1e-4, as tests/test_ops.py:257), on
+  the 2^19 schema's dense levels and, with the bf16 pre-cast forced on, on
+  a small hashed layout, where the JAX reference (which then scatters into
+  bf16) lies far from the oracle.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -109,3 +116,96 @@ def test_reference_spec_render_params_bf16_packed():
     plain = he.hash_encode(tp["table"], torch.from_numpy(coords), spec,
                            compute_dtype=torch.bfloat16).float().numpy()
     np.testing.assert_allclose(plain, ref, atol=1e-2, rtol=0)
+
+
+def _oracle(spec, coords, g, compute_dtype):
+    """float64 np.add.at of each corner weight (rounded to the compute
+    type) times the cotangent row, the product rounded to the compute type
+    as the forward's product is."""
+    b, nl, nf = coords.shape[0], spec.n_levels, spec.n_features
+    idx, w = he.corner_indices_and_weights(spec, torch.from_numpy(coords))
+    wc = w.to(compute_dtype).reshape(b, nl, 8, 1)
+    gc = torch.from_numpy(g).to(compute_dtype).reshape(b, nl, 1, nf)
+    contrib = (gc * wc).double().reshape(-1, nf).numpy()
+    ref = np.zeros((spec.n_entries, nf))
+    np.add.at(ref, idx.reshape(-1).numpy(), contrib)
+    return ref
+
+
+def _port_grad(spec, table, coords, g, compute_dtype):
+    t = torch.from_numpy(table).requires_grad_()
+    out = he.hash_encode(t, torch.from_numpy(coords), spec,
+                         compute_dtype=compute_dtype)
+    out.backward(torch.from_numpy(g).to(compute_dtype))
+    assert t.grad.dtype == torch.float32
+    return t.grad.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_table_grad_matches_jax(dtype):
+    rng = np.random.default_rng(3)
+    js = jhe.HashGridSpec.from_config(JEncodingConfig(**SMALL))
+    ts = he.HashGridSpec.from_config(EncodingConfig(**SMALL))
+    assert ts.n_entries * ts.n_features * 4 < he._PRECAST_MIN_BYTES
+    table = rng.uniform(-1, 1, (ts.n_entries, ts.n_features)).astype(
+        np.float32)
+    coords = _coords(rng, 4096)
+    g = rng.standard_normal((4096, ts.n_output_dims)).astype(np.float32)
+    g = torch.from_numpy(g).to(getattr(torch, dtype)).float().numpy()
+    jd = getattr(jnp, dtype)
+    ref = jax.grad(lambda t: jnp.sum(jhe.hash_encode(
+        t, jnp.asarray(coords), js, compute_dtype=jd).astype(jnp.float32)
+        * g))(jnp.asarray(table))
+    got = _port_grad(ts, table, coords, g, getattr(torch, dtype))
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+def test_dense_grads_match_f64_oracle_at_train_batch():
+    """The reference schema's dense levels (res 16/32/64) at B = 2^16."""
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        n_levels=3, n_features_per_level=2, log2_hashmap_size=19,
+        base_resolution=16, per_level_scale=2.0))
+    assert spec.resolutions == (16, 32, 64) and all(spec.level_is_dense)
+    rng = np.random.default_rng(4)
+    b = 1 << 16
+    coords = rng.random((b, 3)).astype(np.float32)
+    g = rng.standard_normal((b, spec.n_output_dims)).astype(np.float32)
+    table = np.zeros((spec.n_entries, 2), np.float32)
+    got = _port_grad(spec, table, coords, g, torch.float32)
+    np.testing.assert_allclose(got, _oracle(spec, coords, g, torch.float32),
+                               atol=5e-4, rtol=1e-4)
+
+
+def test_plain_backward_stays_f32_under_precast(monkeypatch):
+    """With the bf16 pre-cast on (forced for a small table), the port still
+    sums the table gradient in float32; the JAX reference's autodiff
+    scatters into the pre-cast bf16 table and misses the oracle by ~9 on
+    entries of up to ~57 (ROADMAP Queue 3)."""
+    kw = dict(n_levels=2, n_features_per_level=2, log2_hashmap_size=8,
+              base_resolution=4)
+    js = jhe.HashGridSpec.from_config(JEncodingConfig(**kw))
+    ts = he.HashGridSpec.from_config(EncodingConfig(**kw))
+    monkeypatch.setattr(he, "_PRECAST_MIN_BYTES", 0)
+    monkeypatch.setattr(jhe, "_PRECAST_MIN_BYTES", 0)
+    rng = np.random.default_rng(5)
+    b = 1 << 16
+    table = rng.uniform(-1, 1, (ts.n_entries, 2)).astype(np.float32)
+    coords = rng.random((b, 3)).astype(np.float32)
+    g = torch.from_numpy(rng.standard_normal((b, ts.n_output_dims)).astype(
+        np.float32)).to(torch.bfloat16).float().numpy()
+    ref = _oracle(ts, coords, g, torch.bfloat16)
+    got = _port_grad(ts, table, coords, g, torch.bfloat16)
+    np.testing.assert_allclose(got, ref, atol=5e-4, rtol=1e-4)
+    j_got = np.asarray(jax.grad(lambda t: jnp.sum(jhe.hash_encode(
+        t, jnp.asarray(coords), js, compute_dtype=jnp.bfloat16).astype(
+        jnp.float32) * g))(jnp.asarray(table)))
+    j_err = np.abs(j_got - ref).max()
+    assert j_err > 1.0 and j_err > 0.05 * np.abs(ref).max()
+
+
+def test_coords_grad_is_refused():
+    ts = he.HashGridSpec.from_config(EncodingConfig(**SMALL))
+    table = torch.zeros((ts.n_entries, ts.n_features))
+    coords = torch.rand((8, 3), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="coordinates"):
+        he.hash_encode(table, coords, ts)

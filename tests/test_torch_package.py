@@ -20,6 +20,7 @@ from instantvnr_torch import api
 from instantvnr_torch.config import ModelConfig, NetworkConfig
 from instantvnr_torch.ops import cuda_lib
 from instantvnr_torch.ops import fused_mlp as fm
+from instantvnr_torch.ops import hash_encoding as he
 from instantvnr_torch.ops import iso_sweep as isw
 from instantvnr_torch.ops import slab_composite as sc
 
@@ -85,8 +86,11 @@ def test_unported_modes_raise_naming_roadmap():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.VNRenderer(nv, 8, 8, mode)
     r = api.VNRenderer(nv, 8, 8)
+    # training is ported; native .npz checkpoints are not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nv.train(10)
+        nv.save_params("unported.npz")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nv.set_params("unported.npz")
     # an eye inside the volume looking back along the principal axis has
     # no slab factorization; neither the slab path's wavefront fallback
     # nor the isosurface's brute-force marcher is ported
@@ -114,11 +118,25 @@ def test_cpu_wrappers_never_build(monkeypatch):
     ws = [torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32)),
           torch.from_numpy(rng.standard_normal((16, 1)).astype(np.float32))]
     x = torch.from_numpy(rng.standard_normal((33, 16)).astype(np.float32))
-    counters = (fm.counter, sc.counter, sc.ext_counter, isw.counter)
+    counters = (fm.counter, fm.train_forward_counter, fm.backward_counter,
+                he.counter, he.backward_counter, sc.counter, sc.ext_counter,
+                isw.counter)
     before = [c.launches for c in counters]
     y = fm.fused_mlp_apply(ws, x, NetworkConfig(n_neurons=16,
                                                 n_hidden_layers=1))
     assert y.shape == (33, 1)
+    # the training forms: the fused MLP's and the hash grid's backward
+    from instantvnr_torch.config import EncodingConfig
+
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        n_levels=2, n_features_per_level=8, log2_hashmap_size=8))
+    table = torch.zeros((spec.n_entries, 8), requires_grad=True)
+    feats = he.hash_encode(table, torch.rand((33, 3)), spec,
+                           compute_dtype=torch.bfloat16)
+    wt = [w.clone().requires_grad_() for w in ws]
+    fm.fused_mlp_apply(wt, feats, NetworkConfig(
+        n_neurons=16, n_hidden_layers=1)).sum().backward()
+    assert table.grad is not None and all(w.grad is not None for w in wt)
     d, hi, wi, ay, ax = 3, 5, 6, 4, 4
     f = lambda *s: torch.from_numpy(rng.random(s).astype(np.float32))  # noqa
     ctrl = torch.zeros((4, 8))
@@ -162,10 +180,13 @@ def test_loader_is_lazy():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
     srcs = [os.path.basename(p) for p in cuda_lib._sources()]
-    assert {"fused_mlp.cu", "slab_composite.cu", "iso_sweep.cu"} <= set(srcs)
+    assert {"fused_mlp.cu", "hash_encode.cu", "slab_composite.cu",
+            "iso_sweep.cu"} <= set(srcs)
     assert set(cuda_lib.SIGNATURES) == {
-        "fused_mlp_forward", "slab_composite_forward",
-        "slab_composite_ext_forward", "iso_sweep_forward"}
+        "fused_mlp_forward", "fused_mlp_train_forward", "fused_mlp_backward",
+        "hash_encode_forward", "hash_encode_backward",
+        "slab_composite_forward", "slab_composite_ext_forward",
+        "iso_sweep_forward"}
 
 
 def test_ctypes_signatures_match_sources():
