@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
-Builds the CUDA kernels from instantvnr_torch/csrc with nvcc, holds each
-kernel to its plain PyTorch version at the main path's shapes and times
-both, then drives the main paths through the user-facing entry points:
+Builds the CUDA kernels from instantvnr_torch/csrc with nvcc (and checks
+in their SASS that the fused-MLP kernels run on the tensor cores), holds
+each kernel to its plain PyTorch version at the main path's shapes and
+times both, then drives the main paths through the user-facing entry
+points:
 
 - serving: SimpleVolume.synthetic (vorts 128³) → NeuralVolume(ModelConfig()),
   the 2^19 reference schema with seeded random weights → VNRenderer(512²,
-  DECODED_SLAB): one full decode and an orbit of frames; then on the same
-  decode four more orbits: gradient shading, shading + shadows,
+  DECODED_SLAB): one full decode (through the hash-grid and fused-MLP
+  kernels, held to the plain packed decode) and an orbit of frames; then
+  on the same decode four more orbits: gradient shading, shading + shadows,
   FULL_SHADOW_DECODED and ISOSURFACE_DECODED; a breakdown of a blob and a
   frame; a BSON checkpoint round trip;
 - training: NeuralVolume.train(1000) at B = 2^16 on the 2^14 layout (PSNR
@@ -92,11 +95,27 @@ TRAIN_KERNELS = ("fused_mlp_train_forward", "fused_mlp_backward",
 # gradient's largest entry: dW sums float32 products in another order;
 # dx is rounded to bf16 (one step is 2^-8 of its value)
 MLP_DW_RTOL, MLP_DX_RTOL = 1e-3, 1e-2
+# end to end, the rows to which the forward kernel and the plain forward
+# hand the backward other inputs, as a share of B: an activation rounded to
+# the other bf16 neighbour, or on the other side of a ReLU kink, where the
+# tensor core's f32 sum differs from cuBLAS's in the last bits. Measured
+# 0.31-0.35% of 2^16 rows over 5 seeds (PERF.md, scripts/compare_trees.py):
+# 1% is about 3× the largest, and a fault in a rounding point parts nearly
+# every row
+PARTED_ROWS_MAX = 0.01
 # the hash grid: bf16 features within a bf16 step at |v| ≤ 2 (the 8-corner
 # sum in another order); the gradient table summed by float atomics in a
 # varying order, held as tests/test_ops.py:257 holds its oracle
 HASH_FWD_ATOL = 1e-2
 HASH_BWD_ATOL, HASH_BWD_RTOL = 5e-4, 1e-4
+# a full decode of the 2^19 model on the card: 8 blobs, each one K3 gather
+# of the bf16 table and one fused_mlp launch
+DECODE_LAUNCHES = {"fused_mlp": 8, "hash_encode_forward": 8}
+# the fused-MLP kernel functions that must hold tensor-core MMAs (SASS)
+MMA_KERNELS = {"fused_mlp_forward": ("fused_mlp_forward_kernel", "Lb0E"),
+               "fused_mlp_train_forward": ("fused_mlp_forward_kernel",
+                                           "Lb1E"),
+               "fused_mlp_backward": ("fused_mlp_backward_kernel", "")}
 
 
 def log(obj):
@@ -141,6 +160,13 @@ def kernel_us(event):
     return getattr(event, "device_time", None) or event.cuda_time
 
 
+def library_times(torch, fn):
+    """A library call timed as the port's kernels are, by the device time
+    of every kernel it launches (torch.profiler), and by CUDA events around
+    the calls (host dispatch included) → (device ms, call ms)."""
+    return device_ms(torch, fn, ("",)), cuda_ms(torch, fn)
+
+
 def bound_ms(n_bytes, n_ops, peak_ops):
     t_bytes = n_bytes / H100_BYTES_PER_S
     t_ops = n_ops / peak_ops
@@ -181,27 +207,25 @@ def orbit(i, n, d):
 
 def phase_fused_mlp(torch, rows):
     from instantvnr_torch.config import ModelConfig
-    from instantvnr_torch.models.network import NeuralField, params_from_numpy
+    from instantvnr_torch.models.network import NeuralField
     from instantvnr_torch.ops import fused_mlp as fm
 
     field = NeuralField.from_config(ModelConfig())
     cfg = field.cfg.network
-    p = params_from_numpy(seeded_params(field, SEED + 1), "cuda")
-    rng = np.random.default_rng(SEED + 2)
-    x = torch.tensor(rng.standard_normal((rows, field.spec.n_output_dims)
-                                         ).astype(np.float32),
-                     device="cuda").to(torch.bfloat16)
-    got = fm.fused_mlp_apply(p["mlp"], x, cfg)
-    ref = fm.fused_mlp_reference(p["mlp"], x, cfg)
+    ws, x, _ = mlp_inputs(torch, field, SEED + 1, b=rows)
+    got = fm.fused_mlp_apply(ws, x, cfg)
+    ref = fm.fused_mlp_reference(ws, x, cfg)
     torch.cuda.synchronize()
     diff = (got - ref).abs()
     err = float(diff.max())
     mean_err = float(diff.mean())
     ok = bool((diff <= MLP_ATOL + MLP_RTOL * ref.abs()).all()) and \
         mean_err <= MLP_MEAN_TOL
-    ms = cuda_ms(torch, lambda: fm.fused_mlp_apply(p["mlp"], x, cfg))
-    plain_ms = cuda_ms(torch, lambda: fm.fused_mlp_reference(p["mlp"], x, cfg))
-    wb = [w.to(torch.bfloat16) for w in p["mlp"]]
+    call_ms = cuda_ms(torch, lambda: fm.fused_mlp_apply(ws, x, cfg))
+    ms = device_ms(torch, lambda: fm.fused_mlp_apply(ws, x, cfg),
+                   ("fused_mlp_forward_kernel",))
+    plain_ms = cuda_ms(torch, lambda: fm.fused_mlp_reference(ws, x, cfg))
+    wb = [w.to(torch.bfloat16) for w in ws]
 
     def library():  # a bf16 torch.matmul chain: timed only, never used
         h = x
@@ -209,61 +233,141 @@ def phase_fused_mlp(torch, rows):
             h = torch.relu(torch.matmul(h, w))
         return torch.matmul(h, wb[-1])
 
-    library_ms = cuda_ms(torch, library)
-    widths = [w.shape for w in p["mlp"]]
+    library_ms, library_call_ms = library_times(torch, library)
+    widths = [w.shape for w in ws]
     flops = 2 * rows * sum(a * b for a, b in widths)
     b_ms, b_by = bound_ms(nbytes(x, got) + sum(2 * a * b for a, b in widths),
                           flops, H100_BF16_FLOPS)
     rec = {"phase": "fused_mlp", "rows": rows, "max_abs_err": err,
            "mean_abs_err": mean_err, "tol": f"atol=rtol={MLP_ATOL}, "
-           f"mean<={MLP_MEAN_TOL}", "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "gflop": flops / 1e9}
+           f"mean<={MLP_MEAN_TOL}", "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_call_ms": library_call_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9}
     log(rec)
     if not ok:
         raise AssertionError(f"fused_mlp kernel disagrees: {rec}")
     return rec
 
 
+def rel_err(a, r):
+    """max |a − r| as a share of r's largest entry (lists: the largest)."""
+    if isinstance(a, (list, tuple)):
+        return max(rel_err(u, v) for u, v in zip(a, r))
+    return float((a.double() - r.double()).abs().max()
+                 / r.double().abs().max())
+
+
+def mlp_inputs(torch, field, seed, b=TRAIN_BATCH):
+    """The fused MLP's inputs at the field's widths: its seeded weights,
+    bf16 features [b, n_in] and an L1 loss's cotangent ±1/b."""
+    from instantvnr_torch.models.network import params_from_numpy
+
+    ws = params_from_numpy(seeded_params(field, seed), "cuda")["mlp"]
+    rng = np.random.default_rng(seed + 1)
+    x = torch.tensor(rng.standard_normal((b, field.spec.n_output_dims)
+                                         ).astype(np.float32),
+                     device="cuda").to(torch.bfloat16)
+    g = torch.tensor(np.sign(rng.standard_normal((b, 1))).astype(np.float32)
+                     / b, device="cuda")
+    return ws, x, g
+
+
+def parted_rows(torch, cfg, fwd_a, fwd_b):
+    """Rows to which two training forwards, each (z_out, zs), hand the
+    backward other inputs: a hidden activation rounded to another bf16
+    value, or another act'(z) (the two sides of a ReLU kink) → (bool [B],
+    the counts of rows and elements that part)."""
+    from instantvnr_torch.ops.fused_mlp import act_grad
+    from instantvnr_torch.ops.mlp import apply_activation
+
+    (za, zsa), (zb, zsb) = fwd_a, fwd_b
+    act, out_act = cfg.activation, cfg.output_activation
+    h_flips = (apply_activation(zsa, act).to(torch.bfloat16)
+               != apply_activation(zsb, act).to(torch.bfloat16))
+    d_flips = act_grad(zsa, act) != act_grad(zsb, act)
+    out_flips = act_grad(za, out_act) != act_grad(zb, out_act)
+    rows = (h_flips | d_flips).any(-1).any(0) | out_flips.any(-1)
+    return rows, {"rows_parted": int(rows.sum()),
+                  "bf16_activation_flips": int(h_flips.sum()),
+                  "act_grad_flips": int(d_flips.sum() + out_flips.sum())}
+
+
+def chain_end_to_end(torch, ws, x, g, cfg):
+    """The training chain end to end: the backward kernel on the forward
+    kernel's residuals against the plain backward on the same residuals
+    (every row), and against the plain forward and backward. Where the two
+    forwards round an activation to neighbouring bf16 values, or fall on
+    two sides of a ReLU kink, a row's backward takes other inputs and its
+    dx moves by a whole unit's share: those rows are counted, and the two
+    chains are compared on the others (the cotangent of a parted row set
+    to 0 in both) and on all rows (reported) → {max rel errors, counts}."""
+    from instantvnr_torch.ops import fused_mlp as fm
+
+    kf = fm._kernel_train_forward(ws, x, cfg)
+    pf = fm._plain_train_forward(ws, x, cfg)
+    parted, counts = parted_rows(torch, cfg, kf, pf)
+    kept = g * (~parted).to(g.dtype)[:, None]
+    kernel = fm._kernel_backward(ws, x, kf[1], kf[0], g, cfg)
+    runs = {"kernel_chain": (kernel, fm._plain_backward(ws, x, kf[1], kf[0],
+                                                        g, cfg)),
+            "vs_plain_chain_agreeing_rows": (
+                fm._kernel_backward(ws, x, kf[1], kf[0], kept, cfg),
+                fm._plain_backward(ws, x, pf[1], pf[0], kept, cfg)),
+            "vs_plain_chain_all_rows": (
+                kernel, fm._plain_backward(ws, x, pf[1], pf[0], g, cfg))}
+    torch.cuda.synchronize()
+    out = {"rows": x.shape[0], **counts}
+    for name, ((dx_a, dw_a), (dx_b, dw_b)) in runs.items():
+        out[name] = {"dw_max_rel_err": rel_err(dw_a, dw_b),
+                     "dx_max_rel_err": rel_err(dx_a, dx_b)}
+    return out
+
+
 def phase_fused_mlp_train(torch):
     """The training form at the reference widths and B = 2^16: the forward
     kernel (y, zs) and the backward kernel (every dW, dx) against the plain
-    training form on the same inputs."""
+    training form on the same inputs, every dW also against a float64
+    oracle, two runs of the backward bit for bit, and the chain end to end
+    (chain_end_to_end)."""
     from instantvnr_torch.config import ModelConfig
-    from instantvnr_torch.models.network import NeuralField, params_from_numpy
+    from instantvnr_torch.models.network import NeuralField
     from instantvnr_torch.ops import fused_mlp as fm
 
     field = NeuralField.from_config(ModelConfig())
     cfg = field.cfg.network
-    ws = params_from_numpy(seeded_params(field, SEED + 5), "cuda")["mlp"]
-    rng = np.random.default_rng(SEED + 6)
-    b = TRAIN_BATCH
-    x = torch.tensor(rng.standard_normal((b, field.spec.n_output_dims)
-                                         ).astype(np.float32),
-                     device="cuda").to(torch.bfloat16)
-    # an L1 loss's cotangent: ±1/B
-    g = torch.tensor(np.sign(rng.standard_normal((b, 1))).astype(np.float32)
-                     / b, device="cuda")
+    ws, x, g = mlp_inputs(torch, field, SEED + 5)
+    b = x.shape[0]
     z1, zs1 = fm._kernel_train_forward(ws, x, cfg)
     z2, zs2 = fm._plain_train_forward(ws, x, cfg)
-    dx1, dw1 = fm._kernel_backward(ws, x, zs1, z1, g, cfg)
+    # the backward kernel and its plain version on the same inputs (the
+    # plain forward's residuals), twice, and the float64 oracle on them:
+    # the plain chain in float64 (every h_kᵀ g_z of the bf16 layer inputs)
+    dx1, dw1 = fm._kernel_backward(ws, x, zs2, z2, g, cfg)
     dx2, dw2 = fm._plain_backward(ws, x, zs2, z2, g, cfg)
+    _, dw_f64 = fm._plain_backward([w.double() for w in ws], x.double(), zs2,
+                                   z2, g.double(), cfg)
+    dx3, dw3 = fm._kernel_backward(ws, x, zs2, z2, g, cfg)
     torch.cuda.synchronize()
-
-    def rel_err(a, r):
-        return float((a.float() - r.float()).abs().max()
-                     / r.float().abs().max())
+    same_bits = torch.equal(dx1, dx3) and all(
+        torch.equal(a, r) for a, r in zip(dw1, dw3))
+    oracle_err = rel_err(dw1, dw_f64)
+    e2e = chain_end_to_end(torch, ws, x, g, cfg)
+    e2e_ok = all(e2e[k]["dw_max_rel_err"] <= MLP_DW_RTOL
+                 and e2e[k]["dx_max_rel_err"] <= MLP_DX_RTOL
+                 for k in ("kernel_chain", "vs_plain_chain_agreeing_rows")
+                 ) and e2e["rows_parted"] <= PARTED_ROWS_MAX * b
 
     fwd_err = max(float((z1 - z2).abs().max()), float((zs1 - zs2).abs().max()))
     fwd_ok = all(bool((a - r).abs().le(MLP_ATOL + MLP_RTOL * r.abs()).all())
                  for a, r in ((z1, z2), (zs1, zs2)))
-    dw_err = max(rel_err(a, r) for a, r in zip(dw1, dw2))
+    dw_err = rel_err(dw1, dw2)
     dx_err = rel_err(dx1, dx2)
     bwd_abs = max([float((a - r).abs().max()) for a, r in zip(dw1, dw2)]
                   + [float((dx1.float() - dx2.float()).abs().max())])
     fwd_call = cuda_ms(torch, lambda: fm._kernel_train_forward(ws, x, cfg))
     fwd_ms = device_ms(torch, lambda: fm._kernel_train_forward(ws, x, cfg),
-                       ("fused_mlp_kernel",))
+                       ("fused_mlp_forward_kernel",))
     fwd_plain = cuda_ms(torch, lambda: fm._plain_train_forward(ws, x, cfg))
     bwd_call = cuda_ms(torch, lambda: fm._kernel_backward(ws, x, zs1, z1, g,
                                                           cfg))
@@ -282,34 +386,50 @@ def phase_fused_mlp_train(torch):
             h = torch.relu(torch.matmul(h, w))
         return torch.matmul(h, wb[-1])
 
-    lib_fwd = cuda_ms(torch, chain)
+    lib_fwd, lib_fwd_call = library_times(torch, chain)
     y_lib = chain()
     g16 = g.to(torch.bfloat16)
-    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+    lib_bwd, lib_bwd_call = library_times(torch, lambda: torch.autograd.grad(
         y_lib, [xl] + wb, g16, retain_graph=True))
     widths = [tuple(w.shape) for w in ws]
     macs = b * sum(a * c for a, c in widths)
     w_bytes = sum(2 * a * c for a, c in widths)
     fb_ms, fb_by = bound_ms(nbytes(x, z1, zs1) + w_bytes, 2 * macs,
                             H100_BF16_FLOPS)
-    # the backward's products take float32 cotangents: float32 rate
-    bb_ms, bb_by = bound_ms(nbytes(x, zs1, z1, g, dx1, *dw1) + w_bytes,
-                            4 * macs, H100_FP32_FLOPS)
+    # the backward's products (g_h = g_z·W_kᵀ and dW_k = h_kᵀ g_z, 4 × macs
+    # operations) take float32 cotangents. On the float32 pipes they are
+    # operations-bound; split into three bf16 terms each (3 × 4 × macs bf16
+    # tensor-core operations) the same bytes bound them
+    bwd_bytes = nbytes(x, zs1, z1, g, dx1, *dw1) + w_bytes
+    bf_ms, bf_by = bound_ms(bwd_bytes, 4 * macs, H100_FP32_FLOPS)
+    bb_ms, bb_by = bound_ms(bwd_bytes, 3 * 4 * macs, H100_BF16_FLOPS)
     fwd = {"phase": "fused_mlp_train_forward", "rows": b,
            "max_abs_err": fwd_err, "tol": f"atol=rtol={MLP_ATOL}",
            "ms": fwd_ms, "call_ms": fwd_call, "plain_ms": fwd_plain,
-           "library_ms": lib_fwd,
+           "library_ms": lib_fwd, "library_call_ms": lib_fwd_call,
            "bound_ms": fb_ms, "bound_by": fb_by,
            "mbytes": (nbytes(x, z1, zs1) + w_bytes) / 1e6}
     bwd = {"phase": "fused_mlp_backward", "rows": b, "max_abs_err": bwd_abs,
            "dw_max_rel_err": dw_err, "dx_max_rel_err": dx_err,
-           "tol": f"dW {MLP_DW_RTOL}, dx {MLP_DX_RTOL} of the largest entry",
+           "dw_f64_oracle_max_rel_err": oracle_err,
+           "two_runs_same_bits": same_bits,
+           "end_to_end": e2e,
+           "tol": f"dW {MLP_DW_RTOL} (also vs the float64 oracle), dx "
+                  f"{MLP_DX_RTOL} of the largest entry, on the same inputs "
+                  f"and end to end (the kernel chain; the plain chain's "
+                  f"agreeing rows); parted rows <= {PARTED_ROWS_MAX} of B",
            "ms": bwd_ms, "call_ms": bwd_call, "plain_ms": bwd_plain,
-           "library_ms": lib_bwd, "bound_ms": bb_ms, "bound_by": bb_by,
-           "gflop": 4 * macs / 1e9}
+           "library_ms": lib_bwd, "library_call_ms": lib_bwd_call,
+           "bound_ms": bb_ms, "bound_by": bb_by,
+           "bound_derivation": "bytes x, zs, z_out, g, dx, dW, W at 3.35 "
+           "TB/s vs 3 x 4 x MACs bf16 at 989 TFLOP/s (split-bf16 tensor "
+           "cores)",
+           "bound_f32_pipes_ms": bf_ms, "bound_f32_pipes_by": bf_by,
+           "mbytes": bwd_bytes / 1e6, "gflop": 4 * macs / 1e9}
     log(fwd)
     log(bwd)
-    if not fwd_ok or dw_err > MLP_DW_RTOL or dx_err > MLP_DX_RTOL:
+    if (not fwd_ok or dw_err > MLP_DW_RTOL or dx_err > MLP_DX_RTOL
+            or oracle_err > MLP_DW_RTOL or not same_bits or not e2e_ok):
         raise AssertionError(f"fused MLP training kernels disagree: {fwd} "
                              f"{bwd}")
     return fwd, bwd
@@ -394,14 +514,15 @@ def phase_hash_encode(torch, name, log2):
     # embedding_bag sum, and index_add_ of the weighted cotangents
     bags = idx.reshape(-1, 8)
     bag_w = w.reshape(-1, 8)
-    lib_fwd = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
-        bags, table, per_sample_weights=bag_w, mode="sum"))
+    lib_fwd, lib_fwd_call = library_times(
+        torch, lambda: torch.nn.functional.embedding_bag(
+            bags, table, per_sample_weights=bag_w, mode="sum"))
     contrib = (g.float().reshape(b, spec.n_levels, 1, spec.n_features)
                * w.reshape(b, spec.n_levels, 8, 1)).reshape(-1,
                                                             spec.n_features)
     flat = idx.reshape(-1)
-    lib_bwd = cuda_ms(torch, lambda: torch.zeros_like(table).index_add_(
-        0, flat, contrib))
+    lib_bwd, lib_bwd_call = library_times(
+        torch, lambda: torch.zeros_like(table).index_add_(0, flat, contrib))
     # bytes: each distinct row once, coords, the features (forward); coords,
     # the cotangent and the whole f32 gradient table written (backward)
     fwd_bytes = rows * row_bytes + nbytes(coords, out)
@@ -417,19 +538,47 @@ def phase_hash_encode(torch, name, log2):
               "distinct_rows": rows}
     fwd = {"phase": f"hash_encode_forward[{name}]", **common,
            "max_abs_err": fwd_err, "tol": HASH_FWD_ATOL, "ms": fwd_ms,
-           "call_ms": fwd_call, "plain_ms": fwd_plain, "library_ms": lib_fwd, "bound_ms": fb_ms,
+           "call_ms": fwd_call, "plain_ms": fwd_plain, "library_ms": lib_fwd,
+           "library_call_ms": lib_fwd_call, "bound_ms": fb_ms,
            "bound_by": fb_by, "mbytes": fwd_bytes / 1e6}
     bwd = {"phase": f"hash_encode_backward[{name}]", **common,
            "max_abs_err": bwd_err, "oracle_max_abs_err": oracle_err,
            "tol": f"atol={HASH_BWD_ATOL}, rtol={HASH_BWD_RTOL}",
            "ms": bwd_ms, "call_ms": bwd_call, "plain_ms": bwd_plain,
-           "library_ms": lib_bwd, "bound_ms": bb_ms, "bound_by": bb_by,
-           "mbytes": bwd_bytes / 1e6}
+           "library_ms": lib_bwd, "library_call_ms": lib_bwd_call,
+           "bound_ms": bb_ms, "bound_by": bb_by, "mbytes": bwd_bytes / 1e6}
     log(fwd)
     log(bwd)
     if not fwd_err <= HASH_FWD_ATOL or not bwd_ok:
         raise AssertionError(f"hash-grid kernels disagree: {fwd} {bwd}")
     return fwd, bwd
+
+
+def mma_counts(lib_path):
+    """Tensor-core MMA instructions (HMMA, HGMMA) in the SASS of each
+    instantiation of the fused-MLP kernels, from `cuobjdump -sass` of the
+    built library → {kernel: {"W=<width>": count}}."""
+    import re
+
+    from instantvnr_torch.ops.cuda_lib import _nvcc
+
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass",
+         lib_path], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = None
+            for name, (pattern, flag) in MMA_KERNELS.items():
+                width = re.search(r"ILi(\d+)E", m.group(1))
+                if pattern in m.group(1) and flag in m.group(1) and width:
+                    fn = counts.setdefault(name, {})
+                    key = f"W={width.group(1)}"
+                    fn[key] = 0
+        elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+            fn[key] += 1
+    return counts
 
 
 def launches_during(fn):
@@ -680,7 +829,7 @@ def phase_train_breakdown(torch, nv):
         torch.cuda.synchronize()
     groups = {"fused_mlp_backward": ("fused_mlp_backward_kernel",
                                      "sum_partials_kernel"),
-              "fused_mlp_train_forward": ("fused_mlp_kernel",),
+              "fused_mlp_train_forward": ("fused_mlp_forward_kernel",),
               "hash_encode_backward": ("hash_encode_backward_kernel",),
               "hash_encode_forward": ("hash_encode_forward_kernel",),
               "adam (multi-tensor elementwise)": ("multi_tensor_apply",),
@@ -730,8 +879,10 @@ def phase_online_loop(torch, nv):
         rounds.append({"ms": ms, "launches": launches, "frame_change": change,
                        "alpha_max": float(frame[..., 3].max())})
         expect = {n: 0 for n in counters()}
+        # 10 steps, then a full decode: 8 blobs through K3 and the MLP
         expect.update({n: 10 for n in TRAIN_KERNELS},
                       fused_mlp=8, composite_slabs=1)
+        expect["hash_encode_forward"] += 8
         if launches != expect or not change > 0.0 or \
                 not np.isfinite(frame).all():
             raise AssertionError(f"online round {i}: {rounds[-1]}, "
@@ -1013,7 +1164,7 @@ def phase_breakdown(torch, nv, renderer, r_iso):
     from instantvnr_torch.models.metrics import _grid_coords_slab
     from instantvnr_torch.models.network import render_params
     from instantvnr_torch.ops.fused_mlp import fused_mlp_apply
-    from instantvnr_torch.ops.hash_encoding import hash_encode_packed
+    from instantvnr_torch.ops.hash_encoding import hash_encode
     from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
     from instantvnr_torch.render.shadow import shadow_volume_for
     from instantvnr_torch.render.slabmarch import (_final_warp, camera_arrays,
@@ -1025,8 +1176,9 @@ def phase_breakdown(torch, nv, renderer, r_iso):
     rp = render_params(nv.params, field)
     dev = nv.device
     coords = _grid_coords_slab(nv.dims, 0, 16, dev)
-    feats = hash_encode_packed(rp["table"], rp["packed"], coords, field.spec,
-                               compute_dtype=torch.bfloat16)
+    # the decode's gather: K3 on the bf16 table
+    feats = hash_encode(rp["table"], coords, field.spec,
+                        compute_dtype=torch.bfloat16)
     cam = orbit(1, N_FRAMES, max(DIMS))
     impl = renderer._impl
     axis, flipped = principal_axis(cam)
@@ -1054,9 +1206,9 @@ def phase_breakdown(torch, nv, renderer, r_iso):
                nv.params, field), iters=5),
            "blob_coords_ms": cuda_ms(torch, lambda: _grid_coords_slab(
                nv.dims, 0, 16, dev)),
-           "blob_hash_encode_ms": cuda_ms(torch, lambda: hash_encode_packed(
-               rp["table"], rp["packed"], coords, field.spec,
-               compute_dtype=torch.bfloat16), iters=10),
+           "blob_hash_encode_ms": cuda_ms(torch, lambda: hash_encode(
+               rp["table"], coords, field.spec,
+               compute_dtype=torch.bfloat16)),
            "blob_fused_mlp_ms": cuda_ms(torch, lambda: fused_mlp_apply(
                rp["mlp"], feats, field.cfg.network)),
            "frame_inputs_ms": cuda_ms(torch, lambda: inputs(impl.settings),
@@ -1097,6 +1249,68 @@ def counters():
             "hash_encode_backward": he.backward_counter,
             "composite_slabs": sc.counter,
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter}
+
+
+def decode_launches(torch, fn):
+    """A decode with every launch count set to 0 just before and the plain
+    packed gather refused: → (fn(), the kernels it launched, by count)."""
+    from instantvnr_torch.models import network
+
+    plain = network.hash_encode_packed
+
+    def refuse(*args, **kw):
+        raise AssertionError("the card's decode called the plain packed "
+                             "gather")
+
+    for c in counters().values():
+        c.reset()
+    network.hash_encode_packed = refuse
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        network.hash_encode_packed = plain
+    return out, {n: c.launches for n, c in counters().items() if c.launches}
+
+
+def plain_packed_decode(torch, nv):
+    """The grid of nv's params through the plain versions on the card, blob
+    by blob as decode_volume runs: hash_encode_packed of the render params'
+    bf16 table and its corner-packed dense levels, then the plain MLP."""
+    from instantvnr_torch.models.metrics import _grid_coords_slab
+    from instantvnr_torch.models.network import render_params
+    from instantvnr_torch.ops import fused_mlp as fm
+    from instantvnr_torch.ops import hash_encoding as he
+
+    field = nv.field
+    rp = render_params(nv.params, field)
+    packed = he.packed_dense_tables(rp["table"], field.spec)
+    dx, dy, dz = nv.dims
+    blobs = []
+    for z0 in range(0, dz, 16):
+        feats = he.hash_encode_packed(
+            rp["table"], packed, _grid_coords_slab(nv.dims, z0, 16, "cuda"),
+            field.spec, compute_dtype=torch.bfloat16)
+        blobs.append(fm.fused_mlp_reference(rp["mlp"], feats,
+                                            field.cfg.network
+                                            ).reshape(16, dy, dx))
+    return torch.cat(blobs)[:dz]
+
+
+def phase_decode_vs_plain(torch, nv, grid):
+    """The main path's decoded grid against plain_packed_decode of the same
+    params, at the decode tolerance: the fused MLP's, as the port holds its
+    decode to the JAX package's (tests/test_torch_slice.py)."""
+    ref = plain_packed_decode(torch, nv)
+    diff = (grid - ref).abs()
+    rec = {"phase": "decode_vs_plain_packed", "max_abs_err": float(diff.max()),
+           "mean_abs_err": float(diff.mean()),
+           "tol": f"atol=rtol={MLP_ATOL}, mean<={MLP_MEAN_TOL}"}
+    log(rec)
+    if not (bool((diff <= MLP_ATOL + MLP_RTOL * ref.abs()).all())
+            and rec["mean_abs_err"] <= MLP_MEAN_TOL):
+        raise AssertionError(f"the decoded grid misses the plain packed "
+                             f"decode: {rec}")
 
 
 def run_orbit(torch, r, name):
@@ -1168,22 +1382,21 @@ def phase_views(torch, nv, r, plain):
                              f"the unshaded ones: {rec['rgb_mean']} vs "
                              f"{plain['rgb_mean']}")
 
-    for c in counters().values():
-        c.reset()
     t0 = time.perf_counter()
-    r.set_mode(api.RenderMode.ISOSURFACE_DECODED)  # decode_volume()
-    iso = float(nv.decode_volume().median())
+    # the mode's grid is nv.decode_volume(), cached on the params
+    grid, decode = decode_launches(torch, lambda: (r.set_mode(
+        api.RenderMode.ISOSURFACE_DECODED), nv.decode_volume())[1])
+    iso = float(grid.median())
     r.set_isovalue(iso)
     torch.cuda.synchronize()
     set_mode_ms = (time.perf_counter() - t0) * 1e3
-    decode_launches = counters()["fused_mlp"].launches
     rec = run_orbit(torch, r, "view_isosurface_decoded")
     rec.update(isovalue=iso, set_mode_ms=set_mode_ms,
-               decode_launches=decode_launches)
+               decode_launches=decode)
     check(rec, {"iso_sweep": N_FRAMES})
-    if decode_launches != 8:
+    if decode != DECODE_LAUNCHES:
         raise AssertionError(f"ISOSURFACE_DECODED's decode_volume launched "
-                             f"fused_mlp {decode_launches} times, not 8")
+                             f"{decode}, not {DECODE_LAUNCHES}")
     if not rec["hit_share_min"] >= 0.05:
         raise AssertionError(f"isosurface hits under 5% of a frame: {rec}")
     return views
@@ -1225,8 +1438,14 @@ def main() -> int:
     ptxas = [ln.strip() for ln in lib.log.splitlines()
              if "registers" in ln or "Compiling entry" in ln
              or "spill" in ln]
+    mma = mma_counts(lib.path)
     log({"phase": "build", "seconds": lib.build_seconds,
-         "library": os.path.relpath(lib.path, ROOT), "ptxas": ptxas})
+         "library": os.path.relpath(lib.path, ROOT), "ptxas": ptxas,
+         "tensor_core_mma_instructions": mma})
+    if not all(mma.get(k) and all(v > 0 for v in mma[k].values())
+               for k in MMA_KERNELS):
+        raise AssertionError(f"a fused-MLP kernel has no tensor-core MMA in "
+                             f"its SASS: {mma}")
 
     # -- kernel phases: each kernel against its plain version -------------
     sv = api.SimpleVolume.synthetic(DIMS, "vorts", device="cuda")
@@ -1259,25 +1478,21 @@ def main() -> int:
     nv.params = params_from_numpy(seeded_params(nv.field, SEED), "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters().values():
-        c.reset()
     t0 = time.perf_counter()
-    nv.ensure_decoded(SIZE, SIZE)
-    torch.cuda.synchronize()
+    _, decode = decode_launches(torch, lambda: nv.ensure_decoded(SIZE, SIZE))
     decode_ms = (time.perf_counter() - t0) * 1e3
-    decode_launches = counters()["fused_mlp"].launches
     r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode.DECODED_SLAB)
     rec = run_orbit(torch, r, "main_path")
     grid = nv.get_decoder().decoded
     rec.update(model="ModelConfig() 2^19, 8x8 levels, 64x4 MLP",
                volume=f"vorts {DIMS}", frame=f"{SIZE}^2",
-               decode_ms=decode_ms, decode_launches=decode_launches,
+               decode_ms=decode_ms, decode_launches=decode,
                grid_mean=float(grid.mean()), grid_std=float(grid.std()))
     log(rec)
     plain = rec
-    if decode_launches != nv.n_blobs or nv.n_blobs != 8:
-        raise AssertionError(f"decode launched fused_mlp {decode_launches} "
-                             f"times for {nv.n_blobs} blobs")
+    if nv.n_blobs != 8 or decode != DECODE_LAUNCHES:
+        raise AssertionError(f"decode launched {decode} for {nv.n_blobs} "
+                             f"blobs, not {DECODE_LAUNCHES}")
     check_launches(rec, {"composite_slabs": N_FRAMES})
     if rec["alpha_max_min"] <= 0.05:
         raise AssertionError(f"invisible frame: {rec}")
@@ -1286,6 +1501,7 @@ def main() -> int:
     views = phase_views(torch, nv, r, plain)
     log({"phase": "main_path_memory",
          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    phase_decode_vs_plain(torch, nv, grid)
     phase_breakdown(torch, nv, api.VNRenderer(nv, SIZE, SIZE), r)
 
     # -- BSON checkpoint round trip ---------------------------------------
@@ -1315,9 +1531,10 @@ def main() -> int:
     runs = [plain] + views
     total = {name: sum(v["launches"][name] for v in runs)
              for name in counters()}
-    total["fused_mlp"] += decode_launches + views[-1]["decode_launches"]
+    for d in (decode, views[-1]["decode_launches"]):
+        add_launches(total, d)
     for name in TRAIN_KERNELS:
-        total[name] = train14["launches"][name]
+        total[name] += train14["launches"][name]
     csrc = "instantvnr_torch/csrc/"
     tpu = "instantvnr_tpu/ops/pallas/"
 

@@ -7,7 +7,8 @@ Parameters keep the JAX package's layout, a plain dict
 
 so both packages compare like for like and share BSON checkpoints.
 `render_params` derives the inference params of one update (for big
-schemas a bf16 table plus "packed", corner-packed dense-level tables).
+schemas a bf16 table, plus "packed", corner-packed dense-level tables, on
+the CPU).
 """
 from __future__ import annotations
 
@@ -90,6 +91,10 @@ def network_apply(params: Params, coords: torch.Tensor,
     """coords [B,3] in [0,1]³ → values [B,1] float32; differentiable with
     respect to params that require grad.
 
+    The encoding gathers through `hash_encode` (the `hash_encode_forward`
+    kernel for CUDA coords, on the bf16 table of big schemas as is); params
+    with corner-packed tables, which `render_params` builds for CPU tables
+    only, take the plain `hash_encode_packed`.
     In bf16 compute the MLP runs through the fused MLP: its training form
     when a weight or the features require grad, its inference form
     otherwise (the kernels on CUDA tensors, their plain versions on CPU
@@ -113,8 +118,11 @@ def network_apply(params: Params, coords: torch.Tensor,
 def render_params(params: Params, field: NeuralField) -> Params:
     """Inference params: fresh copies (never aliases of `params`). Big
     schemas (≥ 2^22 table parameters, the 2^19 reference schema) get a bf16
-    table plus corner-packed dense levels; small ones keep the f32 table.
-    Call once per parameter update, not per frame."""
+    table; small ones keep the f32 table. A bf16 table on the CPU also gets
+    corner-packed dense levels, which only the plain `hash_encode_packed`
+    reads: on the card the decode gathers the bf16 table through the
+    `hash_encode_forward` kernel, so an update there does not pay for the
+    packed copies. Call once per parameter update, not per frame."""
     mlp = [w.detach().clone() for w in params["mlp"]]
     if field.spec.n_params < _BIG_SCHEMA_PARAMS:
         return {"table": params["table"].detach().clone(), "mlp": mlp}
@@ -122,6 +130,8 @@ def render_params(params: Params, field: NeuralField) -> Params:
     if table.data_ptr() == params["table"].data_ptr():
         table = table.clone()  # already bf16: .to() aliased it
     out = {"table": table, "mlp": mlp}
+    if table.device.type != "cpu":
+        return out
     packed = packed_dense_tables(table, field.spec)
     if packed:
         out["packed"] = packed

@@ -20,6 +20,11 @@ version only for CPU tensors:
   PyTorch (it is not autograd of `mlp_apply`, whose casts would round the
   cotangents to bf16). A single weight matrix needs no residuals: the
   backward then reads only the output pre-activation.
+
+All three kernels run their products on the tensor cores (bf16 operands,
+f32 accumulation). The backward keeps its float32 cotangents accurate by
+splitting each into three bf16 terms, g = bf16(g) + bf16(rest) + ...: the
+other operand of every product is exactly bf16.
 """
 from __future__ import annotations
 
@@ -105,18 +110,21 @@ def _plain_train_forward(params, x, cfg):
 
 
 def _plain_backward(params, x, zs, z_out, g, cfg):
-    """→ (dx in x's dtype, [dW_k] float32): `_bwd` in eager PyTorch."""
-    g_z = g.to(_F32)
+    """→ (dx in x's dtype, [dW_k] in the weights' dtype): `_bwd` in eager
+    PyTorch. The chain runs in float32, or in float64 for a float64 g: with
+    float64 weights and x, that is the float64 oracle of the kernel."""
+    d = torch.promote_types(g.dtype, _F32)
+    g_z = g.to(d)
     if activation_name(cfg.output_activation) != "none":
-        g_z = g_z * act_grad(z_out, cfg.output_activation)
-    hs = [x.to(_BF16).to(_F32)]
-    hs += [apply_activation(z, cfg.activation).to(_BF16).to(_F32) for z in zs]
+        g_z = g_z * act_grad(z_out.to(d), cfg.output_activation)
+    hs = [x.to(_BF16).to(d)]
+    hs += [apply_activation(z, cfg.activation).to(_BF16).to(d) for z in zs]
     dws = [None] * len(params)
     for k in range(len(params) - 1, -1, -1):
         dws[k] = torch.matmul(hs[k].T, g_z).to(params[k].dtype)
-        g_h = torch.matmul(g_z, params[k].to(_BF16).to(_F32).T)
+        g_h = torch.matmul(g_z, params[k].to(_BF16).to(d).T)
         if k > 0:
-            g_z = g_h * act_grad(zs[k - 1], cfg.activation)
+            g_z = g_h * act_grad(zs[k - 1].to(d), cfg.activation)
     return g_h.to(x.dtype), dws
 
 
@@ -148,8 +156,10 @@ def _kernel_backward(params, x, zs, z_out, g, cfg):
     dx = torch.empty((b, n_in), dtype=_BF16 if x.dtype == _BF16 else _F32,
                      device=x.device)
     dw = torch.empty(wb.numel(), dtype=_F32, device=x.device)
-    tiles = -(-b // (64 if width == 128 else 128))  # the kernel's row tile
-    partials = torch.empty((tiles, wb.numel()), dtype=_F32, device=x.device)
+    # one partial per row batch at most (the kernel writes one per block, or
+    # one per batch where a block's dW does not fit its shared memory)
+    batches = -(-b // (64 if width == 128 else 256))
+    partials = torch.empty((batches, wb.numel()), dtype=_F32, device=x.device)
     lib.call("fused_mlp_backward", xb.data_ptr(), wb.data_ptr(),
              zs.data_ptr(), z_out.data_ptr(),
              g.to(_F32).contiguous().data_ptr(), dx.data_ptr(),

@@ -24,8 +24,9 @@ backward. Both accumulate the table gradient in float32 whatever the
 compute type. (The JAX package differentiates its gather with XLA, which
 scatters into the gathered rows' type, bf16 once a table of ≥ 32 MB is
 pre-cast: ROADMAP Queue 3.) The gradient with respect to the coordinates
-is not ported. `hash_encode_packed`, the decode's gather of corner-packed
-dense levels, is plain PyTorch on every device.
+is not ported. `hash_encode_packed`, the gather of corner-packed dense
+levels, is plain PyTorch: only CPU decodes take it (`network_apply`); the
+card's decode gathers through `hash_encode_forward`.
 """
 from __future__ import annotations
 

@@ -112,6 +112,146 @@ def test_fused_mlp_training_kernels_match_plain(cuda, width, n_hidden, n_in,
                                rtol=2e-2)
 
 
+def _mlp_inputs(cuda, seed, widths, rows):
+    rng = np.random.default_rng(seed)
+    ws = [torch.tensor(rng.standard_normal((a, b)).astype(np.float32)
+                       * np.sqrt(2.0 / a), device=cuda)
+          for a, b in zip(widths[:-1], widths[1:])]
+    x = torch.tensor(rng.standard_normal((rows, widths[0])).astype(
+        np.float32), device=cuda).to(torch.bfloat16)
+    return ws, x, rng
+
+
+@pytest.mark.parametrize("rows", [1001, 262143])
+def test_fused_mlp_kernels_ragged_rows(cuda, rows):
+    """ModelConfig() widths at row counts that leave a partial tile and a
+    partial persistent stride: the inference form, the training forward
+    and the backward against their plain versions."""
+    cfg = NetworkConfig()
+    ws, x, rng = _mlp_inputs(cuda, rows, [64] * 5 + [1], rows)
+    got = fm.fused_mlp_apply(ws, x, cfg)
+    ref = fm.fused_mlp_reference(ws, x, cfg)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    assert float((got - ref).abs().mean()) <= 1e-3
+    z1, zs1 = fm._kernel_train_forward(ws, x, cfg)
+    z2, zs2 = fm._plain_train_forward(ws, x, cfg)
+    for a, r in ((z1, z2), (zs1, zs2)):
+        np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(),
+                                   atol=2e-2, rtol=2e-2)
+    g = torch.tensor(rng.standard_normal((rows, 1)).astype(np.float32),
+                     device=cuda)
+    dx1, dw1 = fm._kernel_backward(ws, x, zs2, z2, g, cfg)
+    dx2, dw2 = fm._plain_backward(ws, x, zs2, z2, g, cfg)
+    for a, r, tol in [(dx1, dx2, 1e-2)] + [(a, r, 1e-3)
+                                           for a, r in zip(dw1, dw2)]:
+        r = r.float().cpu().numpy()
+        np.testing.assert_allclose(a.float().cpu().numpy(), r, rtol=0,
+                                   atol=tol * np.abs(r).max())
+
+
+def test_fused_mlp_backward_meets_f64_oracle_at_b65536(cuda):
+    """ModelConfig() widths at the training batch B = 2^16 with an L1
+    loss's ±1/B cotangent: every dW of the tensor-core backward within
+    1e-3 of its largest entry of a float64 oracle built from the plain
+    residuals, dx within 1e-2, and two runs give the same bits."""
+    cfg = NetworkConfig()
+    b = 1 << 16
+    ws, x, rng = _mlp_inputs(cuda, 16, [64] * 5 + [1], b)
+    g = torch.tensor(np.sign(rng.standard_normal((b, 1))).astype(np.float32)
+                     / b, device=cuda)
+    z_out, zs = fm._plain_train_forward(ws, x, cfg)
+    dx1, dw1 = fm._kernel_backward(ws, x, zs, z_out, g, cfg)
+    dx2, dw2 = fm._kernel_backward(ws, x, zs, z_out, g, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(dx1, dx2)
+    assert all(torch.equal(a, r) for a, r in zip(dw1, dw2))
+    # the float64 oracle: the plain chain in float64 from the same residuals
+    dx_ref, dw_ref = fm._plain_backward([w.double() for w in ws], x.double(),
+                                        zs, z_out, g.double(), cfg)
+    for a, r, tol in [(dx1, dx_ref, 1e-2)] + [(a, r, 1e-3)
+                                              for a, r in zip(dw1, dw_ref)]:
+        r = r.cpu().numpy()
+        np.testing.assert_allclose(a.double().cpu().numpy(), r, rtol=0,
+                                   atol=tol * np.abs(r).max())
+
+
+def test_fused_mlp_kernel_chain_end_to_end_at_b65536(cuda):
+    """ModelConfig() widths at B = 2^16, each backward on its own forward's
+    residuals: the backward kernel on the forward kernel's residuals within
+    1e-3 (dW) and 1e-2 (dx) of the plain backward on the same residuals,
+    and of the plain forward and backward on the rows where both forwards
+    round every activation alike; those that part stay under 1% of B
+    (chip_smoke.PARTED_ROWS_MAX)."""
+    from instantvnr_torch.ops.mlp import apply_activation
+
+    cfg = NetworkConfig()
+    b = 1 << 16
+    ws, x, rng = _mlp_inputs(cuda, 17, [64] * 5 + [1], b)
+    g = torch.tensor(np.sign(rng.standard_normal((b, 1))).astype(np.float32)
+                     / b, device=cuda)
+    z1, zs1 = fm._kernel_train_forward(ws, x, cfg)
+    z2, zs2 = fm._plain_train_forward(ws, x, cfg)
+    h1, h2 = (apply_activation(zs, cfg.activation).to(torch.bfloat16)
+              for zs in (zs1, zs2))
+    parted = ((h1 != h2) | ((zs1 > 0) != (zs2 > 0))).any(-1).any(0)
+    assert int(parted.sum()) <= 0.01 * b
+    kept = g * (~parted).float()[:, None]
+    pairs = [(fm._kernel_backward(ws, x, zs1, z1, g, cfg),
+              fm._plain_backward(ws, x, zs1, z1, g, cfg)),
+             (fm._kernel_backward(ws, x, zs1, z1, kept, cfg),
+              fm._plain_backward(ws, x, zs2, z2, kept, cfg))]
+    torch.cuda.synchronize()
+    for (dx1, dw1), (dx2, dw2) in pairs:
+        for a, r, tol in [(dx1, dx2, 1e-2)] + [(a, r, 1e-3)
+                                               for a, r in zip(dw1, dw2)]:
+            r = r.float().cpu().numpy()
+            np.testing.assert_allclose(a.float().cpu().numpy(), r, rtol=0,
+                                       atol=tol * np.abs(r).max())
+
+
+def test_decode_blob_gathers_through_k3(cuda):
+    """A decode blob of the 2^19 model on the card: network_apply on the
+    card's render params launches hash_encode_forward once and fused_mlp
+    once, takes no packed tables, and its features match the plain packed
+    gather of the same bf16 params within one bf16 step (HASH_FWD_ATOL)."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.metrics import _grid_coords_slab
+    from instantvnr_torch.models.network import (NeuralField, network_apply,
+                                                 render_params)
+
+    field = NeuralField.from_config(ModelConfig())
+    spec = field.spec
+    rng = np.random.default_rng(19)
+    widths = [spec.n_output_dims] + [64] * 4 + [1]
+    params = {"table": torch.tensor(rng.uniform(-1, 1, (
+        spec.n_entries, spec.n_features)).astype(np.float32), device=cuda),
+        "mlp": [torch.tensor((rng.standard_normal((a, b)) * np.sqrt(
+            2.0 / a)).astype(np.float32), device=cuda)
+            for a, b in zip(widths[:-1], widths[1:])]}
+    rp = render_params(params, field)
+    assert rp["table"].dtype == torch.bfloat16 and "packed" not in rp
+    coords = _grid_coords_slab((128, 128, 128), 0, 16, cuda)
+    before = (he.counter.launches, fm.counter.launches)
+    y = network_apply(rp, coords, field)
+    torch.cuda.synchronize()
+    assert (he.counter.launches - before[0],
+            fm.counter.launches - before[1]) == (1, 1)
+    packed = he.packed_dense_tables(rp["table"], spec)
+    ref_feats = he.hash_encode_packed(rp["table"], packed, coords, spec,
+                                      compute_dtype=torch.bfloat16)
+    feats = he.hash_encode(rp["table"], coords, spec,
+                           compute_dtype=torch.bfloat16)
+    np.testing.assert_allclose(feats.float().cpu().numpy(),
+                               ref_feats.float().cpu().numpy(), atol=1e-2,
+                               rtol=0)
+    ref = fm.fused_mlp_reference(rp["mlp"], ref_feats, field.cfg.network)
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    assert float((y - ref).abs().mean()) <= 1e-3
+
+
 @pytest.mark.parametrize("n_features", [2, 8])
 @pytest.mark.parametrize("table_dtype,compute", [
     ("float32", "float32"), ("float32", "bfloat16"),

@@ -148,6 +148,82 @@ def test_training_form_residuals_match_jax():
     _close(z_out.numpy(), np.asarray(j_z))
 
 
+def _split_bf16(g):
+    """float32 g → three bf16 terms g_i = bf16(g − Σ_{j<i} g_j), each
+    rounded to nearest, as the backward kernel (`split3` in
+    csrc/fused_mlp.cu) splits its cotangents; each subtraction is exact."""
+    rest, out = g, []
+    for _ in range(3):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return out
+
+
+def test_split_bf16_rebuilds_f32():
+    """The backward kernel's premise: three bf16 terms rebuild any normal
+    float32 to within 2^-24 of its magnitude (two terms do not)."""
+    rng = np.random.default_rng(11)
+    mag = np.exp2(rng.uniform(-100, 100, 1 << 16))
+    g = torch.from_numpy((rng.choice([-1.0, 1.0], mag.size) * mag
+                          * rng.uniform(1, 2, mag.size)).astype(np.float32))
+    parts = _split_bf16(g)
+    assert len(parts) == 3 and all(p.dtype == torch.bfloat16 for p in parts)
+    gd = g.double()
+    rest3 = gd - sum(p.double() for p in parts)
+    assert bool((rest3.abs() <= 2.0 ** -24 * gd.abs()).all())
+    rest2 = gd - parts[0].double() - parts[1].double()
+    assert float((rest2.abs() / gd.abs()).max()) > 2.0 ** -20
+
+
+def test_split_products_meet_f64_oracle():
+    """h_kᵀ Σ g_i, each product bf16 × bf16 (exact in float32) with float32
+    accumulation as on the tensor cores, against a float64 oracle at the
+    training batch: as close as the float32 product h_kᵀ g itself, and
+    far closer than h_kᵀ bf16(g)."""
+    rng = np.random.default_rng(12)
+    b = 1 << 16
+    h = torch.from_numpy(rng.standard_normal((b, 64)).astype(
+        np.float32)).to(torch.bfloat16).float()
+    g = torch.from_numpy((rng.standard_normal((b, 64)) / b).astype(
+        np.float32))
+    oracle = h.double().T @ g.double()
+    scale = float(oracle.abs().max())
+
+    def err(prod):
+        return float((prod.double() - oracle).abs().max()) / scale
+
+    split = sum(h.T @ p.float() for p in _split_bf16(g))
+    e_split, e_f32 = err(split), err(h.T @ g)
+    assert e_split <= 1e-6 and e_split <= 2.0 * e_f32 + 1e-7
+    assert err(h.T @ g.to(torch.bfloat16).float()) > 100.0 * e_split
+
+
+def test_plain_backward_float64_is_the_oracle():
+    """_plain_backward with a float64 cotangent, weights and x runs the
+    chain in float64 (the oracle the kernel's dW is held to on the card):
+    its top dW is h_nᵀ g in float64, and every dW and dx lies within
+    float32 rounding of the float32 chain."""
+    cfg = NetworkConfig(n_neurons=32, n_hidden_layers=2)
+    ws, x = _inputs(13, 16, 32, 2, 1, 512)
+    ws = [torch.from_numpy(w) for w in ws]
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    z_out, zs = fm._plain_train_forward(ws, x, cfg)
+    g = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (512, 1)).astype(np.float32))
+    dx, dws = fm._plain_backward(ws, x.float(), zs, z_out, g, cfg)
+    dx64, dws64 = fm._plain_backward([w.double() for w in ws], x.double(),
+                                     zs, z_out, g.double(), cfg)
+    assert dx64.dtype == torch.float64
+    assert all(d.dtype == torch.float64 for d in dws64)
+    h_top = torch.relu(zs[-1]).to(torch.bfloat16).double()
+    np.testing.assert_array_equal(dws64[-1].numpy(),
+                                  (h_top.T @ g.double()).numpy())
+    for a, r in zip([dx] + dws, [dx64] + dws64):
+        r = r.numpy()
+        np.testing.assert_allclose(a.double().numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max())
+
+
 def test_pack_weights_layout():
     ws, _ = _inputs(7, 64, 64, 4, 1, 1)
     packed = fm.pack_weights([torch.from_numpy(w) for w in ws])

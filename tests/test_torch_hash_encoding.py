@@ -118,6 +118,40 @@ def test_reference_spec_render_params_bf16_packed():
     np.testing.assert_allclose(plain, ref, atol=1e-2, rtol=0)
 
 
+def test_network_apply_cpu_takes_packed_path(monkeypatch):
+    """On the CPU, render_params of the 2^19 schema still carries the packed
+    dense levels and network_apply gathers through hash_encode_packed (the
+    card gathers through the hash_encode_forward kernel instead)."""
+    from instantvnr_torch.models import network
+    from instantvnr_torch.ops import fused_mlp as fm
+
+    rng = np.random.default_rng(3)
+    field = NeuralField.from_config(ModelConfig())
+    spec = field.spec
+    widths = [spec.n_output_dims] + [64] * 4 + [1]
+    rp = render_params({
+        "table": torch.from_numpy(rng.uniform(-1, 1, (
+            spec.n_entries, spec.n_features)).astype(np.float32)),
+        "mlp": [torch.from_numpy((rng.standard_normal((a, c)) * np.sqrt(
+            2.0 / a)).astype(np.float32))
+            for a, c in zip(widths[:-1], widths[1:])]}, field)
+    assert sorted(rp["packed"]) == ["0", "1", "2"]
+    calls = []
+
+    def packed(*args, **kw):
+        calls.append(1)
+        return he.hash_encode_packed(*args, **kw)
+
+    monkeypatch.setattr(network, "hash_encode_packed", packed)
+    coords = torch.from_numpy(_coords(rng, 2048))
+    got = network.network_apply(rp, coords, field)
+    assert calls == [1]
+    feats = he.hash_encode_packed(rp["table"], rp["packed"], coords, spec,
+                                  compute_dtype=torch.bfloat16)
+    ref = fm.fused_mlp_reference(rp["mlp"], feats, field.cfg.network)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
 def _oracle(spec, coords, g, compute_dtype):
     """float64 np.add.at of each corner weight (rounded to the compute
     type) times the cotangent row, the product rounded to the compute type
