@@ -111,6 +111,8 @@ HASH_BWD_ATOL, HASH_BWD_RTOL = 5e-4, 1e-4
 # a full decode of the 2^19 model on the card: 8 blobs, each one K3 gather
 # of the bf16 table and one fused_mlp launch
 DECODE_LAUNCHES = {"fused_mlp": 8, "hash_encode_forward": 8}
+# K4's device time: its kernel and the wrapper's zeroing of the table
+K4_KERNELS = ("hash_encode_backward_kernel", "FillFunctor")
 # the fused-MLP kernel functions that must hold tensor-core MMAs (SASS)
 MMA_KERNELS = {"fused_mlp_forward": ("fused_mlp_forward_kernel", "Lb0E"),
                "fused_mlp_train_forward": ("fused_mlp_forward_kernel",
@@ -175,7 +177,10 @@ def bound_ms(n_bytes, n_ops, peak_ops):
 
 
 def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    """Bytes of the tensors, of those inside tuples too (the pairs)."""
+    return sum(nbytes(*t) if isinstance(t, tuple)
+               else t.numel() * t.element_size()
+               for t in tensors if t is not None)
 
 
 def seeded_params(field, seed):
@@ -455,11 +460,10 @@ def _dense_oracle(torch, spec, coords, g, levels):
     return out
 
 
-def phase_hash_encode(torch, name, log2):
-    """The hash-grid kernels on a layout of the reference schema at
-    B = 2^16 in bf16 compute from the f32 master table, as a training step
-    runs them: forward against the plain gather, backward against the plain
-    index_add_ and, on the 2^19 layout's dense levels, a float64 oracle."""
+def hash_inputs(torch, log2):
+    """The hash-grid kernels' inputs on a layout of the reference schema:
+    (spec, f32 table ±1, B = 2^16 coords, a bf16 cotangent [B, L·F]),
+    drawn from a seed."""
     from instantvnr_torch.config import EncodingConfig
     from instantvnr_torch.ops import hash_encoding as he
 
@@ -467,10 +471,21 @@ def phase_hash_encode(torch, name, log2):
     gen = torch.Generator(device="cuda").manual_seed(SEED + log2)
     table = torch.rand((spec.n_entries, spec.n_features), generator=gen,
                        device="cuda") * 2.0 - 1.0
-    b = TRAIN_BATCH
-    coords = torch.rand((b, 3), generator=gen, device="cuda")
-    g = torch.randn((b, spec.n_output_dims), generator=gen,
+    coords = torch.rand((TRAIN_BATCH, 3), generator=gen, device="cuda")
+    g = torch.randn((TRAIN_BATCH, spec.n_output_dims), generator=gen,
                     device="cuda").to(torch.bfloat16)
+    return spec, table, coords, g
+
+
+def phase_hash_encode(torch, name, log2):
+    """The hash-grid kernels on a layout of the reference schema at
+    B = 2^16 in bf16 compute from the f32 master table, as a training step
+    runs them: forward against the plain gather, backward against the plain
+    index_add_ and, on the 2^19 layout's dense levels, a float64 oracle."""
+    from instantvnr_torch.ops import hash_encoding as he
+
+    spec, table, coords, g = hash_inputs(torch, log2)
+    b = TRAIN_BATCH
     bf16 = torch.bfloat16
     n = spec.n_entries
     out = he.hash_encode(table, coords, spec, bf16)
@@ -507,7 +522,7 @@ def phase_hash_encode(torch, name, log2):
     # the wrapper's zeroing of the gradient table is the function's too
     bwd_ms = device_ms(torch, lambda: he._kernel_backward(n, coords, spec, g,
                                                           bf16),
-                       ("hash_encode_backward_kernel", "FillFunctor"))
+                       K4_KERNELS)
     bwd_plain = cuda_ms(torch, lambda: he._plain_backward(n, coords, spec, g,
                                                           bf16))
     # library yardsticks on precomputed corners (timed only): a weighted
@@ -896,33 +911,39 @@ def phase_online_loop(torch, nv):
 
 def composite_inputs(torch, tf, cam, volume, shading="none", grads=None,
                      shadow=None):
+    """(compositor, its args) for one 512² frame of `cam`, as the checkout's
+    slab_composite_args builds them."""
     from instantvnr_torch.render.slabmarch import (SlabSettings, camera_arrays,
                                                    principal_axis,
                                                    slab_composite_args)
 
     axis, flipped = principal_axis(cam)
-    _, args, _ = slab_composite_args(
+    comp, args, _ = slab_composite_args(
         volume, tf, camera_arrays(cam, "cuda"), SIZE, SIZE,
         SlabSettings(shading=shading), axis, flipped, grad_volumes=grads,
         shadow_volume=shadow)
-    return args
+    return comp, args
 
 
 def composite_ops(torch, args, per_px=None, n_fields=1):
     """Operations these inputs need, counting an FMA as 2: only pixels and
     slabs that are covered and not yet terminated (replayed here in plain
-    PyTorch) need work. Each needs its nonzero resample products (a row of
-    My or Mx has at most 2 nonzeros) for each of n_fields fields, then per
-    pixel (per_px): normalize 4, termination test 1, classify (per control
-    segment 12: v-x0, divide, clamp 2, 4 FMAs, as a segment's width and
-    channel differences are constants; LUT 17: scale, floor, clamp 2, frac,
-    4 x (difference, FMA)), opacity correction 4, blend 9. Returns (needed,
-    dense resample, live pixel-slabs)."""
+    PyTorch, through the pairs densified) need work. Each needs its nonzero
+    resample products (a row of My or Mx has at most 2 nonzeros) for each
+    of n_fields fields, then per pixel (per_px): normalize 4, termination
+    test 1, classify (per control segment 12: v-x0, divide, clamp 2, 4
+    FMAs, as a segment's width and channel differences are constants; LUT
+    17: scale, floor, clamp 2, frac, 4 x (difference, FMA)), opacity
+    correction 4, blend 9. Returns (needed, dense resample, live
+    pixel-slabs)."""
     from instantvnr_torch.ops import slab_composite as sc
+    from instantvnr_torch.render.slabmarch import _densify_pairs
 
-    vol, my_all, mx_all, covy, covx, corr, ctrl, lut = args
+    vol, y_pairs, x_pairs, covy, covx, corr, ctrl, lut = args
     d, ay, ax = vol.shape
     hi, wi = corr.shape
+    my_all = _densify_pairs(y_pairs, ay)
+    mx_all = _densify_pairs(x_pairs, ax)
     if per_px is None:
         per_px = 18 + (17 if lut is not None else 12 * (ctrl.shape[0] - 1))
     nnz_my = (my_all != 0).sum(-1)  # [D, hi]
@@ -946,36 +967,60 @@ def composite_ops(torch, args, per_px=None, n_fields=1):
         int(live_total)
 
 
-def phase_composite(torch, name, tf, volume):
-    from instantvnr_torch.ops import slab_composite as sc
+def dense_matrix_bytes(d, hi, wi, ay, ax):
+    """The f32 bytes of the dense [D, hi, ay] and [D, wi, ax] interpolation
+    stacks that the pairs replace (the dense design read them every frame)."""
+    return 4 * d * (hi * ay + wi * ax)
 
-    args = composite_inputs(torch, tf, orbit(1, N_FRAMES, max(DIMS)), volume)
-    got_c, got_a = sc.composite_slabs(*args)
-    ref_c, ref_a = sc.composite_slabs_reference(*args)
+
+def composite_record(torch, name, comp, args, plain, tol, ops, dense_ops,
+                     live, n_bytes, bytes_dense, extra):
+    """Run the compositor against its plain version, time both (the kernel
+    by device time and by CUDA events, host work included), and the bounds
+    of these inputs and of the dense inputs they replace → the phase's
+    record."""
+    got_c, got_a = comp(*args)
+    ref_c, ref_a = plain(*args)
     torch.cuda.synchronize()
     err = max(float((got_c - ref_c).abs().max()),
               float((got_a - ref_a).abs().max()))
-    ms = cuda_ms(torch, lambda: sc.composite_slabs(*args), iters=10)
-    plain_ms = cuda_ms(torch, lambda: sc.composite_slabs_reference(*args),
-                       iters=3, warmup=1)
-    ops, dense_ops, live = composite_ops(torch, args)
-    n_bytes = nbytes(*args) + 4 * args[5].numel() * 4
+    ms = device_ms(torch, lambda: comp(*args), ("slab_composite_kernel",))
+    call_ms = cuda_ms(torch, lambda: comp(*args), iters=10)
+    plain_ms = cuda_ms(torch, lambda: plain(*args), iters=3, warmup=1)
     b_ms, b_by = bound_ms(n_bytes, ops, H100_FP32_FLOPS)
-    rec = {"phase": f"composite_slabs[{name}]", "form": "lut" if args[7]
-           is not None else "controls", "kc": int(args[6].shape[0]),
-           "shape": {"D": args[0].shape[0], "ay": args[0].shape[1],
-                     "ax": args[0].shape[2], "hi": args[5].shape[0],
-                     "wi": args[5].shape[1]},
-           "max_abs_err": err, "tol": COMP_ATOL[name], "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-           "bound_by": b_by, "mbytes": n_bytes / 1e6,
+    bd_ms, bd_by = bound_ms(n_bytes + bytes_dense, ops, H100_FP32_FLOPS)
+    rec = {"phase": name, **extra, "max_abs_err": err, "tol": tol, "ms": ms,
+           "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by, "mbytes": n_bytes / 1e6,
+           "bound_dense_inputs_ms": bd_ms, "bound_dense_inputs_by": bd_by,
+           "mbytes_dense_inputs": (n_bytes + bytes_dense) / 1e6,
            "needed_gflop": ops / 1e9, "dense_gflop": dense_ops / 1e9,
-           "live_pixel_slab_share": live / args[0].shape[0] / args[5].numel(),
+           "live_pixel_slab_share": live,
            "alpha_max": float(ref_a.max())}
     log(rec)
-    if not err <= COMP_ATOL[name] or not rec["alpha_max"] > 0.05:
-        raise AssertionError(f"composite_slabs kernel disagrees: {rec}")
+    if not err <= tol or not rec["alpha_max"] > 0.05:
+        raise AssertionError(f"{name}: the kernel disagrees: {rec}")
     return rec
+
+
+def phase_composite(torch, name, tf, volume):
+    from instantvnr_torch.ops import slab_composite as sc
+
+    comp, args = composite_inputs(torch, tf, orbit(1, N_FRAMES, max(DIMS)),
+                                  volume)
+    vol, corr, ctrl, lut = args[0], args[5], args[6], args[7]
+    (d, ay, ax), (hi, wi) = vol.shape, corr.shape
+    ops, dense_ops, live = composite_ops(torch, args)
+    # each input once (the pairs included), the 4 output planes once
+    n_bytes = nbytes(*args) + 4 * corr.numel() * 4
+    return composite_record(
+        torch, f"composite_slabs[{name}]", comp, args,
+        sc.composite_slabs_reference, COMP_ATOL[name], ops, dense_ops,
+        live / d / corr.numel(), n_bytes,
+        dense_matrix_bytes(d, hi, wi, ay, ax) - nbytes(args[1], args[2]),
+        {"form": "lut" if lut is not None else "controls",
+         "kc": int(ctrl.shape[0]),
+         "shape": {"D": d, "ay": ay, "ax": ax, "hi": hi, "wi": wi}})
 
 
 def ext_ops(torch, args):
@@ -984,58 +1029,40 @@ def ext_ops(torch, args):
     shadow), classification, and the shading and shadow operations of
     SHADE_OPS and SHADOW_OPS. Returns (needed, dense resample, live
     pixel-slabs)."""
-    fields, svol, my_all, mx_all, covy, covx, corr = args[:7]
+    fields, svol, y_pairs, x_pairs, covy, covx, corr = args[:7]
     ctrl, lut = args[10], args[13]
-    d, c_f, ay, ax = fields.shape
-    hi, wi = corr.shape
+    c_f = fields.shape[1]
     nf = c_f + (svol is not None)
     per_px = (18 + (17 if lut is not None else 12 * (ctrl.shape[0] - 1))
               + (SHADE_OPS if c_f == 4 else 0)
               + (SHADOW_OPS if svol is not None else 0))
-    ops, dense, live = composite_ops(torch, (fields[:, 0], my_all, mx_all,
-                                             covy, covx, corr, ctrl, lut),
-                                     per_px=per_px, n_fields=nf)
-    return ops, dense, live
+    return composite_ops(torch, (fields[:, 0], y_pairs, x_pairs, covy, covx,
+                                 corr, ctrl, lut), per_px=per_px, n_fields=nf)
 
 
 def phase_composite_ext(torch, name, tf, volume, grads, shadow):
     from instantvnr_torch.ops import slab_composite as sc
 
     shade = "shaded" in name
-    args = composite_inputs(torch, tf, orbit(1, N_FRAMES, max(DIMS)), volume,
-                            "gradient" if shade else "none",
-                            grads if shade else None,
-                            shadow if "shadow" in name else None)
-    got_c, got_a = sc.composite_slabs_ext(*args)
-    ref_c, ref_a = sc.composite_slabs_ext_reference(*args)
-    torch.cuda.synchronize()
-    err = max(float((got_c - ref_c).abs().max()),
-              float((got_a - ref_a).abs().max()))
-    ms = cuda_ms(torch, lambda: sc.composite_slabs_ext(*args), iters=10)
-    plain_ms = cuda_ms(torch, lambda: sc.composite_slabs_ext_reference(*args),
-                       iters=3, warmup=1)
+    comp, args = composite_inputs(
+        torch, tf, orbit(1, N_FRAMES, max(DIMS)), volume,
+        "gradient" if shade else "none", grads if shade else None,
+        shadow if "shadow" in name else None)
+    fields, corr, ctrl, lut = args[0], args[6], args[10], args[13]
+    d, c_f, ay, ax = fields.shape
+    hi, wi = corr.shape
     ops, dense_ops, live = ext_ops(torch, args)
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    n_bytes = nbytes(*tensors) + 4 * args[6].numel() * 4
-    b_ms, b_by = bound_ms(n_bytes, ops, H100_FP32_FLOPS)
-    fields = args[0]
-    rec = {"phase": f"composite_slabs_ext[{name}]",
-           "form": "lut" if args[13] is not None else "controls",
-           "kc": int(args[10].shape[0]),
-           "shape": {"D": fields.shape[0], "C": fields.shape[1],
-                     "shadow": args[1] is not None, "ay": fields.shape[2],
-                     "ax": fields.shape[3], "hi": args[6].shape[0],
-                     "wi": args[6].shape[1]},
-           "max_abs_err": err, "tol": EXT_ATOL[name], "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-           "bound_by": b_by, "mbytes": n_bytes / 1e6,
-           "needed_gflop": ops / 1e9, "dense_gflop": dense_ops / 1e9,
-           "live_pixel_slab_share": live / fields.shape[0] / args[6].numel(),
-           "alpha_max": float(ref_a.max())}
-    log(rec)
-    if not err <= EXT_ATOL[name] or not rec["alpha_max"] > 0.05:
-        raise AssertionError(f"composite_slabs_ext kernel disagrees: {rec}")
-    return rec
+    # every input but perm (three ints) once, the 4 output planes once
+    n_bytes = nbytes(*args[:12], args[13]) + 4 * corr.numel() * 4
+    return composite_record(
+        torch, f"composite_slabs_ext[{name}]", comp, args,
+        sc.composite_slabs_ext_reference, EXT_ATOL[name], ops, dense_ops,
+        live / d / corr.numel(), n_bytes,
+        dense_matrix_bytes(d, hi, wi, ay, ax) - nbytes(args[2], args[3]),
+        {"form": "lut" if lut is not None else "controls",
+         "kc": int(ctrl.shape[0]),
+         "shape": {"D": d, "C": c_f, "shadow": args[1] is not None,
+                   "ay": ay, "ax": ax, "hi": hi, "wi": wi}})
 
 
 def iso_ops(torch, args, iso):
@@ -1157,6 +1184,23 @@ def phase_small_parity(torch):
             raise AssertionError(f"small slice disagrees: {rec}")
 
 
+def dispatched_ops(torch, fn):
+    """The PyTorch operations fn dispatches (a TorchDispatchMode count):
+    the host issues each, so a stage of many small ones is host-bound."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
 def phase_breakdown(torch, nv, renderer, r_iso):
     """Where the main path's time goes: each stage of one decode blob and
     of one frame of each view timed alone with CUDA events, on the main
@@ -1213,6 +1257,8 @@ def phase_breakdown(torch, nv, renderer, r_iso):
                rp["mlp"], feats, field.cfg.network)),
            "frame_inputs_ms": cuda_ms(torch, lambda: inputs(impl.settings),
                                       iters=10),
+           "frame_inputs_ops": dispatched_ops(torch, lambda: inputs(
+               impl.settings)),
            "frame_composite_ms": cuda_ms(torch, lambda: comp(*args),
                                          iters=10),
            "frame_warp_ms": cuda_ms(torch, lambda: _final_warp(
@@ -1227,6 +1273,8 @@ def phase_breakdown(torch, nv, renderer, r_iso):
            # a shaded + shadowed frame's compositor inputs and kernel
            "frame_inputs_ext_ms": cuda_ms(
                torch, lambda: inputs(shaded, grads, shadow), iters=10),
+           "frame_inputs_ext_ops": dispatched_ops(
+               torch, lambda: inputs(shaded, grads, shadow)),
            "frame_composite_ext_ms": cuda_ms(
                torch, lambda: comp_ext(*args_ext), iters=10),
            "iso_frame_total_ms": cuda_ms(torch, lambda: frame(r_iso),

@@ -24,11 +24,20 @@
 // f32 rows).
 //
 // Backward: the cotangent row times each corner's weight, rounded to the
-// compute type, is atomicAdd-ed in float32 into a zeroed float32 gradient
-// table (the plain version's index_add_). Float atomics make the order of
-// the sum vary from run to run, so this kernel is held to a tolerance, not
-// bit for bit. Bound: bytes, the same 8 rows per sample and level, read and
-// written by the atomics.
+// compute type, is added in float32 into a zeroed float32 gradient table
+// (the plain version's index_add_). Bound on an H100: bytes, the coords,
+// the cotangent, the zeroed table and each distinct row once. What costs
+// is the L2's reductions: one warp instruction of scalar atomicAdds, one a
+// lane over 32 unrelated rows, is 32 sector operations for 128 bytes. So
+// the scatter maps lanes to (row, feature group) instead: a first phase
+// computes each (sample, level)'s cell, 8 corner indices and weights once,
+// one lane each; a second hands them by shuffle to the lanes that write
+// that pair's rows, 2 adjacent lanes a row of F = 8 (one 32-byte sector),
+// each with one 16-byte vector reduction (atomicAdd on float4, sm_90, its
+// result unused). A warp instruction then writes 16 whole sectors: an
+// F = 8 row is one sector operation, where scalar atomics take 8. Float
+// atomics make the order of the sum vary from run to run, so this kernel
+// is held to a tolerance, not bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -194,27 +203,85 @@ hash_encode_forward_kernel(const T* __restrict__ table,
   }
 }
 
+// One 16-, 8- or 4-byte float32 atomic add into global memory, its result
+// unused: V values at dst, which is V·4-byte aligned. The vector forms are
+// Hopper's (sm_90).
+template <int V>
+__device__ __forceinline__ void red_add(float* dst, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2],
+                                                          v[3]));
+  } else if constexpr (V == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(dst, v[0]);
+  }
+}
+
 template <typename G, int F, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_backward_kernel(const float* __restrict__ coords,
                             const G* __restrict__ g, float* __restrict__ grad,
                             long long n, int n_levels, Levels lv) {
+  // lanes a row: a row of F = 8 f32 is one 32-byte sector, written as two
+  // adjacent 16-byte atomics; a shorter row takes one lane
+  constexpr int kG = F == 8 ? 2 : 1;
+  constexpr int kV = F / kG;     // features a lane adds per row
+  constexpr int kS = 32 / kG;    // rows per warp instruction
+  const long long total = n * n_levels;
   const long long t = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (t >= n * n_levels) return;
-  const long long b = t / n_levels;
-  const int l = static_cast<int>(t - b * n_levels);
-  const Cell c = level_cell(coords, b, lv.scale[l]);
-  float gv[F];
-  load_row<F>(g + t * F, gv);
+  // phase 1, one lane per (sample, level): its cell, corners and weights
+  uint32_t idx[8];
+  float w[8];
+  if (t < total) {
+    const long long b = t / n_levels;
+    const int l = static_cast<int>(t - b * n_levels);
+    const Cell c = level_cell(coords, b, lv.scale[l]);
 #pragma unroll
-  for (int corner = 0; corner < 8; ++corner) {
-    const uint32_t idx = corner_index(c, corner, lv, l);
-    const float w = to_compute<kBf16>(corner_weight(c, corner));
-    float* dst = grad + static_cast<long long>(idx) * F;
+    for (int corner = 0; corner < 8; ++corner) {
+      idx[corner] = corner_index(c, corner, lv, l);
+      w[corner] = to_compute<kBf16>(corner_weight(c, corner));
+    }
+  } else {
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      atomicAdd(dst + f, to_compute<kBf16>(gv[f] * w));
+    for (int corner = 0; corner < 8; ++corner) {
+      idx[corner] = 0;
+      w[corner] = 0.0f;
+    }
+  }
+  // phase 2, lanes by (row, feature group): each warp instruction adds kS
+  // whole rows, kG adjacent lanes a row, so every sector it touches is
+  // written whole. Lane (slot, h) adds features [h·kV, h·kV + kV) of the
+  // rows of (sample, level) src = grp·kS + slot of this warp; the corners
+  // and weights come from that lane by shuffle.
+  const int lane = threadIdx.x & 31;
+  const int h = lane % kG;
+  const long long warp_t = t - lane;
+#pragma unroll
+  for (int grp = 0; grp < kG; ++grp) {
+    const int src = grp * kS + lane / kG;
+    const long long ts = warp_t + src;
+    const bool ok = ts < total;
+    float gv[kV];
+    if (ok) {
+      load_row<kV>(g + ts * F + h * kV, gv);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kV; ++q) gv[q] = 0.0f;
+    }
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) {
+      uint32_t row = idx[corner];
+      float wc = w[corner];
+      if constexpr (kG > 1) {
+        row = __shfl_sync(0xffffffffu, row, src);
+        wc = __shfl_sync(0xffffffffu, wc, src);
+      }
+      float add[kV];
+#pragma unroll
+      for (int q = 0; q < kV; ++q) add[q] = to_compute<kBf16>(gv[q] * wc);
+      if (ok) red_add<kV>(grad + static_cast<long long>(row) * F + h * kV, add);
     }
   }
 }

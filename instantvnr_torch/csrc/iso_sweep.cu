@@ -2,9 +2,9 @@
 // one frame as one kernel.
 //
 // Replaces the TPU kernel instantvnr_tpu/ops/pallas/iso_sweep.py
-// (iso_sweep / _kernel). It uses the tiling and the in-order slab loop of
-// the slab compositors (slab_common.cuh): each block owns a kTH x kTW tile
-// of the intermediate image and walks the D slabs itself. The 10-plane
+// (iso_sweep / _kernel). It uses the dense resample's tiling
+// (slab_common.cuh: resample): each block owns a kTH x kTW tile of the
+// intermediate image and walks the D slabs in order itself. The 10-plane
 // state of the TPU kernel (found, hit_z, hit_g[3], prev_v, prev_ok,
 // prev_g[3]) stays in registers for the whole sweep, 40 floats a thread
 // (4 pixels), and is written to out [10, hi, wi] once at the end. Per slab
@@ -18,9 +18,11 @@
 // Bound on an H100 at 512^2 x 128 slabs of a 128^3 volume: 112 MB of
 // inputs and outputs (fields [128, 4, 128, 128], the two interpolation
 // stacks [128, 512, 128] of 33.6 MB each, 10 output planes), about 33 us at
-// 3.35 TB/s. The dense resample this version runs is 42.9 GFLOP; a banded
-// resample (each row of My and Mx has at most 2 nonzeros) is the later
-// optimisation.
+// 3.35 TB/s. The dense resample this version runs is 42.9 GFLOP. Each row
+// of My and Mx has at most 2 nonzeros, and the compositors already
+// resample through them alone (slab_common.cuh: resample_banded, fed the
+// per-row pairs of render/slabmarch.py::_interp_pairs); this sweep is
+// next to move onto that helper.
 #include "slab_common.cuh"
 
 namespace {

@@ -1,14 +1,23 @@
-// Pieces shared by the slab kernels (slab_composite.cu, iso_sweep.cu):
-// the block tiling, the shared-memory
-// layout, the separable resample of a slab's fields through the per-slab
-// interpolation matrices, transfer-function classification and the
+// Pieces shared by the slab kernels (slab_composite.cu, iso_sweep.cu): two
+// resamples of a slab's fields, transfer-function classification and the
 // front-to-back blend.
 //
-// Tiling: each block owns a kTH x kTW tile of the intermediate image (one
-// thread per column, kTH rows each) and walks the D slabs in order itself,
-// so the per-pixel carry stays in registers for the whole frame. Per slab
-// the block stages its kTH rows of My[k] once and its kTW columns of Mx[k]
-// chunk by chunk once, and resamples every field of the slab with them:
+// The banded resample (resample_banded; the compositors): a row of the
+// per-slab interpolation matrices My [hi, ay] and Mx [wi, ax] has at most
+// two nonzeros, at columns j0 and j0 + 1 (render/slabmarch.py::
+// _interp_pairs), so a pixel reads its 2 x 2 source texels and sums
+//   tmp_c = wy0 s[jy][c] + wy1 s[jy + 1][c]   (c = jx, jx + 1)
+//   v     = wx0 tmp_jx + wx1 tmp_jx+1
+// the nonzero terms of the dense product in its order (-fmad=false keeps
+// each product and sum an IEEE operation, as in the plain PyTorch version,
+// ops/slab_composite.py::resample_pairs). No shared memory, no barrier.
+//
+// The dense resample (resample; iso_sweep.cu, until it moves onto the
+// banded one): each block owns a kTH x kTW tile of the intermediate image
+// (one thread per column, kTH rows each) and walks the D slabs in order
+// itself, so the per-pixel state stays in registers for the whole frame.
+// Per slab the block stages its kTH rows of My[k] once and its kTW columns
+// of Mx[k] chunk by chunk once, and resamples every field of the slab:
 //   tmp_f = My_tile · field_f    [kTH, ax]  (field streamed by row chunks)
 //   v_f   = tmp_f · Mx_tileᵀ     [kTH, kTW] (Mx streamed by column chunks)
 // float32 FMA throughout. Shared memory does not grow with the volume
@@ -131,6 +140,37 @@ __device__ __forceinline__ void resample(
   }
 }
 
+// One row's (or column's) pair: the first source index j0, clamped into
+// [0, n - 2] so that a bad index cannot read outside the slab, and the
+// weights of j0 and j0 + 1. j0 [.] int32, w [., 2] float32 (8-byte
+// aligned).
+struct Pair {
+  int j;
+  float w0, w1;
+};
+
+__device__ __forceinline__ Pair load_pair(const int* __restrict__ j0,
+                                          const float* __restrict__ w,
+                                          size_t i, int n) {
+  Pair p;
+  p.j = min(max(__ldg(j0 + i), 0), n - 2);
+  const float2 ww = __ldg(reinterpret_cast<const float2*>(w) + i);
+  p.w0 = ww.x;
+  p.w1 = ww.y;
+  return p;
+}
+
+// The banded resample of the slab s [ay, ax] at one pixel (header note)
+__device__ __forceinline__ float resample_banded(const float* __restrict__ s,
+                                                 int ax, const Pair& py,
+                                                 const Pair& px) {
+  const float* r0 = s + static_cast<size_t>(py.j) * ax + px.j;
+  const float* r1 = r0 + ax;
+  const float t0 = py.w0 * __ldg(r0) + py.w1 * __ldg(r1);
+  const float t1 = py.w0 * __ldg(r0 + 1) + py.w1 * __ldg(r1 + 1);
+  return px.w0 * t0 + px.w1 * t1;
+}
+
 // A transfer function staged in shared memory: control rows [kc][8]
 // (x, r, g, b, a, range_lo, range_hi, 0), or the dense rgba LUT [n_lut][4]
 // when n_lut > 0 (transfer functions of more than 64 segments).
@@ -140,14 +180,15 @@ struct TransferFn {
   float lo, hi, den;
 };
 
-// Copies the TF into s_tf; the caller's first barrier publishes it.
+// Thread tid of n_threads copies its share of the TF into s_tf; the
+// caller's barrier publishes it.
 __device__ __forceinline__ TransferFn stage_tf(
     float* s_tf, const float* __restrict__ ctrl, int kc,
-    const float* __restrict__ lut, int n_lut) {
+    const float* __restrict__ lut, int n_lut, int tid, int n_threads) {
   const bool use_lut = n_lut > 0;
   const int n_tf = use_lut ? n_lut * 4 : kc * 8;
   const float* src = use_lut ? lut : ctrl;
-  for (int e = threadIdx.x; e < n_tf; e += kTW) s_tf[e] = src[e];
+  for (int e = tid; e < n_tf; e += n_threads) s_tf[e] = src[e];
   TransferFn tf;
   tf.s_tf = s_tf;
   tf.kc = kc;
@@ -209,23 +250,15 @@ __device__ __forceinline__ void blend(Carry& px, const float (&rgb)[3],
   px.trans = px.trans * (1.0f - alpha);
 }
 
-// out [4, hi, wi]: premultiplied rgb + transmittance of the thread's pixels
+// out [4, hi, wi]: premultiplied rgb + transmittance of pixel p = row·wi +
+// col of a frame of hi·wi pixels
 __device__ __forceinline__ void store_carry(float* __restrict__ out,
-                                            const Carry (&px)[kTH],
-                                            int row0, int col, int hi,
-                                            int wi) {
-  if (col >= wi) return;
-  const size_t plane = static_cast<size_t>(hi) * wi;
-#pragma unroll
-  for (int r = 0; r < kTH; ++r) {
-    const int row = row0 + r;
-    if (row >= hi) continue;
-    const size_t p = static_cast<size_t>(row) * wi + col;
-    out[p] = px[r].r;
-    out[plane + p] = px[r].g;
-    out[2 * plane + p] = px[r].b;
-    out[3 * plane + p] = px[r].trans;
-  }
+                                            const Carry& px, size_t p,
+                                            size_t plane) {
+  out[p] = px.r;
+  out[plane + p] = px.g;
+  out[2 * plane + p] = px.b;
+  out[3 * plane + p] = px.trans;
 }
 
 }  // namespace slab

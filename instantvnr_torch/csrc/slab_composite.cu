@@ -8,16 +8,23 @@
 // slab_composite_ext_forward. Both launch one kernel template, whose
 // <kShade, kShadow> flags switch the extension's work on; <false, false> is
 // the plain compositor. On the TPU the slab axis was a sequential grid
-// dimension with the carry resident in VMEM; here each block owns a
-// kTH x kTW tile of the intermediate image, loops over the D slabs in order
-// and keeps the premultiplied rgb and transmittance carry of its pixels in
-// registers. Per slab it stages My's rows and Mx's column chunks once and
-// resamples all of the slab's fields with them (slab_common.cuh: resample):
-// the value, with shading its 3 world-gradient components, with shadows the
-// shadow-transmittance slab (nf = 1..5 fields). Each field streams through
-// shared memory in row chunks, so shared memory holds one tmp of
-// nf x ax x kTH floats (40 KB at nf = 5, ax = 512) and does not grow with
-// the volume otherwise.
+// dimension with the carry resident in VMEM; here each thread owns one
+// pixel of the intermediate image, walks the D slabs in order and keeps its
+// premultiplied rgb and transmittance carry in registers. A block is a
+// 32 x 8 pixel tile, one warp a row (1024 blocks at 512^2), so every SM
+// holds several.
+//
+// Per slab a pixel resamples its fields through the per-row pairs
+// (slab_common.cuh: resample_banded): 2 x 2 texels a field, read through
+// the read-only path, of the value, with shading its 3 world-gradient
+// components, with shadows the shadow-transmittance slab (nf = 1..5
+// fields). The fields (at most 42 MB at 128^3 and 5 fields) stay in the
+// 50 MB L2. Nothing is staged per slab, so the kernel's only barrier
+// publishes the transfer function in shared memory. Two skips, both exact
+// (the blend would leave the carry bit for bit as it is): a pixel that a
+// slab does not cover (covy x covx = 0: alpha x 0 = 0 and rgb is finite),
+// and a warp whose pixels have all terminated or lie outside the frame
+// (a warp vote; transmittance never rises again).
 //
 // Then, per pixel, exactly the TPU kernels' formulas (_kernel_ext
 // :140-191): classify the value (control-point telescoping form, or the
@@ -31,13 +38,12 @@
 // with -fmad=false, so sqrtf and powf see the operands of the plain PyTorch
 // version.
 //
-// Bound on an H100 at 512^2 x 128 slabs of a 128^3 volume: 81 MB of inputs
-// and outputs plain, 107 MB with shading (fields [128, 4, 128, 128], the
-// two interpolation stacks [128, 512, 128] of 33.6 MB each), 115 MB with
-// shading and shadows: about 24-34 us at 3.35 TB/s. The dense resample this
-// version runs is 10.7 GFLOP per field (42.9 at 4 fields); each row of My
-// and Mx has at most 2 nonzeros, so a banded resample (per-row index/weight
-// pairs) is the later optimisation, worth 4x as much with shading.
+// Bound on an H100 at 512^2 x 128 slabs of a 128^3 volume: each input once,
+// the volume (8.4 MB), the pairs (2 x [128, 512] int32 + [128, 512, 2]
+// float32, 1.6 MB), coverage, corr and the 4 output planes, about 15.5 MB
+// plain, 41 MB with shading (4 fields), 49 MB with shading and shadows,
+// against the operations of the live pixel-slabs (chip_smoke.py counts
+// both).
 #include "slab_common.cuh"
 
 namespace {
@@ -109,14 +115,19 @@ __device__ __forceinline__ void shade(const Shading& sh, float (&rgb)[3],
   }
 }
 
+constexpr int kBX = 32;  // pixels of a block along a row: one warp
+constexpr int kBY = 8;   // rows of a block, one warp each
+
 // The pointers that only the extension reads (shadow, x_src, y_src, zw,
 // misc) may be null when its flag is off.
 template <bool kShade, bool kShadow>
-__global__ void __launch_bounds__(kTW)
+__global__ void __launch_bounds__(kBX * kBY)
 slab_composite_kernel(const float* __restrict__ fields,
                       const float* __restrict__ shadow,
-                      const float* __restrict__ my,
-                      const float* __restrict__ mx,
+                      const int* __restrict__ jy,
+                      const float* __restrict__ wy,
+                      const int* __restrict__ jx,
+                      const float* __restrict__ wx,
                       const float* __restrict__ covy,
                       const float* __restrict__ covx,
                       const float* __restrict__ corr,
@@ -127,12 +138,12 @@ slab_composite_kernel(const float* __restrict__ fields,
                       const float* __restrict__ lut, int n_lut,
                       const float* __restrict__ misc, int p0, int p1, int p2,
                       float* __restrict__ out, int D, int ay, int ax, int hi,
-                      int wi, int ka, float term_thresh) {
+                      int wi, float term_thresh) {
   constexpr int kC = kShade ? 4 : 1;          // fields per slab in `fields`
   constexpr int kNF = kC + (kShadow ? 1 : 0);  // fields resampled per slab
-  extern __shared__ __align__(16) float smem[];
-  const Layout L = layout(ay, ax, ka, kNF, n_lut > 0 ? n_lut * 4 : kc * 8);
-  const TransferFn tf = stage_tf(smem + L.tf, ctrl, kc, lut, n_lut);
+  extern __shared__ __align__(16) float s_tf[];
+  const TransferFn tf = stage_tf(s_tf, ctrl, kc, lut, n_lut,
+                                 threadIdx.y * kBX + threadIdx.x, kBX * kBY);
   Shading sh{};
   if constexpr (kShade || kShadow) {
     sh.amb = misc[0];
@@ -147,126 +158,123 @@ slab_composite_kernel(const float* __restrict__ fields,
     sh.perm[1] = p1;
     sh.perm[2] = p2;
   }
+  __syncthreads();  // the TF is staged: the kernel's only barrier
 
-  const int col = blockIdx.x * kTW + threadIdx.x;
-  const int row0 = blockIdx.y * kTH;
-  Carry px[kTH];
-  float corr_px[kTH];
-#pragma unroll
-  for (int r = 0; r < kTH; ++r) {
-    px[r] = Carry{0.0f, 0.0f, 0.0f, 1.0f};
-    const int row = row0 + r;
-    corr_px[r] = (row < hi && col < wi) ? corr[row * wi + col] : 0.0f;
-  }
-
+  const int col = blockIdx.x * kBX + threadIdx.x;
+  const int row = blockIdx.y * kBY + threadIdx.y;
+  const bool inside = row < hi && col < wi;
+  const size_t p = static_cast<size_t>(row) * wi + col;
+  const float corr_px = inside ? corr[p] : 0.0f;
+  Carry px{0.0f, 0.0f, 0.0f, 1.0f};
+  bool live = inside;
   const size_t slab_sz = static_cast<size_t>(ay) * ax;
   for (int k = 0; k < D; ++k) {
-    const float* src[kNF];
+    // uniform across the warp, so every lane reaches every vote
+    if (!__any_sync(0xffffffffu, live)) break;
+    if (!live) continue;
+    const float cov = __ldg(covy + static_cast<size_t>(k) * hi + row) *
+                      __ldg(covx + static_cast<size_t>(k) * wi + col);
+    if (cov == 0.0f) continue;
+    const Pair py = load_pair(jy, wy, static_cast<size_t>(k) * hi + row, ay);
+    const Pair pxx = load_pair(jx, wx, static_cast<size_t>(k) * wi + col, ax);
+    float v[kNF];
 #pragma unroll
-    for (int c = 0; c < kC; ++c) src[c] = fields + (k * kC + c) * slab_sz;
-    if constexpr (kShadow) src[kNF - 1] = shadow + k * slab_sz;
-    float v[kNF][kTH];
-    resample<kNF>(src, my + static_cast<size_t>(k) * hi * ay,
-                  mx + static_cast<size_t>(k) * wi * ax, smem + L.my,
-                  smem + L.tmp, smem + L.slab, smem + L.mx, ay, ax, hi, wi,
-                  ka, row0, blockIdx.x * kTW, v);
-
-    const float cov_x = col < wi ? covx[static_cast<size_t>(k) * wi + col]
-                                 : 0.0f;
-    float xs = 0.0f, zk = 0.0f;
+    for (int c = 0; c < kC; ++c) {
+      v[c] = resample_banded(
+          fields + (static_cast<size_t>(k) * kC + c) * slab_sz, ax, py, pxx);
+    }
+    if constexpr (kShadow) {
+      v[kNF - 1] = resample_banded(shadow + static_cast<size_t>(k) * slab_sz,
+                                   ax, py, pxx);
+    }
+    float rgba[4];
+    classify(tf, v[0], rgba);
+    float rgb[3] = {rgba[0], rgba[1], rgba[2]};
     if constexpr (kShade) {
-      xs = col < wi ? x_src[static_cast<size_t>(k) * wi + col] : 0.0f;
-      zk = zw[k];
+      shade(sh, rgb, v[1], v[2], v[3],
+            __ldg(x_src + static_cast<size_t>(k) * wi + col),
+            __ldg(y_src + static_cast<size_t>(k) * hi + row), __ldg(zw + k));
     }
+    if constexpr (kShadow) {
+      const float f =
+          sh.amb + (1.0f - sh.amb) * fminf(fmaxf(v[kNF - 1], 0.0f), 1.0f);
 #pragma unroll
-    for (int r = 0; r < kTH; ++r) {
-      const int row = row0 + r;
-      const float cov_y =
-          row < hi ? covy[static_cast<size_t>(k) * hi + row] : 0.0f;
-      float rgba[4];
-      classify(tf, v[0][r], rgba);
-      float rgb[3] = {rgba[0], rgba[1], rgba[2]};
-      if constexpr (kShade) {
-        const float ys =
-            row < hi ? y_src[static_cast<size_t>(k) * hi + row] : 0.0f;
-        shade(sh, rgb, v[1][r], v[2][r], v[3][r], xs, ys, zk);
-      }
-      if constexpr (kShadow) {
-        const float f = sh.amb + (1.0f - sh.amb) *
-                                     fminf(fmaxf(v[kNF - 1][r], 0.0f), 1.0f);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] * f;
-      }
-      blend(px[r], rgb, rgba[3], corr_px[r], cov_y * cov_x, term_thresh);
+      for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] * f;
     }
+    blend(px, rgb, rgba[3], corr_px, cov, term_thresh);
+    live = px.trans > term_thresh;
   }
-  store_carry(out, px, row0, col, hi, wi);
+  if (inside) store_carry(out, px, p, static_cast<size_t>(hi) * wi);
 }
 
 template <bool kShade, bool kShadow>
-int launch(const void* fields, const void* shadow, const void* my,
-           const void* mx, const void* covy, const void* covx,
-           const void* corr, const void* x_src, const void* y_src,
-           const void* zw, const void* ctrl, int kc, const void* lut,
-           int n_lut, const void* misc, int p0, int p1, int p2, void* out,
-           int D, int ay, int ax, int hi, int wi, float term_thresh,
-           void* stream) {
+int launch(const void* fields, const void* shadow, const void* jy,
+           const void* wy, const void* jx, const void* wx, const void* covy,
+           const void* covx, const void* corr, const void* x_src,
+           const void* y_src, const void* zw, const void* ctrl, int kc,
+           const void* lut, int n_lut, const void* misc, int p0, int p1,
+           int p2, void* out, int D, int ay, int ax, int hi, int wi,
+           float term_thresh, void* stream) {
   if (hi <= 0 || wi <= 0) return cudaSuccess;
-  if (D < 0 || ay <= 0 || ax <= 0 || kc < 1 || (lut != nullptr && n_lut < 2))
+  if (D < 0 || ay < 2 || ax < 2 || kc < 1 || (lut != nullptr && n_lut < 2))
     return cudaErrorInvalidValue;
   if (lut == nullptr) n_lut = 0;
-  constexpr int kNF = (kShade ? 4 : 1) + (kShadow ? 1 : 0);
-  const int ka = chunk_rows(ay, ax);
-  const Layout L = layout(ay, ax, ka, kNF, n_lut > 0 ? n_lut * 4 : kc * 8);
-  const size_t bytes = sizeof(float) * static_cast<size_t>(L.total);
+  const size_t bytes =
+      sizeof(float) * static_cast<size_t>(round4(n_lut > 0 ? n_lut * 4
+                                                           : kc * 8));
   cudaError_t err = cudaFuncSetAttribute(
       slab_composite_kernel<kShade, kShadow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const dim3 grid((wi + kTW - 1) / kTW, (hi + kTH - 1) / kTH);
+  const auto f = [](const void* q) { return static_cast<const float*>(q); };
+  const auto i = [](const void* q) { return static_cast<const int*>(q); };
+  const dim3 grid((wi + kBX - 1) / kBX, (hi + kBY - 1) / kBY);
   slab_composite_kernel<kShade, kShadow>
-      <<<grid, kTW, bytes, static_cast<cudaStream_t>(stream)>>>(
-          f(fields), f(shadow), f(my), f(mx), f(covy), f(covx), f(corr),
-          f(x_src), f(y_src), f(zw), f(ctrl), kc, f(lut), n_lut, f(misc), p0,
-          p1, p2, static_cast<float*>(out), D, ay, ax, hi, wi, ka,
-          term_thresh);
+      <<<grid, dim3(kBX, kBY), bytes, static_cast<cudaStream_t>(stream)>>>(
+          f(fields), f(shadow), i(jy), f(wy), i(jx), f(wx), f(covy),
+          f(covx), f(corr), f(x_src), f(y_src), f(zw), f(ctrl), kc, f(lut),
+          n_lut, f(misc), p0, p1, p2, static_cast<float*>(out), D, ay, ax, hi,
+          wi, term_thresh);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// vol [D, ay, ax], my [D, hi, ay], mx [D, wi, ax], covy [D, hi],
-// covx [D, wi], corr [hi, wi], ctrl [kc, 8] (rows x, r, g, b, a, lo, hi, 0),
-// lut [n_lut, 4] rgba or null (n_lut = 0: control-point form);
-// out [4, hi, wi] = premultiplied rgb + transmittance. All float32.
-extern "C" int slab_composite_forward(const void* vol, const void* my,
-                                      const void* mx, const void* covy,
+// vol [D, ay, ax]; jy [D, hi], jx [D, wi] int32 and wy [D, hi, 2],
+// wx [D, wi, 2]: the per-row pairs of the interpolation matrices (row i of
+// slab k samples rows jy, jy + 1 of the slab, ay >= 2, and likewise
+// columns); covy [D, hi], covx [D, wi], corr [hi, wi], ctrl [kc, 8] (rows
+// x, r, g, b, a, lo, hi, 0), lut [n_lut, 4] rgba or null (n_lut = 0:
+// control-point form); out [4, hi, wi] = premultiplied rgb +
+// transmittance. float32 but the indices.
+extern "C" int slab_composite_forward(const void* vol, const void* jy,
+                                      const void* wy, const void* jx,
+                                      const void* wx, const void* covy,
                                       const void* covx, const void* corr,
                                       const void* ctrl, int kc,
                                       const void* lut, int n_lut, void* out,
                                       int D, int ay, int ax, int hi, int wi,
                                       float term_thresh, void* stream) {
-  return launch<false, false>(vol, nullptr, my, mx, covy, covx, corr, nullptr,
-                              nullptr, nullptr, ctrl, kc, lut, n_lut, nullptr,
-                              0, 1, 2, out, D, ay, ax, hi, wi, term_thresh,
-                              stream);
+  return launch<false, false>(vol, nullptr, jy, wy, jx, wx, covy, covx, corr,
+                              nullptr, nullptr, nullptr, ctrl, kc, lut, n_lut,
+                              nullptr, 0, 1, 2, out, D, ay, ax, hi, wi,
+                              term_thresh, stream);
 }
 
 // fields [D, C, ay, ax] with C = 4 (value + world gradient: shaded) or 1,
-// shadow [D, ay, ax] or null, my [D, hi, ay], mx [D, wi, ax], covy [D, hi],
-// covx [D, wi], corr [hi, wi], x_src [D, wi], y_src [D, hi], zw [D],
-// ctrl [kc, 8], lut [n_lut, 4] or null, misc [11] (layout above),
+// shadow [D, ay, ax] or null, the pairs jy, wy, jx, wx as above,
+// covy [D, hi], covx [D, wi], corr [hi, wi], x_src [D, wi], y_src [D, hi],
+// zw [D], ctrl [kc, 8], lut [n_lut, 4] or null, misc [11] (layout above),
 // perm (p0, p1, p2); out [4, hi, wi] = premultiplied rgb + transmittance.
-// All float32. C = 1 without a shadow volume is refused: that is
-// slab_composite_forward.
+// float32 but the indices. C = 1 without a shadow volume is refused: that
+// is slab_composite_forward.
 extern "C" int slab_composite_ext_forward(
-    const void* fields, int C, const void* shadow, const void* my,
-    const void* mx, const void* covy, const void* covx, const void* corr,
-    const void* x_src, const void* y_src, const void* zw, const void* ctrl,
-    int kc, const void* lut, int n_lut, const void* misc, int p0, int p1,
-    int p2, void* out, int D, int ay, int ax, int hi, int wi,
-    float term_thresh, void* stream) {
+    const void* fields, int C, const void* shadow, const void* jy,
+    const void* wy, const void* jx, const void* wx, const void* covy,
+    const void* covx, const void* corr, const void* x_src, const void* y_src,
+    const void* zw, const void* ctrl, int kc, const void* lut, int n_lut,
+    const void* misc, int p0, int p1, int p2, void* out, int D, int ay,
+    int ax, int hi, int wi, float term_thresh, void* stream) {
   if (p0 + p1 + p2 != 3 || p0 == p1 || p1 == p2 || p0 == p2 || p0 < 0 ||
       p1 < 0 || p2 < 0)
     return cudaErrorInvalidValue;
@@ -275,7 +283,7 @@ extern "C" int slab_composite_ext_forward(
                    : C == 1 && shadow != nullptr ? launch<false, true>
                                                  : nullptr;
   if (run == nullptr) return cudaErrorInvalidValue;
-  return run(fields, shadow, my, mx, covy, covx, corr, x_src, y_src, zw, ctrl,
-             kc, lut, n_lut, misc, p0, p1, p2, out, D, ay, ax, hi, wi,
-             term_thresh, stream);
+  return run(fields, shadow, jy, wy, jx, wx, covy, covx, corr, x_src, y_src,
+             zw, ctrl, kc, lut, n_lut, misc, p0, p1, p2, out, D, ay, ax, hi,
+             wi, term_thresh, stream);
 }

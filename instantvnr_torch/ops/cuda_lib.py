@@ -51,16 +51,16 @@ SIGNATURES = {
     "hash_encode_forward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _P),
     # coords, g, grad, B, L, F, scales, levels, g_bf16, stream
     "hash_encode_backward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _P),
-    # vol, my, mx, covy, covx, corr, ctrl, kc, lut, n_lut, out,
+    # vol, jy, wy, jx, wx, covy, covx, corr, ctrl, kc, lut, n_lut, out,
     # D, ay, ax, hi, wi, term_thresh, stream
-    "slab_composite_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
-                               _I, _I, _I, _I, _I, _F, _P),
-    # fields, C, shadow, my, mx, covy, covx, corr, x_src, y_src, zw, ctrl,
-    # kc, lut, n_lut, misc, p0, p1, p2, out, D, ay, ax, hi, wi, term_thresh,
-    # stream
+    "slab_composite_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                               _I, _P, _I, _I, _I, _I, _I, _F, _P),
+    # fields, C, shadow, jy, wy, jx, wx, covy, covx, corr, x_src, y_src, zw,
+    # ctrl, kc, lut, n_lut, misc, p0, p1, p2, out, D, ay, ax, hi, wi,
+    # term_thresh, stream
     "slab_composite_ext_forward": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _I, _P, _I, _P, _I, _I, _I, _P,
-                                   _I, _I, _I, _I, _I, _F, _P),
+                                   _P, _P, _P, _P, _I, _P, _I, _P, _I, _I,
+                                   _I, _P, _I, _I, _I, _I, _I, _F, _P),
     # fields, my, mx, covy, covx, iso, out, D, ay, ax, hi, wi, stream
     "iso_sweep_forward": (_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
                           _P),

@@ -257,6 +257,8 @@ def _kernel_forward(table, coords, spec, compute_dtype):
 def _kernel_backward(n_entries, coords, spec, g, compute_dtype):
     coords, scales, levels = _kernel_args(None, coords, spec, compute_dtype)
     g = g.to(compute_dtype).contiguous()
+    if g.data_ptr() % 16:  # the kernel's vector loads need alignment
+        g = g.clone()
     grad = torch.zeros((n_entries, spec.n_features), dtype=torch.float32,
                        device=coords.device)
     cuda_lib.load_library().call(

@@ -9,7 +9,10 @@ counterparts of the TPU kernels in
   shadow-transmittance slab that darkens each sample.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version (`*_reference`) only for CPU tensors. All take every transfer
+version (`*_reference`) only for CPU tensors. Both resample each slab
+through per-row pairs (`resample_pairs`; render/slabmarch.py::
+_interp_pairs), the two nonzeros of each row of the dense interpolation
+matrices, in the order of the dense product. All take every transfer
 function: up to `_CONTROLS_CROSSOVER` segments they classify from the
 control points, beyond it from the dense LUT (`lut`), as the JAX package's
 XLA scan does (the TPU kernels covered only the first form).
@@ -68,18 +71,37 @@ def _classify_packed(ctrl: torch.Tensor, lut: torch.Tensor | None,
     return acc
 
 
-def composite_slabs_reference(vol, my_all, mx_all, covy, covx, corr_exp,
+def resample_pairs(src, y_pairs, x_pairs):
+    """Banded resample of src [..., ay, ax] → [..., hi, wi] through one
+    slab's pairs (j0 [n], w [n, 2] per axis, render/slabmarch.py::
+    _interp_pairs), in the order of the dense product's nonzero terms:
+    tmp = wy0·src[jy] + wy1·src[jy + 1], then v = wx0·tmp[:, jx] +
+    wx1·tmp[:, jx + 1]. The kernels sum in the same order."""
+    (jy, wy), (jx, wx) = y_pairs, x_pairs
+    jy, jx = jy.to(torch.int64), jx.to(torch.int64)
+    tmp = (wy[:, 0, None] * src[..., jy, :]
+           + wy[:, 1, None] * src[..., jy + 1, :])
+    return wx[:, 0] * tmp[..., jx] + wx[:, 1] * tmp[..., jx + 1]
+
+
+def _slab_pairs(pairs, k):
+    return pairs[0][k], pairs[1][k]
+
+
+def composite_slabs_reference(vol, y_pairs, x_pairs, covy, covx, corr_exp,
                               ctrl, lut=None):
     """Plain version: the front-to-back loop of the JAX package's scan
     (instantvnr_tpu/render/slabmarch.py:478-558), unshaded, over the same
-    precomputed per-slab inputs as the kernel. Returns (color [hi, wi, 3]
-    premultiplied, alpha [hi, wi])."""
+    precomputed per-slab inputs as the kernel, resampling through the
+    pairs (`resample_pairs`) where the scan multiplies dense matrices.
+    Returns (color [hi, wi, 3] premultiplied, alpha [hi, wi])."""
     d = vol.shape[0]
     hi, wi = corr_exp.shape
     color = torch.zeros((hi, wi, 3), dtype=torch.float32, device=vol.device)
     trans = torch.ones((hi, wi), dtype=torch.float32, device=vol.device)
     for k in range(d):
-        vals = my_all[k] @ vol[k] @ mx_all[k].T  # [hi, wi]
+        vals = resample_pairs(vol[k], _slab_pairs(y_pairs, k),
+                              _slab_pairs(x_pairs, k))  # [hi, wi]
         rgba = _classify_packed(ctrl, lut, vals)
         color, trans = _blend(color, trans, rgba[..., :3], rgba[..., 3],
                               corr_exp, covy[k], covx[k])
@@ -98,47 +120,80 @@ def _blend(color, trans, rgb, a, corr_exp, covy_k, covx_k):
     return color, trans * (1.0 - alpha)
 
 
-def composite_slabs(vol, my_all, mx_all, covy, covx, corr_exp, ctrl,
+def _kernel_tensors(name, device, named):
+    """Check (name, tensor, shape, dtype) entries for the kernels: each on
+    `device`, of its dtype and shape → {name: contiguous tensor, 16-byte
+    aligned for the kernels' vector loads}."""
+    out = {}
+    for arg, a, s, dt in named:
+        if a.device != device or a.dtype != dt or tuple(a.shape) != s:
+            raise ValueError(f"{name}: expected {arg} {dt} {s} on {device}, "
+                             f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+        a = a.contiguous()
+        out[arg] = a.clone() if a.data_ptr() % 16 else a
+    return out
+
+
+def _pair_entries(y_pairs, x_pairs, d, hi, wi, ay, ax):
+    """The pairs' entries for _kernel_tensors. The kernels read columns j0
+    and j0 + 1 of every row (j0 in [0, n − 2]), so each slab axis needs 2
+    voxels, as _interp_pairs does."""
+    if ay < 2 or ax < 2:
+        raise ValueError(f"slab compositors: a slab of {ay} x {ax} voxels; "
+                         f"the banded resample needs 2 along each axis")
+    i32, f32 = torch.int32, torch.float32
+    return [("jy", y_pairs[0], (d, hi), i32),
+            ("wy", y_pairs[1], (d, hi, 2), f32),
+            ("jx", x_pairs[0], (d, wi), i32),
+            ("wx", x_pairs[1], (d, wi, 2), f32)]
+
+
+def composite_slabs(vol, y_pairs, x_pairs, covy, covx, corr_exp, ctrl,
                     lut=None):
     """Fused compositor over precomputed per-slab resampling state.
 
     vol      [D, ay, ax]   permuted volume
-    my_all   [D, hi, ay]   per-slab row interpolation matrices
-    mx_all   [D, wi, ax]   per-slab column interpolation matrices
+    y_pairs  (j0 [D, hi] int32, w [D, hi, 2])  per-slab row interpolation:
+                           row i samples vol rows j0 and j0 + 1
+                           (render/slabmarch.py::_interp_pairs)
+    x_pairs  (j0 [D, wi] int32, w [D, wi, 2])  the same for columns
     covy     [D, hi]       row coverage & clip (0/1)
     covx     [D, wi]       column coverage & clip & per-slab keep (0/1)
     corr_exp [hi, wi]      opacity-correction exponent (per-pixel Δt)
     ctrl     [Kc, 8]       pack_controls(tf)
     lut      [R, 4] | None pack_lut(tf): classify from the dense LUT
     returns  (color [hi, wi, 3] premultiplied, alpha [hi, wi])
+
+    CUDA tensors launch `slab_composite_forward`, the kernel template's
+    <false, false> instantiation; CPU tensors take
+    `composite_slabs_reference`.
     """
     if vol.device.type == "cpu":
-        return composite_slabs_reference(vol, my_all, mx_all, covy, covx,
+        return composite_slabs_reference(vol, y_pairs, x_pairs, covy, covx,
                                          corr_exp, ctrl, lut)
     if vol.device.type != "cuda":
         raise ValueError(f"unsupported device {vol.device}")
     d, ay, ax = vol.shape
     hi, wi = corr_exp.shape
-    args = [vol, my_all, mx_all, covy, covx, corr_exp, ctrl] + (
-        [] if lut is None else [lut])
-    shapes = [(d, ay, ax), (d, hi, ay), (d, wi, ax), (d, hi), (d, wi),
-              (hi, wi), (ctrl.shape[0], 8)] + ([] if lut is None
-                                               else [(lut.shape[0], 4)])
-    for a, s in zip(args, shapes):
-        if (a.device != vol.device or a.dtype != torch.float32
-                or tuple(a.shape) != s):
-            raise ValueError(f"composite_slabs: expected float32 {s} on "
-                             f"{vol.device}, got {a.dtype} "
-                             f"{tuple(a.shape)} on {a.device}")
+    f32 = torch.float32
+    named = ([("vol", vol, (d, ay, ax), f32)]
+             + _pair_entries(y_pairs, x_pairs, d, hi, wi, ay, ax)
+             + [("covy", covy, (d, hi), f32), ("covx", covx, (d, wi), f32),
+                ("corr_exp", corr_exp, (hi, wi), f32),
+                ("ctrl", ctrl, (ctrl.shape[0], 8), f32)]
+             + ([] if lut is None else [("lut", lut, (lut.shape[0], 4),
+                                         f32)]))
+    t = _kernel_tensors("composite_slabs", vol.device, named)
     from instantvnr_torch.ops.cuda_lib import load_library
 
     lib = load_library()
-    args = [a.contiguous() for a in args]
     out = torch.empty((4, hi, wi), dtype=torch.float32, device=vol.device)
-    lut_c = args[7] if lut is not None else None
-    lib.call("slab_composite_forward", *(a.data_ptr() for a in args[:7]),
-             ctrl.shape[0], None if lut_c is None else lut_c.data_ptr(),
-             0 if lut_c is None else lut_c.shape[0], out.data_ptr(),
+    lib.call("slab_composite_forward",
+             *(t[n].data_ptr() for n in ("vol", "jy", "wy", "jx", "wx",
+                                         "covy", "covx", "corr_exp",
+                                         "ctrl")),
+             ctrl.shape[0], t["lut"].data_ptr() if "lut" in t else None,
+             0 if lut is None else lut.shape[0], out.data_ptr(),
              d, ay, ax, hi, wi, TERM_THRESH,
              torch.cuda.current_stream(vol.device).cuda_stream)
     counter.launches += 1
@@ -206,13 +261,14 @@ def _shade_ext(rgb, rs, x_src_k, y_src_k, zw_k, misc, perm):
     return out
 
 
-def composite_slabs_ext_reference(fields, shadow_vol, my_all, mx_all, covy,
+def composite_slabs_ext_reference(fields, shadow_vol, y_pairs, x_pairs, covy,
                                   covx, corr_exp, x_src, y_src, zw, ctrl, misc,
                                   perm, lut=None):
     """Plain version of `composite_slabs_ext`: the TPU kernel's _kernel_ext
     (slab_composite.py:102-191) formula for formula, over the same
-    precomputed per-slab inputs. Shades when fields has 4 channels, darkens
-    by the shadow slab when shadow_vol is given."""
+    precomputed per-slab inputs, resampling every field through the pairs
+    (`resample_pairs`). Shades when fields has 4 channels, darkens by the
+    shadow slab when shadow_vol is given."""
     d, c_f = fields.shape[:2]
     hi, wi = corr_exp.shape
     dev = fields.device
@@ -220,14 +276,14 @@ def composite_slabs_ext_reference(fields, shadow_vol, my_all, mx_all, covy,
     color = torch.zeros((hi, wi, 3), dtype=torch.float32, device=dev)
     trans = torch.ones((hi, wi), dtype=torch.float32, device=dev)
     for k in range(d):
-        my, mx_t = my_all[k], mx_all[k].T
-        rs = torch.matmul(torch.matmul(my, fields[k]), mx_t)  # [C, hi, wi]
+        yk, xk = _slab_pairs(y_pairs, k), _slab_pairs(x_pairs, k)
+        rs = resample_pairs(fields[k], yk, xk)  # [C, hi, wi]
         rgba = _classify_packed(ctrl, lut, rs[0])
         rgb = [rgba[..., c] for c in range(3)]
         if shade:
             rgb = _shade_ext(rgb, rs, x_src[k], y_src[k], zw[k], misc, perm)
         if shadow_vol is not None:
-            sh = my @ shadow_vol[k] @ mx_t
+            sh = resample_pairs(shadow_vol[k], yk, xk)
             amb = misc[0]
             f = amb + (1.0 - amb) * torch.clamp(sh, 0.0, 1.0)
             rgb = [r * f for r in rgb]
@@ -236,7 +292,7 @@ def composite_slabs_ext_reference(fields, shadow_vol, my_all, mx_all, covy,
     return color, 1.0 - trans
 
 
-def composite_slabs_ext(fields, shadow_vol, my_all, mx_all, covy, covx,
+def composite_slabs_ext(fields, shadow_vol, y_pairs, x_pairs, covy, covx,
                         corr_exp, x_src, y_src, zw, ctrl, misc, perm,
                         lut=None):
     """Fused compositor with gradient shading and/or shadow modulation.
@@ -250,6 +306,10 @@ def composite_slabs_ext(fields, shadow_vol, my_all, mx_all, covy, covx,
     misc       [11]     pack_misc(...)
     perm       (3 ints) permuted-axis → world-component map (slabmarch)
     Other arguments as composite_slabs. Returns (color premult, alpha).
+
+    CUDA tensors launch `slab_composite_ext_forward`, the kernel template's
+    <shade, shadow> instantiation; CPU tensors take
+    `composite_slabs_ext_reference`.
     """
     if fields.dim() != 4 or fields.shape[1] not in (1, 4):
         raise ValueError(f"composite_slabs_ext: fields must be [D, 1|4, ay, "
@@ -261,41 +321,37 @@ def composite_slabs_ext(fields, shadow_vol, my_all, mx_all, covy, covx,
         raise ValueError(f"composite_slabs_ext: perm {perm} is no permutation")
     if fields.device.type == "cpu":
         return composite_slabs_ext_reference(
-            fields, shadow_vol, my_all, mx_all, covy, covx, corr_exp, x_src,
-            y_src, zw, ctrl, misc, perm, lut)
+            fields, shadow_vol, y_pairs, x_pairs, covy, covx, corr_exp,
+            x_src, y_src, zw, ctrl, misc, perm, lut)
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
     d, c_f, ay, ax = fields.shape
     hi, wi = corr_exp.shape
-    named = [("fields", fields, (d, c_f, ay, ax)),
-             ("my_all", my_all, (d, hi, ay)), ("mx_all", mx_all, (d, wi, ax)),
-             ("covy", covy, (d, hi)), ("covx", covx, (d, wi)),
-             ("corr_exp", corr_exp, (hi, wi)), ("x_src", x_src, (d, wi)),
-             ("y_src", y_src, (d, hi)), ("zw", zw, (d,)),
-             ("ctrl", ctrl, (ctrl.shape[0], 8)), ("misc", misc, (11,))]
+    f32 = torch.float32
+    named = ([("fields", fields, (d, c_f, ay, ax), f32)]
+             + _pair_entries(y_pairs, x_pairs, d, hi, wi, ay, ax)
+             + [("covy", covy, (d, hi), f32), ("covx", covx, (d, wi), f32),
+                ("corr_exp", corr_exp, (hi, wi), f32),
+                ("x_src", x_src, (d, wi), f32), ("y_src", y_src, (d, hi), f32),
+                ("zw", zw, (d,), f32), ("ctrl", ctrl, (ctrl.shape[0], 8), f32),
+                ("misc", misc, (11,), f32)])
     if shadow_vol is not None:
-        named.append(("shadow_vol", shadow_vol, (d, ay, ax)))
+        named.append(("shadow_vol", shadow_vol, (d, ay, ax), f32))
     if lut is not None:
-        named.append(("lut", lut, (lut.shape[0], 4)))
-    for name, a, s in named:
-        if (a.device != fields.device or a.dtype != torch.float32
-                or tuple(a.shape) != s):
-            raise ValueError(f"composite_slabs_ext: expected {name} float32 "
-                             f"{s} on {fields.device}, got {a.dtype} "
-                             f"{tuple(a.shape)} on {a.device}")
+        named.append(("lut", lut, (lut.shape[0], 4), f32))
+    t = _kernel_tensors("composite_slabs_ext", fields.device, named)
     from instantvnr_torch.ops.cuda_lib import load_library
 
     lib = load_library()
-    t = {name: a.contiguous() for name, a, _ in named}
     out = torch.empty((4, hi, wi), dtype=torch.float32, device=fields.device)
 
     def ptr(name):
         return t[name].data_ptr() if name in t else None
 
     lib.call("slab_composite_ext_forward", ptr("fields"), c_f,
-             ptr("shadow_vol"), ptr("my_all"), ptr("mx_all"), ptr("covy"),
-             ptr("covx"), ptr("corr_exp"), ptr("x_src"), ptr("y_src"),
-             ptr("zw"), ptr("ctrl"), ctrl.shape[0], ptr("lut"),
+             ptr("shadow_vol"), ptr("jy"), ptr("wy"), ptr("jx"), ptr("wx"),
+             ptr("covy"), ptr("covx"), ptr("corr_exp"), ptr("x_src"),
+             ptr("y_src"), ptr("zw"), ptr("ctrl"), ctrl.shape[0], ptr("lut"),
              0 if lut is None else lut.shape[0], ptr("misc"), *perm,
              out.data_ptr(), d, ay, ax, hi, wi, TERM_THRESH,
              torch.cuda.current_stream(fields.device).cuda_stream)

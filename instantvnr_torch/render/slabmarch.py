@@ -5,8 +5,11 @@ Perspective shear-warp factorization: pick the principal volume axis,
 composite axis-aligned slabs front to back into an intermediate image on
 the reference plane through the eye (each slab's projection is a uniform
 scale about the epipole, so it resamples with two banded interpolation
-matrices, My [hi, ay] and Mx [wi, ax]), then one final 2-D projective warp
-to the screen. The per-slab loop runs in a slab compositor
+matrices, My [hi, ay] and Mx [wi, ax], of at most two nonzeros a row), then
+one final 2-D projective warp to the screen. The compositors take those
+matrices as per-row pairs (`_interp_pairs`: the first column and its two
+weights); the isosurface sweep (render/isosurf.py) still takes them dense
+(`_interp_matrix`). The per-slab loop runs in a slab compositor
 (ops/slab_composite.py): `composite_slabs` unshaded, `composite_slabs_ext`
 with gradient shading (the value and its central-difference world gradient
 resampled with the same matrices, shaded with the scivis model) and/or a
@@ -93,22 +96,58 @@ def _permute_volume(volume: torch.Tensor, axis: int, flipped: bool):
     return vol.contiguous(), perm
 
 
+def _interp_weights(src, j, n_in: int) -> torch.Tensor:
+    """Bilinear weight of source voxel j (float, center at j + 0.5) for
+    the sample at src (both broadcast): 1 − |src − j| clamped at 0, the
+    out-of-edge weight folded back to the edge voxel, 0 for a sample
+    outside the volume (transparent)."""
+    w = torch.clamp(1.0 - torch.abs(src - j), min=0.0)
+    edge = ((src < 0.0) & (j == 0)) | ((src > n_in - 1.0) & (j == n_in - 1.0))
+    in_range = (src > -0.5) & (src < n_in - 0.5)
+    w = torch.where(edge, torch.ones_like(w), w)
+    return torch.where(in_range, w, torch.zeros_like(w))
+
+
+def _interp_src(n_out: int, scale: torch.Tensor, offset: torch.Tensor):
+    """[D, n_out, 1] source coordinates src = offset + i·scale − 0.5."""
+    i = torch.arange(n_out, dtype=torch.float32, device=scale.device)
+    return (offset[:, None] + i[None, :] * scale[:, None] - 0.5)[..., None]
+
+
 def _interp_matrix(n_out: int, n_in: int, scale: torch.Tensor,
                    offset: torch.Tensor) -> torch.Tensor:
     """Banded bilinear interpolation matrices, batched over the leading dim
     of scale/offset [D] → M [D, n_out, n_in]: out[i] = Σ_j M[i,j]·in[j],
     sampling at src = offset + i·scale (voxel j's center at j+0.5).
     Out-of-range rows are all-zero (transparent outside the volume)."""
-    dev = scale.device
-    i = torch.arange(n_out, dtype=torch.float32, device=dev)[None, :, None]
-    j = torch.arange(n_in, dtype=torch.float32, device=dev)[None, None, :]
-    src = offset[:, None, None] + i * scale[:, None, None] - 0.5
-    w = torch.clamp(1.0 - torch.abs(src - j), min=0.0)
-    # clamp-at-edge: fold the out-of-edge weight back to the edge voxel
-    edge = ((src < 0.0) & (j == 0)) | ((src > n_in - 1.0) & (j == n_in - 1.0))
-    in_range = (src > -0.5) & (src < n_in - 0.5)
-    w = torch.where(edge, torch.ones_like(w), w)
-    return torch.where(in_range, w, torch.zeros_like(w))
+    j = torch.arange(n_in, dtype=torch.float32, device=scale.device)
+    return _interp_weights(_interp_src(n_out, scale, offset), j, n_in)
+
+
+def _interp_pairs(n_out: int, n_in: int, scale: torch.Tensor,
+                  offset: torch.Tensor):
+    """`_interp_matrix` as per-row pairs: → (j0 [D, n_out] int32, w
+    [D, n_out, 2] float32), the weights of columns j0 = clamp(floor(src),
+    0, n_in − 2) and j0 + 1. A row of the matrix has its nonzeros only
+    there (|src − j| < 1, or the folded edge), and the weights come from
+    the same float32 operations (`_interp_weights`), so `_densify_pairs`
+    gives `_interp_matrix` bit for bit. An axis of one voxel has no pair
+    and is refused."""
+    if n_in < 2:
+        raise ValueError(f"_interp_pairs: an axis of {n_in} voxel(s); the "
+                         f"banded resample needs at least 2")
+    src = _interp_src(n_out, scale, offset)
+    j0 = torch.clamp(torch.floor(src), 0.0, n_in - 2.0)
+    w = _interp_weights(src, torch.cat([j0, j0 + 1.0], dim=-1), n_in)
+    return j0[..., 0].to(torch.int32), w
+
+
+def _densify_pairs(pairs, n_in: int) -> torch.Tensor:
+    """(j0 [D, n], w [D, n, 2]) → the dense [D, n, n_in] matrices."""
+    j0, w = pairs
+    cols = j0.to(torch.int64)[..., None] + torch.arange(2, device=w.device)
+    return torch.zeros(w.shape[:2] + (n_in,), dtype=w.dtype,
+                       device=w.device).scatter_(-1, cols, w)
 
 
 def _pixel_dt(xs, ys, e, z_ref, s_perm):
@@ -121,9 +160,10 @@ def _pixel_dt(xs, ys, e, z_ref, s_perm):
 
 
 def _per_slab_state(e, z_ref, xs, ys, d_slab: int, ax_n: int, ay_n: int,
-                    z0=0.0):
+                    z0=0.0, banded: bool = False):
     """Per-slab separable resampling state: (z_k [D], my_all [D, hi, ay],
-    mx_all [D, wi, ax], x_src [D, wi], y_src [D, hi])."""
+    mx_all [D, wi, ax], x_src [D, wi], y_src [D, hi]); with `banded`,
+    my_all and mx_all are `_interp_pairs` ((j0 [D, n], w [D, n, 2]))."""
     wi, hi = xs.shape[0], ys.shape[0]
     dev = xs.device
     z_k = z0 + torch.arange(d_slab, dtype=torch.float32, device=dev) + 0.5
@@ -132,8 +172,9 @@ def _per_slab_state(e, z_ref, xs, ys, d_slab: int, ax_n: int, ay_n: int,
     scale_x = (xs[1] - xs[0]) * inv_s
     off_y = e[1] + (ys[0] - e[1]) * inv_s
     scale_y = (ys[1] - ys[0]) * inv_s
-    mx_all = _interp_matrix(wi, ax_n, scale_x, off_x)
-    my_all = _interp_matrix(hi, ay_n, scale_y, off_y)
+    interp = _interp_pairs if banded else _interp_matrix
+    mx_all = interp(wi, ax_n, scale_x, off_x)
+    my_all = interp(hi, ay_n, scale_y, off_y)
     x_src = off_x[:, None] + torch.arange(
         wi, dtype=torch.float32, device=dev)[None, :] * scale_x[:, None]
     y_src = off_y[:, None] + torch.arange(
@@ -143,7 +184,9 @@ def _per_slab_state(e, z_ref, xs, ys, d_slab: int, ax_n: int, ay_n: int,
 
 def _coverage_masks(my_all, mx_all, x_src, y_src, clo, chi, keep):
     """Separable coverage/clip masks: covx [D, wi] folds in the per-slab
-    keep mask (occupancy/in-front/z-clip), covy [D, hi] the row terms."""
+    keep mask (occupancy/in-front/z-clip), covy [D, hi] the row terms. A
+    row is covered where its weights (dense [D, n, n_in], or the pairs'
+    [D, n, 2]; all ≥ 0) sum above 0."""
     covx = ((mx_all.sum(2) > 0) & (x_src >= clo[0]) & (x_src <= chi[0])
             & keep[:, None]).to(torch.float32)
     covy = ((my_all.sum(2) > 0) & (y_src >= clo[1])
@@ -257,14 +300,15 @@ def slab_composite_args(volume: torch.Tensor, tf: TransferFunction,
         slab_occupancy = torch.ones((d_slab,), dtype=torch.bool, device=dev)
     slab_occupancy = slab_occupancy & in_front
 
-    z_ks, my_all, mx_all, x_src, y_src = _per_slab_state(
-        e, z_ref, xs, ys, d_slab, ax_n, ay_n)
+    z_ks, y_pairs, x_pairs, x_src, y_src = _per_slab_state(
+        e, z_ref, xs, ys, d_slab, ax_n, ay_n, banded=True)
     keep = slab_occupancy & (z_ks >= clo[2]) & (z_ks <= chi[2])
-    covy, covx = _coverage_masks(my_all, mx_all, x_src, y_src, clo, chi, keep)
+    covy, covx = _coverage_masks(y_pairs[1], x_pairs[1], x_src, y_src, clo,
+                                 chi, keep)
     warp = (cam_arrays, width, height, perm, flipped, e, z_ref, x_lo, x_hi,
             y_lo, y_hi, xs.shape[0], ys.shape[0], xform.scale)
     if not (use_shading or use_shadow):
-        args = (vol, my_all, mx_all, covy, covx, corr_exp.contiguous(),
+        args = (vol, y_pairs, x_pairs, covy, covx, corr_exp.contiguous(),
                 pack_controls(tf), pack_lut(tf))
         return composite_slabs, args, warp
 
@@ -287,7 +331,7 @@ def slab_composite_args(volume: torch.Tensor, tf: TransferFunction,
     zw = size_z - z_ks if flipped else z_ks  # unflipped permuted voxel z
     misc = pack_misc(settings.shadow_ambient, settings.shading_scale, light,
                      eye_w, xform.scale)
-    args = (fields, svol, my_all, mx_all, covy, covx, corr_exp.contiguous(),
+    args = (fields, svol, y_pairs, x_pairs, covy, covx, corr_exp.contiguous(),
             x_src, y_src, zw, pack_controls(tf), misc, perm, pack_lut(tf))
     return composite_slabs_ext, args, warp
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's fused-MLP kernels, full decode, frame, online round and
-2^19 training step in several checkouts on one card, one process a run, in
-the order given (parent, change, change, parent compares two commits).
+"""Time the port's kernels, full decode, frames, online round and 2^19
+training step in several checkouts on one card, one process a run, in the
+order given (parent, change, change, parent compares two commits).
 
     python3 scripts/compare_trees.py TREE [TREE ...]
 
@@ -13,13 +13,20 @@ checks as its phases). Per run, one JSON line:
 - each fused-MLP kernel's device time (torch.profiler, the kernels whose
   names hold "fused_mlp" or "sum_partials") at the main path's shapes (a
   262,144-row decode blob; B = 2^16 for the training form);
+- K4's device time (its kernel and the zeroing of the table) on the 2^14
+  and 2^19 layouts at B = 2^16 (`chip_smoke.hash_inputs`);
+- each instantiation of the slab compositor template by device time on
+  one 512² orbit frame of the synthetic volume (plain, shaded, shadow,
+  shaded + shadow), its inputs built by the tree's own
+  `slab_composite_args` (`chip_smoke.composite_inputs`);
 - the training chain end to end at B = 2^16 for 5 seeds
   (`chip_smoke.chain_end_to_end`): the rows to which the forward kernel
   and the plain forward hand the backward other inputs, and the errors;
 - the full decode of the 2^19 model (host clock, median of 5);
-- a DECODED_SLAB orbit of 512² frames (host clock, frames 2-12, as
-  chip_smoke's main path) and one frame's stages (CUDA events,
-  `chip_smoke.phase_breakdown`);
+- a DECODED_SLAB orbit of 512² frames and a shaded + shadowed one (host
+  clock, frames 2-12, as chip_smoke's main path and views) and one
+  frame's stages (CUDA events, `chip_smoke.phase_breakdown`: the inputs
+  and the compositor of a plain and of a shaded + shadowed frame);
 - the online round (train(10), full decode, one frame; median of rounds
   2-6) and the training step at 2^19 (CUDA events over 100 steps, and its
   device busy time from torch.profiler over 20).
@@ -39,7 +46,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BREAKDOWN_KEYS = ("blob_hash_encode_ms", "blob_fused_mlp_ms",
                   "frame_inputs_ms", "frame_composite_ms", "frame_warp_ms",
-                  "frame_total_ms")
+                  "frame_total_ms", "frame_inputs_ext_ms",
+                  "frame_composite_ext_ms", "frame_inputs_ops")
+SLAB_VIEWS = {"composite_slabs": ("none", False, False),
+              "ext_shaded": ("gradient", True, False),
+              "ext_shadow": ("none", False, True),
+              "ext_shaded+shadow": ("gradient", True, True)}
 
 
 def chip_smoke():
@@ -71,6 +83,10 @@ def measure():
     from instantvnr_torch.models.network import NeuralField
     from instantvnr_torch.ops import cuda_lib
     from instantvnr_torch.ops import fused_mlp as fm
+    from instantvnr_torch.ops import hash_encoding as he
+    from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
+    from instantvnr_torch.render.shadow import shadow_volume_for
+    from instantvnr_torch.render.slabmarch import compute_gradient_volumes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -98,7 +114,24 @@ def measure():
                 torch, *cs.mlp_inputs(torch, field, seed), cfg)
             for seed in (cs.SEED + 5 + 2 * k for k in range(5))})
 
+    for log2 in (14, 19):
+        spec, _, coords, g = cs.hash_inputs(torch, log2)
+        rec[f"hash_encode_backward_2e{log2}_ms"] = cs.device_ms(
+            torch, lambda: he._kernel_backward(spec.n_entries, coords, spec,
+                                               g, torch.bfloat16),
+            cs.K4_KERNELS)
+
     sv = api.SimpleVolume.synthetic(cs.DIMS, "vorts", device="cuda")
+    vol = sv.volume.data
+    grads = compute_gradient_volumes(vol)
+    shadow = shadow_volume_for(vol, sv.tf, DEFAULT_LIGHT)
+    cam = cs.orbit(1, cs.N_FRAMES, max(cs.DIMS))
+    for name, (shading, shade, shadowed) in SLAB_VIEWS.items():
+        comp, args = cs.composite_inputs(torch, sv.tf, cam, vol, shading,
+                                         grads if shade else None,
+                                         shadow if shadowed else None)
+        rec[f"{name}_ms"] = cs.device_ms(torch, lambda: comp(*args),
+                                         ("slab_composite_kernel",))
     nv = api.NeuralVolume(ModelConfig(), sv, seed=0, device="cuda",
                           train_batch=cs.TRAIN_BATCH)
     r = api.VNRenderer(nv, cs.SIZE, cs.SIZE, api.RenderMode.DECODED_SLAB)
@@ -113,6 +146,12 @@ def measure():
     orbit = cs.run_orbit(torch, r, "frame")
     rec.update(frame_ms=orbit["ms_per_frame"],
                frame_ms_median=orbit["ms_per_frame_median"])
+    r_ext = api.VNRenderer(nv, cs.SIZE, cs.SIZE, api.RenderMode.DECODED_SLAB)
+    r_ext.set_slab_shading("gradient")
+    r_ext.enable_shadows()
+    orbit = cs.run_orbit(torch, r_ext, "frame_shaded_shadowed")
+    rec.update(frame_shaded_shadowed_ms=orbit["ms_per_frame"],
+               frame_shaded_shadowed_ms_median=orbit["ms_per_frame_median"])
     r_iso = api.VNRenderer(nv, cs.SIZE, cs.SIZE)
     r_iso.set_mode(api.RenderMode.ISOSURFACE_DECODED)
     r_iso.set_isovalue(float(nv.decode_volume().median()))

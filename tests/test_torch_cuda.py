@@ -295,6 +295,15 @@ def test_hash_encode_kernels_match_plain(cuda, n_features, table_dtype,
     np.testing.assert_allclose(grads[0], grads[1], atol=5e-4, rtol=1e-4)
 
 
+def _random_pairs(rng, cuda, d, n, n_in):
+    """Per-row pairs (j0 [d, n] int32 in [0, n_in − 2], weights [d, n, 2]
+    in [0, 1)) at random: the compositors' resample inputs."""
+    return (torch.tensor(rng.integers(0, n_in - 1, (d, n)), dtype=torch.int32,
+                         device=cuda),
+            torch.tensor(rng.uniform(0.0, 1.0, (d, n, 2)).astype(np.float32),
+                         device=cuda))
+
+
 @pytest.mark.parametrize("lut", [False, True])
 def test_composite_kernel_matches_plain(cuda, lut):
     rng = np.random.default_rng(7)
@@ -304,8 +313,8 @@ def test_composite_kernel_matches_plain(cuda, lut):
         return torch.tensor(rng.uniform(lo, hi_, shape).astype(np.float32),
                             device=cuda)
 
-    my = t(d, hi, ay, hi_=0.1)
-    mx = t(d, wi, ax, hi_=0.1)
+    my = _random_pairs(rng, cuda, d, hi, ay)
+    mx = _random_pairs(rng, cuda, d, wi, ax)
     covy = (t(d, hi) > 0.1).float()
     covx = (t(d, wi) > 0.1).float()
     kc = 8
@@ -329,9 +338,9 @@ def test_composite_kernel_matches_plain(cuda, lut):
 
 
 def _ext_inputs(cuda, rng, c_f, shadow, lut):
-    """Ragged shapes (frame not a multiple of the 4 x 256 tile, slab not a
-    multiple of the staging chunks) with smooth fields: the shading
-    amplifies summation-order noise where the gradient is tiny or random."""
+    """Ragged shapes (a frame that is not a multiple of the 32 x 8 tile)
+    with smooth fields: the shading amplifies summation-order noise where
+    the gradient is tiny or random."""
     d, ay, ax, hi, wi = 19, 17, 33, 37, 300
 
     def t(*shape, lo=0.0, hi_=1.0):
@@ -345,8 +354,8 @@ def _ext_inputs(cuda, rng, c_f, shadow, lut):
              0.4 * 2 * np.cos(3 * xx + 2 * yy) * np.cos(2 * zz),
              -0.4 * 2 * np.sin(3 * xx + 2 * yy) * np.sin(2 * zz)]
     fields = np.stack([value] + grads, axis=1)[:, :c_f]
-    my = t(d, hi, ay, hi_=0.1)
-    mx = t(d, wi, ax, hi_=0.1)
+    my = _random_pairs(rng, cuda, d, hi, ay)
+    mx = _random_pairs(rng, cuda, d, wi, ax)
     kc = 8
     ctrl = torch.zeros((kc, 8), device=cuda)
     ctrl[:, 0] = torch.tensor(np.sort(rng.uniform(0, 1, kc)), device=cuda)
@@ -414,3 +423,101 @@ def test_iso_sweep_kernel_matches_plain(cuda, iso):
                                atol=1e-3)
     np.testing.assert_allclose(g1[both].cpu().numpy(), g2[both].cpu().numpy(),
                                atol=1e-3)
+
+
+def _f64_oracle(spec, coords, g, cdt):
+    """The table gradient summed in float64: each corner's product of
+    weight and cotangent row, rounded to the compute type, added in
+    float64 (order does not matter at that precision)."""
+    idx, w = he.corner_indices_and_weights(spec, coords)
+    b, nl, nf = coords.shape[0], spec.n_levels, spec.n_features
+    contrib = (g.to(cdt).reshape(b, nl, 1, nf)
+               * w.to(cdt).reshape(b, nl, 8, 1)).double().reshape(-1, nf)
+    return torch.zeros((spec.n_entries, nf), dtype=torch.float64,
+                       device=coords.device).index_add_(0, idx.reshape(-1),
+                                                        contrib)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_features", [2, 8])
+@pytest.mark.parametrize("log2", [14, 19])
+def test_hash_backward_kernel_at_b65536(cuda, log2, n_features, compute):
+    """K4 at the training batch B = 2^16 on the reference schema's 2^14 and
+    2^19 layouts: against the plain index_add_ and a float64 oracle at
+    chip_smoke's HASH_BWD_ATOL / HASH_BWD_RTOL (5e-4, 1e-4); float
+    reductions add in a varying order. One launch per call."""
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        log2_hashmap_size=log2, n_features_per_level=n_features))
+    cdt = getattr(torch, compute)
+    rng = np.random.default_rng(log2 + n_features)
+    b = 1 << 16
+    coords = torch.tensor(rng.random((b, 3)).astype(np.float32), device=cuda)
+    g = torch.tensor(rng.standard_normal((b, spec.n_output_dims)).astype(
+        np.float32), device=cuda).to(cdt)
+    before = he.backward_counter.launches
+    got = he._kernel_backward(spec.n_entries, coords, spec, g, cdt)
+    torch.cuda.synchronize()
+    assert he.backward_counter.launches == before + 1
+    plain = he._plain_backward(spec.n_entries, coords, spec, g, cdt)
+    oracle = _f64_oracle(spec, coords, g, cdt)
+    for ref in (plain.double(), oracle):
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   ref.cpu().numpy(), atol=5e-4, rtol=1e-4)
+
+
+def _rendered_inputs(cuda, cam, width, height, view):
+    """The compositor and its inputs for one frame of a 48 x 40 x 56 vorts
+    volume, as slab_composite_args builds them on the card: view "plain",
+    "shaded", "shadow" or "shaded+shadow" (the four instantiations)."""
+    from instantvnr_torch.config import TransferFunctionConfig
+    from instantvnr_torch.data.volume import synthetic_volume
+    from instantvnr_torch.render import slabmarch as sm
+    from instantvnr_torch.render.shadow import shadow_volume_for
+    from instantvnr_torch.utils.tfn import bake_transfer_function
+
+    vol = synthetic_volume((48, 40, 56), kind="vorts", device=cuda).data
+    tf = bake_transfer_function(TransferFunctionConfig(), device=cuda)
+    shade = "shaded" in view
+    axis, flipped = sm.principal_axis(cam)
+    comp, args, _ = sm.slab_composite_args(
+        vol, tf, sm.camera_arrays(cam, cuda), width, height,
+        sm.SlabSettings(shading="gradient" if shade else "none"), axis,
+        flipped, grad_volumes=sm.compute_gradient_volumes(vol) if shade
+        else None,
+        shadow_volume=shadow_volume_for(vol, tf, (0.2, 0.9, 0.3))
+        if "shadow" in view else None)
+    return comp, args, flipped
+
+
+@pytest.mark.parametrize("view", ["plain", "shaded", "shadow",
+                                  "shaded+shadow"])
+@pytest.mark.parametrize("camera", ["orbit", "zoomed-out", "flipped"])
+def test_banded_compositor_on_rendered_inputs(cuda, camera, view):
+    """Each instantiation of the banded kernel template against its plain
+    version on the inputs a frame builds: an orbit camera at a ragged
+    301 x 157 frame; a zoomed-out camera at 23 x 17 (a pixel steps over 2
+    or more texels, so the 2 x 2 windows of neighbours do not touch); a
+    camera on
+    the far side (the slab axis flipped) at 130 x 97. Tolerances as
+    chip_smoke's COMP_ATOL / EXT_ATOL: 1e-4, 2e-4 with shading."""
+    from instantvnr_torch.render.camera import Camera
+
+    eye, size = {"orbit": ((20.0, 9.0, -110.0), (301, 157)),
+                 "zoomed-out": ((60.0, -40.0, -900.0), (23, 17)),
+                 "flipped": ((-15.0, 12.0, 100.0), (130, 97))}[camera]
+    cam = Camera(eye=eye, center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
+                 fovy=40.0)
+    comp, args, flipped = _rendered_inputs(cuda, cam, *size, view)
+    assert flipped == (camera == "flipped")
+    plain = (sc.composite_slabs_reference if view == "plain"
+             else sc.composite_slabs_ext_reference)
+    counter = sc.counter if view == "plain" else sc.ext_counter
+    before = counter.launches
+    c1, a1 = comp(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    c2, a2 = plain(*args)
+    assert float(a2.max()) > 0.05
+    atol = 2e-4 if "shaded" in view else 1e-4
+    np.testing.assert_allclose(c1.cpu().numpy(), c2.cpu().numpy(), atol=atol)
+    np.testing.assert_allclose(a1.cpu().numpy(), a2.cpu().numpy(), atol=1e-4)

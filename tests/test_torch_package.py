@@ -143,15 +143,19 @@ def test_cpu_wrappers_never_build(monkeypatch):
     ctrl[:, 0] = torch.tensor([0.0, 1.0, 1.0, 1.0])
     ctrl[1:, 4] = 1.0
     ctrl[:, 6] = 1.0
-    color, alpha = sc.composite_slabs(f(d, ay, ax), f(d, hi, ay), f(d, wi, ax),
-                                      torch.ones(d, hi), torch.ones(d, wi),
-                                      f(hi, wi), ctrl)
+    def pairs(n, n_in):  # the compositors' per-row (j0, weights)
+        return (torch.randint(0, n_in - 1, (d, n), dtype=torch.int32),
+                f(d, n, 2))
+
+    color, alpha = sc.composite_slabs(f(d, ay, ax), pairs(hi, ay),
+                                      pairs(wi, ax), torch.ones(d, hi),
+                                      torch.ones(d, wi), f(hi, wi), ctrl)
     assert color.shape == (hi, wi, 3) and alpha.shape == (hi, wi)
     fields = f(d, 4, ay, ax)
     misc = torch.tensor([0.35, 0.95, 0.6, 0.7, 0.4, 2.0, 2.0, -9.0, 1.0, 1.0,
                          1.0])
     color, _ = sc.composite_slabs_ext(
-        fields, f(d, ay, ax), f(d, hi, ay), f(d, wi, ax), torch.ones(d, hi),
+        fields, f(d, ay, ax), pairs(hi, ay), pairs(wi, ax), torch.ones(d, hi),
         torch.ones(d, wi), f(hi, wi), f(d, wi), f(d, hi), f(d), ctrl, misc,
         (0, 1, 2))
     assert color.shape == (hi, wi, 3)

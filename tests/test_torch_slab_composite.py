@@ -37,10 +37,33 @@ from instantvnr_torch.data.volume import synthetic_volume
 from instantvnr_torch.ops import slab_composite as sc
 from instantvnr_torch.render.camera import Camera
 from instantvnr_torch.render.decoded import DecodedRenderer
-from instantvnr_torch.render.slabmarch import SlabSettings
+from instantvnr_torch.render.slabmarch import (SlabSettings, _densify_pairs,
+                                               _interp_matrix, _interp_pairs)
 from instantvnr_torch.utils.tfn import bake_transfer_function
 
 ATOL = 2e-5
+
+
+def _pairs(m):
+    """The port's per-row pairs of the JAX package's dense interpolation
+    matrices [D, n, n_in]: each row's first nonzero column (0 for an empty
+    row), clamped to n_in − 2, and the weights there and one column on.
+    Densified they give the matrices back bit for bit (checked here)."""
+    m = torch.from_numpy(np.asarray(m))
+    n_in = m.shape[-1]
+    j0 = torch.clamp((m != 0).to(torch.int64).argmax(-1), max=n_in - 2)
+    w = torch.gather(m, -1, j0[..., None] + torch.arange(2))
+    pairs = (j0.to(torch.int32), w.contiguous())
+    assert torch.equal(_densify_pairs(pairs, n_in), m)
+    return pairs
+
+
+def _port_args(arrs, dense=(1, 2)):
+    """numpy compositor inputs → torch, with the port's pairs in place of
+    the dense matrices at positions `dense`."""
+    return [None if a is None else (_pairs(a) if i in dense
+                                    else torch.from_numpy(a))
+            for i, a in enumerate(arrs)]
 
 
 def _knotty_tf_kw(n=70):
@@ -83,8 +106,8 @@ def test_reference_matches_pallas_kernel(eye):
     ctrl = np.array(j_pack(tf))
     ref_c, ref_a = j_comp(*[jnp.asarray(a) for a in arrs], jnp.asarray(ctrl),
                           12, interpret=True)  # tile_h 12: 3 row tiles of 36
-    got_c, got_a = sc.composite_slabs_reference(
-        *[torch.from_numpy(a) for a in arrs], torch.from_numpy(ctrl))
+    got_c, got_a = sc.composite_slabs_reference(*_port_args(arrs),
+                                                torch.from_numpy(ctrl))
     assert np.asarray(ref_a).max() > 0.05
     np.testing.assert_allclose(got_c.numpy(), np.asarray(ref_c), atol=ATOL)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(ref_a), atol=ATOL)
@@ -97,7 +120,7 @@ def test_reference_matches_pallas_kernel(eye):
 def test_wrapper_takes_plain_version_on_cpu():
     tf, arrs = _slab_inputs({}, (0, 0, -70))
     ctrl = torch.from_numpy(np.array(j_pack(tf)))
-    ts = [torch.from_numpy(a) for a in arrs]
+    ts = _port_args(arrs)
     before = sc.counter.launches
     c1, a1 = sc.composite_slabs(*ts, ctrl)
     c2, a2 = sc.composite_slabs_reference(*ts, ctrl)
@@ -203,15 +226,14 @@ def test_ext_reference_matches_pallas_kernel(shade, shadow, eye):
     ref_c, ref_a = j_comp_ext(
         *[None if a is None else jnp.asarray(a) for a in arrs], 12, perm,
         shade, shadow, interpret=True)
-    got_c, got_a = sc.composite_slabs_ext_reference(
-        *[None if a is None else torch.from_numpy(a) for a in arrs], perm)
+    got_c, got_a = sc.composite_slabs_ext_reference(*_port_args(arrs, (2, 3)),
+                                                    perm)
     assert np.asarray(ref_a).max() > 0.05
     np.testing.assert_allclose(got_c.numpy(), np.asarray(ref_c), atol=ATOL)
     np.testing.assert_allclose(got_a.numpy(), np.asarray(ref_a), atol=ATOL)
     # the wrapper takes the plain version on the CPU, counting no launch
     before = sc.ext_counter.launches
-    w_c, _ = sc.composite_slabs_ext(
-        *[None if a is None else torch.from_numpy(a) for a in arrs], perm)
+    w_c, _ = sc.composite_slabs_ext(*_port_args(arrs, (2, 3)), perm)
     assert sc.ext_counter.launches == before
     np.testing.assert_array_equal(w_c.numpy(), got_c.numpy())
 
@@ -255,3 +277,88 @@ def test_ext_lut_form_matches_jax_scan():
     ref = jr.mapframe()
     assert ref[..., 3].max() > 0.05
     np.testing.assert_allclose(tr.mapframe(), ref, atol=ATOL)
+
+
+def _f32(*v):
+    return torch.tensor(v, dtype=torch.float32)
+
+
+_RNG = np.random.default_rng(23)
+
+
+@pytest.mark.parametrize("n_out,n_in,scale,offset", [
+    # random scales and offsets
+    (53, 32, torch.from_numpy(_RNG.uniform(0.05, 3.0, 9).astype(np.float32)),
+     torch.from_numpy(_RNG.uniform(-8.0, 40.0, 9).astype(np.float32))),
+    # rows outside the volume on both sides (and the folded edges)
+    (80, 32, _f32(0.5, 0.73, 1.0), _f32(-6.0, -9.1, -20.0)),
+    # integral src: src = offset + i·scale − 0.5 hits every voxel centre
+    (40, 32, _f32(1.0, 2.0, 1.0), _f32(0.5, 0.5, -3.5)),
+    # a flipped axis: the scale runs backwards
+    (60, 32, _f32(-0.7, -1.0, -2.5), _f32(40.0, 31.5, 70.0)),
+    # a supersampled camera: 4-8 rows per voxel
+    (256, 32, _f32(0.25, 0.125, 0.2), _f32(0.0, 3.3, -1.0)),
+    # a zoomed-out camera: a row every few voxels
+    (16, 128, _f32(7.5, 4.0, 9.25), _f32(1.0, 0.0, -30.0)),
+    # the smallest axis the pairs take
+    (17, 2, _f32(0.2, 0.13, 1.0), _f32(-0.3, 0.0, -0.5)),
+    # src exactly on the range's and the fold's boundaries
+    (6, 8, _f32(0.5, 0.5, 1.0), _f32(0.0, 6.0, -0.5)),
+], ids=["random", "outside", "integral", "flipped", "supersampled",
+        "zoomed-out", "n_in=2", "boundaries"])
+def test_interp_pairs_densify_to_interp_matrix(n_out, n_in, scale, offset):
+    """The pairs carry every nonzero of the dense matrices, bit for bit."""
+    dense = _interp_matrix(n_out, n_in, scale, offset)
+    j0, w = _interp_pairs(n_out, n_in, scale, offset)
+    assert j0.dtype == torch.int32 and w.shape == (scale.shape[0], n_out, 2)
+    assert int(j0.min()) >= 0 and int(j0.max()) <= n_in - 2
+    assert torch.equal(_densify_pairs((j0, w), n_in), dense)
+    # coverage from the pairs is coverage from the matrices
+    assert torch.equal(w.sum(-1) > 0, dense.sum(-1) > 0)
+
+
+def test_interp_pairs_refuse_a_one_voxel_axis():
+    with pytest.raises(ValueError, match="at least 2"):
+        _interp_pairs(4, 1, _f32(1.0), _f32(0.0))
+
+
+def test_composite_args_build_no_dense_matrices(monkeypatch):
+    """DECODED_SLAB's compositor inputs, plain and shaded + shadowed, hold
+    the pairs and never call _interp_matrix; the pairs densify to the
+    matrices that _per_slab_state builds for the isosurface sweep from the
+    same geometry."""
+    from instantvnr_torch.render import slabmarch as sm
+
+    vol = synthetic_volume((24, 20, 28), kind="vorts", device="cpu").data
+    tf = bake_transfer_function(TransferFunctionConfig(), device="cpu")
+    cam = Camera(eye=(25, -18, -62), center=(0, 0, 0), up=(0, 1, 0), fovy=40)
+    axis, flipped = sm.principal_axis(cam)
+    cams = sm.camera_arrays(cam, "cpu")
+    per_slab_state = sm._per_slab_state
+    calls = []
+
+    def refuse(*a, **kw):
+        raise AssertionError("the compositor's inputs built a dense matrix")
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return per_slab_state(*a, **kw)
+
+    monkeypatch.setattr(sm, "_interp_matrix", refuse)
+    monkeypatch.setattr(sm, "_per_slab_state", spy)
+    comp, args, _ = sm.slab_composite_args(vol, tf, cams, 33, 29,
+                                           SlabSettings(), axis, flipped)
+    grads = sm.compute_gradient_volumes(vol)
+    comp_ext, args_ext, _ = sm.slab_composite_args(
+        vol, tf, cams, 33, 29, SlabSettings(shading="gradient"), axis,
+        flipped, grad_volumes=grads, shadow_volume=torch.rand_like(vol))
+    monkeypatch.undo()
+    assert comp is sc.composite_slabs and comp_ext is sc.composite_slabs_ext
+    assert len(calls) == 2 and all(kw == {"banded": True} for _, kw in calls)
+    _, my_all, mx_all, _, _ = per_slab_state(*calls[0][0])
+    ay, ax = args[0].shape[1:]
+    for pairs_at, a in ((1, args), (2, args_ext)):
+        y_pairs, x_pairs = a[pairs_at], a[pairs_at + 1]
+        assert y_pairs[0].dtype == torch.int32
+        assert torch.equal(_densify_pairs(y_pairs, ay), my_all)
+        assert torch.equal(_densify_pairs(x_pairs, ax), mx_all)
