@@ -15,7 +15,8 @@ points:
   kernels, held to the plain packed decode) and an orbit of frames; then
   on the same decode four more orbits: gradient shading, shading + shadows,
   FULL_SHADOW_DECODED and ISOSURFACE_DECODED; a breakdown of a blob and a
-  frame; a BSON checkpoint round trip;
+  frame; a BSON checkpoint round trip; small frames of volumes one voxel
+  thick on the card against the CPU;
 - training: NeuralVolume.train(1000) at B = 2^16 on the 2^14 layout (PSNR
   and SSIM against the reference's bar, and against a control loop built
   here from the plain functions), on the 2^19 reference schema over three
@@ -1066,15 +1067,18 @@ def phase_composite_ext(torch, name, tf, volume, grads, shadow):
 
 
 def iso_ops(torch, args, iso):
-    """Operations the sweep's inputs need: at each slab only the pixels
-    covered and not yet hit (replayed here in plain PyTorch) need their
-    nonzero resample products for the 4 fields and ISO_OPS of the crossing
+    """Operations the sweep's inputs need, counting an FMA as 2: at each slab
+    only the pixels covered and not yet hit (replayed here in plain PyTorch,
+    through the pairs) need their nonzero resample products for the 4 fields
+    (counted separably, as composite_ops does) and ISO_OPS of the crossing
     test. Returns (needed, dense resample, live pixel-slabs)."""
-    fields, my_all, mx_all, covy, covx = args
+    from instantvnr_torch.ops.slab_composite import resample_pairs
+
+    fields, y_pairs, x_pairs, covy, covx = args
     d, _, ay, ax = fields.shape
-    hi, wi = my_all.shape[1], mx_all.shape[1]
-    nnz_my = (my_all != 0).sum(-1)
-    nnz_mx = (mx_all != 0).sum(-1)
+    hi, wi = covy.shape[1], covx.shape[1]
+    nnz_my = (y_pairs[1] != 0).sum(-1)  # [D, hi]
+    nnz_mx = (x_pairs[1] != 0).sum(-1)  # [D, wi]
     found = torch.zeros((hi, wi), dtype=torch.bool, device=fields.device)
     prev_v = torch.zeros((hi, wi), dtype=torch.float32, device=fields.device)
     prev_ok = torch.zeros_like(found)
@@ -1087,7 +1091,8 @@ def iso_ops(torch, args, iso):
         ops += 4 * 2 * ax * (nnz_my[k] * rows).sum()
         ops += (live * (4 * 2 * nnz_mx[k][None, :] + ISO_OPS)).sum()
         live_total += live.sum()
-        vals = my_all[k] @ fields[k, 0] @ mx_all[k].T
+        vals = resample_pairs(fields[k, 0], (y_pairs[0][k], y_pairs[1][k]),
+                              (x_pairs[0][k], x_pairs[1][k]))
         found |= prev_ok & cov & ((prev_v - iso) * (vals - iso) <= 0.0)
         prev_v, prev_ok = vals, cov
     return float(ops), 4 * 2 * d * (hi * ay * ax + hi * wi * ax), \
@@ -1095,6 +1100,12 @@ def iso_ops(torch, args, iso):
 
 
 def phase_iso_sweep(torch, volume, grads, iso):
+    """The sweep on one 512² orbit frame's inputs (the pairs) against its
+    plain version: found must agree on ISO_FOUND_AGREE of the pixels and
+    hit_z, hit_g within ISO_ATOL where both found a hit (the kernel is
+    expected to equal it bit for bit). Timed by device time and by CUDA
+    events; bounds of these inputs and of the dense inputs of the previous
+    design (the two [D, n, n_in] matrix stacks, 10 state planes)."""
     from instantvnr_torch.ops import iso_sweep as isw
     from instantvnr_torch.render.isosurf import IsoSettings, slab_iso_args
     from instantvnr_torch.render.slabmarch import camera_arrays, principal_axis
@@ -1110,28 +1121,98 @@ def phase_iso_sweep(torch, volume, grads, iso):
     both = (f1 > 0.5) & (f2 > 0.5)
     err = max(float((z1 - z2)[both].abs().max()),
               float((g1 - g2)[both].abs().max()))
-    ms = cuda_ms(torch, lambda: isw.iso_sweep(*args, iso), iters=10)
+    same_bits = (torch.equal(f1, f2) and torch.equal(z1, z2)
+                 and torch.equal(g1, g2))
+    ms = device_ms(torch, lambda: isw.iso_sweep(*args, iso),
+                   ("iso_sweep_kernel",))
+    call_ms = cuda_ms(torch, lambda: isw.iso_sweep(*args, iso), iters=10)
     plain_ms = cuda_ms(torch, lambda: isw.iso_sweep_reference(*args, iso),
                        iters=3, warmup=1)
     ops, dense_ops, live = iso_ops(torch, args, iso)
+    fields, y_pairs, x_pairs, covy, covx = args
+    d, _, ay, ax = fields.shape
     hi, wi = f1.shape
-    n_bytes = nbytes(*args) + 10 * hi * wi * 4
+    # each input once (the pairs included), the 5 output planes once
+    n_bytes = nbytes(*args) + 5 * hi * wi * 4
+    bytes_dense = (nbytes(fields, covy, covx) + 10 * hi * wi * 4
+                   + dense_matrix_bytes(d, hi, wi, ay, ax))
     b_ms, b_by = bound_ms(n_bytes, ops, H100_FP32_FLOPS)
+    bd_ms, bd_by = bound_ms(bytes_dense, ops, H100_FP32_FLOPS)
     rec = {"phase": "iso_sweep", "iso": iso,
-           "shape": {"D": args[0].shape[0], "ay": args[0].shape[2],
-                     "ax": args[0].shape[3], "hi": hi, "wi": wi},
+           "shape": {"D": d, "ay": ay, "ax": ax, "hi": hi, "wi": wi},
            "found_agree": agree, "found_agree_min": ISO_FOUND_AGREE,
-           "max_abs_err": err, "tol": ISO_ATOL, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-           "bound_by": b_by, "mbytes": n_bytes / 1e6,
+           "found_mismatches": int((f1 != f2).sum()),
+           "max_abs_err": err, "tol": ISO_ATOL, "same_bits": same_bits,
+           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "mbytes": n_bytes / 1e6, "bound_dense_inputs_ms": bd_ms,
+           "bound_dense_inputs_by": bd_by,
+           "mbytes_dense_inputs": bytes_dense / 1e6,
            "needed_gflop": ops / 1e9, "dense_gflop": dense_ops / 1e9,
-           "live_pixel_slab_share": live / args[0].shape[0] / (hi * wi),
+           "live_pixel_slab_share": live / d / (hi * wi),
            "hit_share": float(f2.mean())}
     log(rec)
     if (agree < ISO_FOUND_AGREE or not err <= ISO_ATOL
             or not rec["hit_share"] > 0.05):
         raise AssertionError(f"iso_sweep kernel disagrees: {rec}")
     return rec
+
+
+# volumes one voxel thick (dx, dy, dz) and an eye each whose slabs hold the
+# one-voxel axis (tests/test_torch_slab_composite.py holds the CPU's frames
+# to the JAX package's at these dims)
+ONE_VOXEL = (((16, 1, 16), (3, 20, -40)), ((16, 1, 16), (40, 15, 5)),
+             ((16, 16, 1), (60, 9, 7)), ((16, 16, 1), (-4, 66, 3)))
+
+
+def phase_one_voxel(torch):
+    """A DECODED_SLAB and an isosurface frame of each ONE_VOXEL volume
+    through the kernels on the card against the plain path on the CPU; each
+    frame launches its kernel once."""
+    from instantvnr_torch.accel import macrocell
+    from instantvnr_torch.config import TransferFunctionConfig
+    from instantvnr_torch.data.volume import synthetic_volume
+    from instantvnr_torch.render.camera import Camera
+    from instantvnr_torch.render.decoded import DecodedRenderer
+    from instantvnr_torch.render.isosurf import IsoRenderer
+    from instantvnr_torch.utils.tfn import bake_transfer_function
+
+    tol = 5e-3
+    for dims, eye in ONE_VOXEL:
+        cam = Camera(eye=eye, center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
+                     fovy=40.0)
+        for view in ("decoded_slab", "isosurface"):
+            frames, launches = {}, {}
+            for dev in ("cpu", "cuda"):
+                vol = synthetic_volume(dims, kind="vorts", device=dev)
+                tf = bake_transfer_function(TransferFunctionConfig(),
+                                            device=dev)
+                if view == "decoded_slab":
+                    r = DecodedRenderer(32, 32, macrocell.build(
+                        vol.data, vol.dims, tf), tf, vol.dims,
+                        initial_volume=vol.data, device=dev)
+                else:
+                    r = IsoRenderer(32, 32, vol.data, tf, isovalue=float(
+                        vol.data.median()), device=dev)
+                r.set_camera(cam)
+                frames[dev], launches[dev] = launches_during(
+                    lambda: (r.render(), r.mapframe())[1])
+            diff = np.abs(frames["cuda"] - frames["cpu"])
+            share = float((diff.max(-1) <= tol).mean())
+            kernel = ("composite_slabs" if view == "decoded_slab"
+                      else "iso_sweep")
+            expect = {n: int(n == kernel) for n in counters()}
+            rec = {"phase": f"one_voxel_cuda_vs_cpu[{view}, {dims}, {eye}]",
+                   "max_abs_err": float(diff.max()), "tol": tol,
+                   "share_within_tol": share,
+                   "share_min": 0.995 if view == "isosurface" else 1.0,
+                   "alpha_max": float(frames["cpu"][..., 3].max()),
+                   "launches": launches["cuda"]}
+            log(rec)
+            if (share < rec["share_min"] or not rec["alpha_max"] > 0.3
+                    or launches["cuda"] != expect
+                    or any(launches["cpu"].values())):
+                raise AssertionError(f"one-voxel frame disagrees: {rec}")
 
 
 def phase_small_parity(torch):
@@ -1209,6 +1290,8 @@ def phase_breakdown(torch, nv, renderer, r_iso):
     from instantvnr_torch.models.network import render_params
     from instantvnr_torch.ops.fused_mlp import fused_mlp_apply
     from instantvnr_torch.ops.hash_encoding import hash_encode
+    from instantvnr_torch.ops.iso_sweep import iso_sweep
+    from instantvnr_torch.render.isosurf import slab_iso_args
     from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
     from instantvnr_torch.render.shadow import shadow_volume_for
     from instantvnr_torch.render.slabmarch import (_final_warp, camera_arrays,
@@ -1245,6 +1328,16 @@ def phase_breakdown(torch, nv, renderer, r_iso):
         r.render()
         return r.mapframe()
 
+    frame(r_iso)  # the isosurface view's gradients are cached from here on
+    iso_impl = r_iso._impl
+
+    def iso_inputs():
+        return slab_iso_args(iso_impl.grid, iso_impl._grads, SIZE, SIZE,
+                             iso_impl.settings, axis, flipped, cam_arrays,
+                             iso_impl.transform)[0]
+
+    iso_args = iso_inputs()
+
     rec = {"phase": "breakdown",
            "render_params_ms": cuda_ms(torch, lambda: render_params(
                nv.params, field), iters=5),
@@ -1278,7 +1371,13 @@ def phase_breakdown(torch, nv, renderer, r_iso):
            "frame_composite_ext_ms": cuda_ms(
                torch, lambda: comp_ext(*args_ext), iters=10),
            "iso_frame_total_ms": cuda_ms(torch, lambda: frame(r_iso),
-                                         iters=10)}
+                                         iters=10),
+           # an isosurface frame's sweep inputs and kernel
+           "iso_frame_inputs_ms": cuda_ms(torch, iso_inputs, iters=10),
+           "iso_frame_inputs_ops": dispatched_ops(torch, iso_inputs),
+           "iso_frame_sweep_ms": cuda_ms(
+               torch, lambda: iso_sweep(*iso_args, iso_impl.isovalue),
+               iters=10)}
     log(rec)
     return rec
 
@@ -1520,6 +1619,7 @@ def main() -> int:
                             ("shaded,lut70", tf70))}
     iso = phase_iso_sweep(torch, vol, grads, float(vol.median()))
     phase_small_parity(torch)
+    phase_one_voxel(torch)
 
     # -- main path: counts from 0, then decode + an orbit of frames --------
     nv = api.NeuralVolume(ModelConfig(), sv, device="cuda")

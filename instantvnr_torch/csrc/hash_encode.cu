@@ -6,22 +6,32 @@
 // is a scatter-add), since Mosaic has no gather or scatter. These are the
 // training step's own kernels.
 //
-// One thread per (sample, level), thread index = sample · L + level, so a
-// warp covers few samples and all their levels and writes consecutive
-// output rows. Per level the thread computes tcnn's position
-// x = p·scale + 0.5, cell = floor(x), w = x − cell, then for each of the 8
-// corners (x fastest) the dense stride index (levels with res³ ≤ size) or
-// the prime-XOR hash (x·1) ⊻ (y·2654435761) ⊻ (z·805459861), both in
-// uint32, then % size + the level's offset: the plain version's arithmetic
-// (ops/hash_encoding.py::corner_indices_and_weights) step for step.
+// Per level each lane computes tcnn's position x = p·scale + 0.5,
+// cell = floor(x), w = x − cell, then for each of the 8 corners (x fastest)
+// the dense stride index (levels with res³ ≤ size) or the prime-XOR hash
+// (x·1) ⊻ (y·2654435761) ⊻ (z·805459861), both in uint32, then wrapped to
+// the level's size + the level's offset: the plain version's arithmetic
+// (ops/hash_encoding.py::corner_indices_and_weights) step for step. The
+// wrap is exact and costs no division where it can: a mask where the size
+// is a power of two (every hashed level), else a compare and a % only for
+// an index past the end (a dense level's corner on the upper face).
 //
-// Forward: the 8 rows of F features are gathered with vector loads (an f32
-// row of F = 8 is one 32-byte sector) from an f32 or a bf16 table; each
-// product row·w is rounded to the compute type, the 8 are summed in float32
-// and the sum is rounded to the compute type, as the plain version's
-// PyTorch ops round. Bound on an H100: bytes, the 8 gathered rows per
-// sample and level (at the reference 8 × 8 layout and B = 65,536, 134 MB of
-// f32 rows).
+// Forward (K3): one lane per (sample, level), lanes numbered sample · L +
+// level in 32-bit arithmetic, so a warp covers 32 consecutive output rows of
+// F features. Each lane gathers its 8 rows of F features with vector loads
+// (an f32 row of F = 8 is one 32-byte sector) from an f32 or a bf16 table;
+// each product row·w is rounded to the compute type, the 8 are summed in
+// float32 in corner order and the sum is rounded to the compute type, as
+// the plain version's PyTorch ops round. The lane stores its F values with
+// 16-byte vector stores, so a warp instruction writes whole sectors. Bound
+// on an H100: bytes, each distinct table row once, the coords and the
+// features. What costs is the gather: 8 scattered rows a (sample, level),
+// one 32-byte L2 sector each (134 MB of f32 rows at the reference 8 × 8
+// layout and B = 65,536). scripts/k3_variants.py times this design against
+// the previous one (64-bit lane division, a % per corner, scalar stores),
+// tcnn's level-major mapping with the output staged in shared memory, and
+// the gather alone from precomputed indices; this design was the fastest
+// of them at every input measured (PERF.md §6).
 //
 // Backward: the cotangent row times each corner's weight, rounded to the
 // compute type, is added in float32 into a zeroed float32 gradient table
@@ -55,6 +65,7 @@ struct Levels {
   uint32_t size[kMaxLevels];
   uint32_t offset[kMaxLevels];
   uint32_t dense_mask;  // bit l set: level l indexes densely
+  uint32_t pow2_mask;   // bit l set: size[l] is a power of two
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -129,18 +140,26 @@ struct Cell {
   float frac[3];
 };
 
-__device__ __forceinline__ Cell level_cell(const float* __restrict__ coords,
-                                           long long b, float scale) {
+// p: the sample's 3 coords
+__device__ __forceinline__ Cell level_cell(const float* p, float scale) {
   Cell c;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     // two roundings, x = p·scale then + 0.5, as in the plain version
-    const float x = coords[3 * b + a] * scale + 0.5f;
+    const float x = p[a] * scale + 0.5f;
     const float cell = floorf(x);
     c.frac[a] = x - cell;
     c.pos[a] = static_cast<uint32_t>(static_cast<long long>(cell));
   }
   return c;
+}
+
+// idx % size, exactly: a mask for a power of two, else a % only past the end
+__device__ __forceinline__ uint32_t wrap(uint32_t idx, const Levels& lv,
+                                         int l) {
+  const uint32_t size = lv.size[l];
+  if ((lv.pow2_mask >> l) & 1u) return idx & (size - 1u);
+  return idx < size ? idx : idx % size;
 }
 
 __device__ __forceinline__ uint32_t corner_index(const Cell& c, int corner,
@@ -155,7 +174,7 @@ __device__ __forceinline__ uint32_t corner_index(const Cell& c, int corner,
   } else {
     idx = x ^ (y * 2654435761u) ^ (z * 805459861u);
   }
-  return idx % lv.size[l] + lv.offset[l];
+  return wrap(idx, lv, l) + lv.offset[l];
 }
 
 __device__ __forceinline__ float corner_weight(const Cell& c, int corner) {
@@ -165,19 +184,13 @@ __device__ __forceinline__ float corner_weight(const Cell& c, int corner) {
   return wx * wy * wz;
 }
 
+// One (sample, level)'s F features: the 8 corners' rows gathered, each
+// row·w rounded to the compute type and summed in float32 in corner order
 template <typename T, int F, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-hash_encode_forward_kernel(const T* __restrict__ table,
-                           const float* __restrict__ coords,
-                           void* __restrict__ out, long long n, int n_levels,
-                           Levels lv) {
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (t >= n * n_levels) return;
-  const long long b = t / n_levels;
-  const int l = static_cast<int>(t - b * n_levels);
-  const Cell c = level_cell(coords, b, lv.scale[l]);
-  float acc[F];
+__device__ __forceinline__ void encode_level(const T* __restrict__ table,
+                                             const float* p, const Levels& lv,
+                                             int l, float (&acc)[F]) {
+  const Cell c = level_cell(p, lv.scale[l]);
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
@@ -185,22 +198,74 @@ hash_encode_forward_kernel(const T* __restrict__ table,
     const uint32_t idx = corner_index(c, corner, lv, l);
     const float w = to_compute<kBf16>(corner_weight(c, corner));
     float row[F];
-    load_row<F>(table + static_cast<long long>(idx) * F, row);
+    load_row<F>(table + static_cast<size_t>(idx) * F, row);
 #pragma unroll
     for (int f = 0; f < F; ++f) {
       acc[f] += to_compute<kBf16>(to_compute<kBf16>(row[f]) * w);
     }
   }
-  // output row t of [B·L, F] == features [b, l·F .. l·F+F)
-  if constexpr (kBf16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + t * F;
+}
+
+// F values → Out (float, or bf16 bits) at dst, aligned to F·sizeof(Out)
+template <int F>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
 #pragma unroll
-    for (int f = 0; f < F; ++f) o[f] = __float2bfloat16_rn(acc[f]);
+    for (int q = 0; q < F / 4; ++q) {
+      reinterpret_cast<float4*>(dst)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else if constexpr (F == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
   } else {
-    float* o = static_cast<float*>(out) + t * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) o[f] = acc[f];
+    dst[0] = v[0];
   }
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+          << 16);
+}
+
+template <int F>
+__device__ __forceinline__ void store_row(uint16_t* dst,
+                                          const float (&v)[F]) {
+  if constexpr (F % 8 == 0) {
+#pragma unroll
+    for (int q = 0; q < F / 8; ++q) {
+      reinterpret_cast<uint4*>(dst)[q] = make_uint4(
+          bf16_pair(v[8 * q], v[8 * q + 1]), bf16_pair(v[8 * q + 2],
+                                                       v[8 * q + 3]),
+          bf16_pair(v[8 * q + 4], v[8 * q + 5]),
+          bf16_pair(v[8 * q + 6], v[8 * q + 7]));
+    }
+  } else if constexpr (F == 4) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+  } else if constexpr (F == 2) {
+    *reinterpret_cast<uint32_t*>(dst) = bf16_pair(v[0], v[1]);
+  } else {
+    dst[0] = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
+  }
+}
+
+// Out: float, or uint16_t holding bf16 bits (the bf16 compute type)
+template <typename T, typename Out, int F, bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+hash_encode_forward_kernel(const T* __restrict__ table,
+                           const float* __restrict__ coords,
+                           Out* __restrict__ out, uint32_t total,
+                           int n_levels, Levels lv) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const uint32_t b = t / static_cast<uint32_t>(n_levels);
+  const int l = static_cast<int>(t - b * static_cast<uint32_t>(n_levels));
+  float acc[F];
+  encode_level<T, F, kBf16>(table, coords + 3 * static_cast<size_t>(b), lv, l,
+                            acc);
+  // output row t of [B·L, F] == features [b, l·F .. l·F+F)
+  store_row<F>(out + static_cast<size_t>(t) * F, acc);
 }
 
 // One 16-, 8- or 4-byte float32 atomic add into global memory, its result
@@ -237,7 +302,7 @@ hash_encode_backward_kernel(const float* __restrict__ coords,
   if (t < total) {
     const long long b = t / n_levels;
     const int l = static_cast<int>(t - b * n_levels);
-    const Cell c = level_cell(coords, b, lv.scale[l]);
+    const Cell c = level_cell(coords + 3 * b, lv.scale[l]);
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
       idx[corner] = corner_index(c, corner, lv, l);
@@ -292,12 +357,15 @@ bool make_levels(int n_levels, const void* scales, const void* levels,
   const float* s = static_cast<const float*>(scales);
   const int* p = static_cast<const int*>(levels);
   lv->dense_mask = 0;
+  lv->pow2_mask = 0;
   for (int l = 0; l < n_levels; ++l) {
     lv->scale[l] = s[l];
     lv->res[l] = static_cast<uint32_t>(p[4 * l]);
     lv->size[l] = static_cast<uint32_t>(p[4 * l + 1]);
     lv->offset[l] = static_cast<uint32_t>(p[4 * l + 2]);
     if (p[4 * l + 3]) lv->dense_mask |= 1u << l;
+    if (lv->size[l] == 0) return false;
+    if ((lv->size[l] & (lv->size[l] - 1u)) == 0) lv->pow2_mask |= 1u << l;
   }
   return true;
 }
@@ -306,21 +374,25 @@ unsigned blocks_for(long long n, int n_levels) {
   return static_cast<unsigned>((n * n_levels + kThreads - 1) / kThreads);
 }
 
+template <typename T, typename Out, int F, bool kBf16>
+cudaError_t forward_launch(const void* table, const float* coords, void* out,
+                           long long n, int n_levels, const Levels& lv,
+                           cudaStream_t s) {
+  hash_encode_forward_kernel<T, Out, F, kBf16>
+      <<<blocks_for(n, n_levels), kThreads, 0, s>>>(
+          static_cast<const T*>(table), coords, static_cast<Out*>(out),
+          static_cast<uint32_t>(n * n_levels), n_levels, lv);
+  return cudaGetLastError();
+}
+
 template <typename T, int F>
 cudaError_t forward_typed(const void* table, const float* coords, void* out,
                           long long n, int n_levels, const Levels& lv,
                           int out_bf16, cudaStream_t s) {
-  const T* tab = static_cast<const T*>(table);
-  if (out_bf16) {
-    hash_encode_forward_kernel<T, F, true>
-        <<<blocks_for(n, n_levels), kThreads, 0, s>>>(tab, coords, out, n,
-                                                      n_levels, lv);
-  } else {
-    hash_encode_forward_kernel<T, F, false>
-        <<<blocks_for(n, n_levels), kThreads, 0, s>>>(tab, coords, out, n,
-                                                      n_levels, lv);
-  }
-  return cudaGetLastError();
+  return out_bf16 ? forward_launch<T, uint16_t, F, true>(table, coords, out,
+                                                         n, n_levels, lv, s)
+                  : forward_launch<T, float, F, false>(table, coords, out, n,
+                                                       n_levels, lv, s);
 }
 
 template <int F>
@@ -355,7 +427,7 @@ cudaError_t backward_f(const float* coords, const void* g, float* grad,
 // table [T, F] (f32, or bf16 if table_bf16), 16-byte aligned; coords [n, 3]
 // f32; out [n, L·F] in the compute type (bf16 if out_bf16, else f32).
 // scales: host float [L]; levels: host int [L][4] = (res, size, offset,
-// dense). F is 1, 2, 4 or 8; L ≤ 32.
+// dense). F is 1, 2, 4 or 8; L ≤ 32; n·L < 2^31.
 extern "C" int hash_encode_forward(const void* table, const void* coords,
                                    void* out, long long n, int n_levels,
                                    int n_features, const void* scales,
@@ -364,6 +436,8 @@ extern "C" int hash_encode_forward(const void* table, const void* coords,
   Levels lv;
   if (!make_levels(n_levels, scales, levels, &lv)) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
+  // the lanes are numbered in 32 bits
+  if (n * n_levels > 0x7fffffffLL) return cudaErrorInvalidValue;
   const float* c = static_cast<const float*>(coords);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_features) {

@@ -216,7 +216,7 @@ int launch(const void* fields, const void* shadow, const void* jy,
            int p2, void* out, int D, int ay, int ax, int hi, int wi,
            float term_thresh, void* stream) {
   if (hi <= 0 || wi <= 0) return cudaSuccess;
-  if (D < 0 || ay < 2 || ax < 2 || kc < 1 || (lut != nullptr && n_lut < 2))
+  if (D < 0 || ay < 1 || ax < 1 || kc < 1 || (lut != nullptr && n_lut < 2))
     return cudaErrorInvalidValue;
   if (lut == nullptr) n_lut = 0;
   const size_t bytes =
@@ -242,7 +242,7 @@ int launch(const void* fields, const void* shadow, const void* jy,
 
 // vol [D, ay, ax]; jy [D, hi], jx [D, wi] int32 and wy [D, hi, 2],
 // wx [D, wi, 2]: the per-row pairs of the interpolation matrices (row i of
-// slab k samples rows jy, jy + 1 of the slab, ay >= 2, and likewise
+// slab k samples rows jy and min(jy + 1, ay - 1) of the slab, and likewise
 // columns); covy [D, hi], covx [D, wi], corr [hi, wi], ctrl [kc, 8] (rows
 // x, r, g, b, a, lo, hi, 0), lut [n_lut, 4] rgba or null (n_lut = 0:
 // control-point form); out [4, hi, wi] = premultiplied rgb +

@@ -61,9 +61,10 @@ SIGNATURES = {
     "slab_composite_ext_forward": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _P, _I, _P, _I, _P, _I, _I,
                                    _I, _P, _I, _I, _I, _I, _I, _F, _P),
-    # fields, my, mx, covy, covx, iso, out, D, ay, ax, hi, wi, stream
-    "iso_sweep_forward": (_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I,
-                          _P),
+    # fields, jy, wy, jx, wx, covy, covx, iso, out, D, ay, ax, hi, wi,
+    # stream
+    "iso_sweep_forward": (_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
+                          _I, _I, _P),
 }
 
 

@@ -75,13 +75,18 @@ def resample_pairs(src, y_pairs, x_pairs):
     """Banded resample of src [..., ay, ax] → [..., hi, wi] through one
     slab's pairs (j0 [n], w [n, 2] per axis, render/slabmarch.py::
     _interp_pairs), in the order of the dense product's nonzero terms:
-    tmp = wy0·src[jy] + wy1·src[jy + 1], then v = wx0·tmp[:, jx] +
-    wx1·tmp[:, jx + 1]. The kernels sum in the same order."""
+    tmp = wy0·src[jy] + wy1·src[jy1], then v = wx0·tmp[:, jx] +
+    wx1·tmp[:, jx1], with j1 = min(j0 + 1, n − 1) (a one-voxel axis reads
+    its sole voxel twice, the second time at weight 0). The kernels sum in
+    the same order."""
     (jy, wy), (jx, wx) = y_pairs, x_pairs
+    ay, ax = src.shape[-2:]
     jy, jx = jy.to(torch.int64), jx.to(torch.int64)
+    jy1 = torch.clamp(jy + 1, max=ay - 1)
+    jx1 = torch.clamp(jx + 1, max=ax - 1)
     tmp = (wy[:, 0, None] * src[..., jy, :]
-           + wy[:, 1, None] * src[..., jy + 1, :])
-    return wx[:, 0] * tmp[..., jx] + wx[:, 1] * tmp[..., jx + 1]
+           + wy[:, 1, None] * src[..., jy1, :])
+    return wx[:, 0] * tmp[..., jx] + wx[:, 1] * tmp[..., jx1]
 
 
 def _slab_pairs(pairs, k):
@@ -134,13 +139,8 @@ def _kernel_tensors(name, device, named):
     return out
 
 
-def _pair_entries(y_pairs, x_pairs, d, hi, wi, ay, ax):
-    """The pairs' entries for _kernel_tensors. The kernels read columns j0
-    and j0 + 1 of every row (j0 in [0, n − 2]), so each slab axis needs 2
-    voxels, as _interp_pairs does."""
-    if ay < 2 or ax < 2:
-        raise ValueError(f"slab compositors: a slab of {ay} x {ax} voxels; "
-                         f"the banded resample needs 2 along each axis")
+def _pair_entries(y_pairs, x_pairs, d, hi, wi):
+    """The pairs' entries for _kernel_tensors."""
     i32, f32 = torch.int32, torch.float32
     return [("jy", y_pairs[0], (d, hi), i32),
             ("wy", y_pairs[1], (d, hi, 2), f32),
@@ -154,7 +154,7 @@ def composite_slabs(vol, y_pairs, x_pairs, covy, covx, corr_exp, ctrl,
 
     vol      [D, ay, ax]   permuted volume
     y_pairs  (j0 [D, hi] int32, w [D, hi, 2])  per-slab row interpolation:
-                           row i samples vol rows j0 and j0 + 1
+                           row i samples vol rows j0 and min(j0 + 1, ay − 1)
                            (render/slabmarch.py::_interp_pairs)
     x_pairs  (j0 [D, wi] int32, w [D, wi, 2])  the same for columns
     covy     [D, hi]       row coverage & clip (0/1)
@@ -177,7 +177,7 @@ def composite_slabs(vol, y_pairs, x_pairs, covy, covx, corr_exp, ctrl,
     hi, wi = corr_exp.shape
     f32 = torch.float32
     named = ([("vol", vol, (d, ay, ax), f32)]
-             + _pair_entries(y_pairs, x_pairs, d, hi, wi, ay, ax)
+             + _pair_entries(y_pairs, x_pairs, d, hi, wi)
              + [("covy", covy, (d, hi), f32), ("covx", covx, (d, wi), f32),
                 ("corr_exp", corr_exp, (hi, wi), f32),
                 ("ctrl", ctrl, (ctrl.shape[0], 8), f32)]
@@ -329,7 +329,7 @@ def composite_slabs_ext(fields, shadow_vol, y_pairs, x_pairs, covy, covx,
     hi, wi = corr_exp.shape
     f32 = torch.float32
     named = ([("fields", fields, (d, c_f, ay, ax), f32)]
-             + _pair_entries(y_pairs, x_pairs, d, hi, wi, ay, ax)
+             + _pair_entries(y_pairs, x_pairs, d, hi, wi)
              + [("covy", covy, (d, hi), f32), ("covx", covx, (d, wi), f32),
                 ("corr_exp", corr_exp, (hi, wi), f32),
                 ("x_src", x_src, (d, wi), f32), ("y_src", y_src, (d, hi), f32),

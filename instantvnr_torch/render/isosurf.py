@@ -7,9 +7,10 @@ axis-aligned slabs front to back with the shear-warp factorization of the
 slab compositor (render/slabmarch.py), find each intermediate-pixel ray's
 FIRST crossing of the isovalue between consecutive slab samples, lerp the
 crossing depth and gradient (ops/iso_sweep.py: the CUDA kernel on the card,
-its plain version on the CPU), then shade with the scivis model and warp to
-the screen. The isovalue is an argument of the sweep, so an edit rebuilds
-nothing.
+its plain version on the CPU; both resample each slab through the per-row
+pairs of render/slabmarch.py::_interp_pairs), then shade with the scivis
+model and warp to the screen. The isovalue is an argument of the sweep, so
+an edit rebuilds nothing.
 
 The brute-force first-hit marcher that the JAX package uses for degenerate
 cameras (render/isosurf.py:244-381, over ops/trilinear.py) is not ported
@@ -97,14 +98,15 @@ def slab_iso_args(volume: torch.Tensor, grad_volumes: torch.Tensor,
     (x_lo, x_hi, y_lo, y_hi), xs, ys, _ = geo[6:]
     wi, hi = xs.shape[0], ys.shape[0]
 
-    z_ks, my_all, mx_all, x_src, y_src = _per_slab_state(
-        e, z_ref, xs, ys, d_slab, ax_n, ay_n)
+    z_ks, y_pairs, x_pairs, x_src, y_src = _per_slab_state(
+        e, z_ref, xs, ys, d_slab, ax_n, ay_n, banded=True)
     # no occupancy: an empty-looking slab may still hold the isovalue
     keep = in_front & (z_ks >= clo[2]) & (z_ks <= chi[2])
-    covy, covx = _coverage_masks(my_all, mx_all, x_src, y_src, clo, chi, keep)
+    covy, covx = _coverage_masks(y_pairs[1], x_pairs[1], x_src, y_src, clo,
+                                 chi, keep)
     frame = (perm, flipped, e, eye_w, size_z, z_ref, x_lo, x_hi, y_lo, y_hi,
              xs, ys, wi, hi, xform)
-    return (fields, my_all, mx_all, covy, covx), frame
+    return (fields, y_pairs, x_pairs, covy, covx), frame
 
 
 @torch.no_grad()

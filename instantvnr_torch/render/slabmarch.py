@@ -8,8 +8,8 @@ scale about the epipole, so it resamples with two banded interpolation
 matrices, My [hi, ay] and Mx [wi, ax], of at most two nonzeros a row), then
 one final 2-D projective warp to the screen. The compositors take those
 matrices as per-row pairs (`_interp_pairs`: the first column and its two
-weights); the isosurface sweep (render/isosurf.py) still takes them dense
-(`_interp_matrix`). The per-slab loop runs in a slab compositor
+weights), and so does the isosurface sweep (render/isosurf.py). The
+per-slab loop runs in a slab compositor
 (ops/slab_composite.py): `composite_slabs` unshaded, `composite_slabs_ext`
 with gradient shading (the value and its central-difference world gradient
 resampled with the same matrices, shaded with the scivis model) and/or a
@@ -131,23 +131,33 @@ def _interp_pairs(n_out: int, n_in: int, scale: torch.Tensor,
     0, n_in − 2) and j0 + 1. A row of the matrix has its nonzeros only
     there (|src − j| < 1, or the folded edge), and the weights come from
     the same float32 operations (`_interp_weights`), so `_densify_pairs`
-    gives `_interp_matrix` bit for bit. An axis of one voxel has no pair
-    and is refused."""
-    if n_in < 2:
-        raise ValueError(f"_interp_pairs: an axis of {n_in} voxel(s); the "
-                         f"banded resample needs at least 2")
+    gives `_interp_matrix` bit for bit. An axis of one voxel has one
+    column: its pair is (0, (w₀, 0)), w₀ the sole voxel's weight (1 on
+    every in-range row, as the dense matrix folds both edges onto it); the
+    readers clamp column j0 + 1 to n_in − 1."""
     src = _interp_src(n_out, scale, offset)
-    j0 = torch.clamp(torch.floor(src), 0.0, n_in - 2.0)
-    w = _interp_weights(src, torch.cat([j0, j0 + 1.0], dim=-1), n_in)
+    if n_in == 1:
+        # clamp(min=0, max=-1) would give −1; computed, the second weight
+        # would be max(0, src) on a column that does not exist
+        j0 = torch.zeros_like(src)
+        w0 = _interp_weights(src, j0, n_in)
+        w = torch.cat([w0, torch.zeros_like(w0)], dim=-1)
+    else:
+        j0 = torch.clamp(torch.floor(src), 0.0, n_in - 2.0)
+        w = _interp_weights(src, torch.cat([j0, j0 + 1.0], dim=-1), n_in)
     return j0[..., 0].to(torch.int32), w
 
 
 def _densify_pairs(pairs, n_in: int) -> torch.Tensor:
-    """(j0 [D, n], w [D, n, 2]) → the dense [D, n, n_in] matrices."""
+    """(j0 [D, n], w [D, n, 2]) → the dense [D, n, n_in] matrices. The
+    second weight goes first onto column min(j0 + 1, n_in − 1), so on a
+    one-voxel axis the first (w₀ on column 0) overwrites its zero."""
     j0, w = pairs
-    cols = j0.to(torch.int64)[..., None] + torch.arange(2, device=w.device)
-    return torch.zeros(w.shape[:2] + (n_in,), dtype=w.dtype,
-                       device=w.device).scatter_(-1, cols, w)
+    j0 = j0.to(torch.int64)[..., None]
+    dense = torch.zeros(w.shape[:2] + (n_in,), dtype=w.dtype,
+                        device=w.device)
+    dense.scatter_(-1, torch.clamp(j0 + 1, max=n_in - 1), w[..., 1:])
+    return dense.scatter_(-1, j0, w[..., :1])
 
 
 def _pixel_dt(xs, ys, e, z_ref, s_perm):

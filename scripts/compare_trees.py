@@ -13,8 +13,14 @@ checks as its phases). Per run, one JSON line:
 - each fused-MLP kernel's device time (torch.profiler, the kernels whose
   names hold "fused_mlp" or "sum_partials") at the main path's shapes (a
   262,144-row decode blob; B = 2^16 for the training form);
+- K3's device time on the 2^14 and 2^19 layouts' f32 tables at B = 2^16
+  in bf16 compute (`chip_smoke.hash_inputs`, as a training step runs it)
+  and on the 2^19 layout's bf16 table over a decode blob (262,144 grid
+  points, as a decode runs it);
 - K4's device time (its kernel and the zeroing of the table) on the 2^14
   and 2^19 layouts at B = 2^16 (`chip_smoke.hash_inputs`);
+- the isosurface sweep's device time on one 512² orbit frame, its inputs
+  built by the tree's own `slab_iso_args`;
 - each instantiation of the slab compositor template by device time on
   one 512² orbit frame of the synthetic volume (plain, shaded, shadow,
   shaded + shadow), its inputs built by the tree's own
@@ -23,9 +29,9 @@ checks as its phases). Per run, one JSON line:
   (`chip_smoke.chain_end_to_end`): the rows to which the forward kernel
   and the plain forward hand the backward other inputs, and the errors;
 - the full decode of the 2^19 model (host clock, median of 5);
-- a DECODED_SLAB orbit of 512² frames and a shaded + shadowed one (host
-  clock, frames 2-12, as chip_smoke's main path and views) and one
-  frame's stages (CUDA events, `chip_smoke.phase_breakdown`: the inputs
+- a DECODED_SLAB orbit of 512² frames, a shaded + shadowed one and an
+  ISOSURFACE_DECODED one (host clock, frames 2-12, as chip_smoke's main
+  path and views) and one frame's stages (CUDA events, `chip_smoke.phase_breakdown`: the inputs
   and the compositor of a plain and of a shaded + shadowed frame);
 - the online round (train(10), full decode, one frame; median of rounds
   2-6) and the training step at 2^19 (CUDA events over 100 steps, and its
@@ -47,7 +53,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BREAKDOWN_KEYS = ("blob_hash_encode_ms", "blob_fused_mlp_ms",
                   "frame_inputs_ms", "frame_composite_ms", "frame_warp_ms",
                   "frame_total_ms", "frame_inputs_ext_ms",
-                  "frame_composite_ext_ms", "frame_inputs_ops")
+                  "frame_composite_ext_ms", "frame_inputs_ops",
+                  "iso_frame_total_ms")
 SLAB_VIEWS = {"composite_slabs": ("none", False, False),
               "ext_shaded": ("gradient", True, False),
               "ext_shadow": ("none", False, True),
@@ -114,12 +121,27 @@ def measure():
                 torch, *cs.mlp_inputs(torch, field, seed), cfg)
             for seed in (cs.SEED + 5 + 2 * k for k in range(5))})
 
+    from instantvnr_torch.models.metrics import _grid_coords_slab
+
     for log2 in (14, 19):
-        spec, _, coords, g = cs.hash_inputs(torch, log2)
+        spec, table, coords, g = cs.hash_inputs(torch, log2)
+        rec[f"hash_encode_forward_2e{log2}_ms"] = cs.device_ms(
+            torch, lambda: he._kernel_forward(table, coords, spec,
+                                              torch.bfloat16),
+            ("hash_encode_forward_kernel",))
         rec[f"hash_encode_backward_2e{log2}_ms"] = cs.device_ms(
             torch, lambda: he._kernel_backward(spec.n_entries, coords, spec,
                                                g, torch.bfloat16),
             cs.K4_KERNELS)
+
+    # the decode's K3: the 2^19 layout's bf16 table over a decode blob
+    spec, table, _, _ = cs.hash_inputs(torch, 19)
+    table16 = table.to(torch.bfloat16)
+    blob = _grid_coords_slab(cs.DIMS, 0, 16, "cuda")
+    rec["hash_encode_forward_decode_blob_ms"] = cs.device_ms(
+        torch, lambda: he._kernel_forward(table16, blob, spec,
+                                          torch.bfloat16),
+        ("hash_encode_forward_kernel",))
 
     sv = api.SimpleVolume.synthetic(cs.DIMS, "vorts", device="cuda")
     vol = sv.volume.data
@@ -132,6 +154,16 @@ def measure():
                                          shadow if shadowed else None)
         rec[f"{name}_ms"] = cs.device_ms(torch, lambda: comp(*args),
                                          ("slab_composite_kernel",))
+    from instantvnr_torch.ops import iso_sweep as isw
+    from instantvnr_torch.render.isosurf import IsoSettings, slab_iso_args
+    from instantvnr_torch.render.slabmarch import camera_arrays, principal_axis
+
+    axis, flipped = principal_axis(cam)
+    iso_args, _ = slab_iso_args(vol, grads, cs.SIZE, cs.SIZE, IsoSettings(),
+                                axis, flipped, camera_arrays(cam, "cuda"))
+    iso = float(vol.median())
+    rec["iso_sweep_ms"] = cs.device_ms(
+        torch, lambda: isw.iso_sweep(*iso_args, iso), ("iso_sweep_kernel",))
     nv = api.NeuralVolume(ModelConfig(), sv, seed=0, device="cuda",
                           train_batch=cs.TRAIN_BATCH)
     r = api.VNRenderer(nv, cs.SIZE, cs.SIZE, api.RenderMode.DECODED_SLAB)
@@ -155,6 +187,9 @@ def measure():
     r_iso = api.VNRenderer(nv, cs.SIZE, cs.SIZE)
     r_iso.set_mode(api.RenderMode.ISOSURFACE_DECODED)
     r_iso.set_isovalue(float(nv.decode_volume().median()))
+    orbit = cs.run_orbit(torch, r_iso, "frame_isosurface")
+    rec.update(frame_isosurface_ms=orbit["ms_per_frame"],
+               frame_isosurface_ms_median=orbit["ms_per_frame_median"])
     breakdown = cs.phase_breakdown(torch, nv, api.VNRenderer(
         nv, cs.SIZE, cs.SIZE), r_iso)
     rec.update({k: breakdown[k] for k in BREAKDOWN_KEYS})

@@ -398,17 +398,17 @@ def test_composite_ext_kernel_matches_plain(cuda, c_f, shadow, lut):
 
 @pytest.mark.parametrize("iso", [0.35, 0.6])
 def test_iso_sweep_kernel_matches_plain(cuda, iso):
-    from instantvnr_torch.render.slabmarch import _interp_matrix
+    from instantvnr_torch.render.slabmarch import _interp_pairs
 
     rng = np.random.default_rng(5)
     fields, _, _, _, covy, covx = _ext_inputs(cuda, rng, 4, False, False)[:6]
     d, _, ay, ax = fields.shape
     hi, wi = covy.shape[1], covx.shape[1]
-    # banded interpolation matrices, as the slab sweep builds them: each
-    # slab magnified a little more about an off-centre epipole
+    # the per-row pairs, as the slab sweep builds them: each slab magnified
+    # a little more about an off-centre epipole
     grow = 1.0 + 0.02 * torch.arange(d, dtype=torch.float32, device=cuda)
-    my = _interp_matrix(hi, ay, ay / hi / grow, 0.3 + 0.0 * grow)
-    mx = _interp_matrix(wi, ax, ax / wi / grow, 1.1 + 0.0 * grow)
+    my = _interp_pairs(hi, ay, ay / hi / grow, 0.3 + 0.0 * grow)
+    mx = _interp_pairs(wi, ax, ax / wi / grow, 1.1 + 0.0 * grow)
     before = isw.counter.launches
     f1, z1, g1 = isw.iso_sweep(fields, my, mx, covy, covx, iso)
     torch.cuda.synchronize()
@@ -465,9 +465,25 @@ def test_hash_backward_kernel_at_b65536(cuda, log2, n_features, compute):
                                    ref.cpu().numpy(), atol=5e-4, rtol=1e-4)
 
 
-def _rendered_inputs(cuda, cam, width, height, view):
-    """The compositor and its inputs for one frame of a 48 x 40 x 56 vorts
-    volume, as slab_composite_args builds them on the card: view "plain",
+# the rendered-input cameras: (eye, frame size, volume dims (dx, dy, dz))
+_CAMERAS = {"orbit": ((20.0, 9.0, -110.0), (301, 157), (48, 40, 56)),
+            "zoomed-out": ((60.0, -40.0, -900.0), (23, 17), (48, 40, 56)),
+            "flipped": ((-15.0, 12.0, 100.0), (130, 97), (48, 40, 56)),
+            # a volume one voxel tall: every slab is one row of voxels
+            "one-voxel": ((3.0, 20.0, -40.0), (67, 45), (16, 1, 16))}
+
+
+def _camera(name):
+    from instantvnr_torch.render.camera import Camera
+
+    eye, size, dims = _CAMERAS[name]
+    return Camera(eye=eye, center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
+                  fovy=40.0), size, dims
+
+
+def _rendered_inputs(cuda, cam, width, height, view, dims=(48, 40, 56)):
+    """The compositor and its inputs for one frame of a vorts volume (dx,
+    dy, dz), as slab_composite_args builds them on the card: view "plain",
     "shaded", "shadow" or "shaded+shadow" (the four instantiations)."""
     from instantvnr_torch.config import TransferFunctionConfig
     from instantvnr_torch.data.volume import synthetic_volume
@@ -475,7 +491,7 @@ def _rendered_inputs(cuda, cam, width, height, view):
     from instantvnr_torch.render.shadow import shadow_volume_for
     from instantvnr_torch.utils.tfn import bake_transfer_function
 
-    vol = synthetic_volume((48, 40, 56), kind="vorts", device=cuda).data
+    vol = synthetic_volume(dims, kind="vorts", device=cuda).data
     tf = bake_transfer_function(TransferFunctionConfig(), device=cuda)
     shade = "shaded" in view
     axis, flipped = sm.principal_axis(cam)
@@ -491,23 +507,19 @@ def _rendered_inputs(cuda, cam, width, height, view):
 
 @pytest.mark.parametrize("view", ["plain", "shaded", "shadow",
                                   "shaded+shadow"])
-@pytest.mark.parametrize("camera", ["orbit", "zoomed-out", "flipped"])
+@pytest.mark.parametrize("camera", ["orbit", "zoomed-out", "flipped",
+                                    "one-voxel"])
 def test_banded_compositor_on_rendered_inputs(cuda, camera, view):
     """Each instantiation of the banded kernel template against its plain
     version on the inputs a frame builds: an orbit camera at a ragged
     301 x 157 frame; a zoomed-out camera at 23 x 17 (a pixel steps over 2
     or more texels, so the 2 x 2 windows of neighbours do not touch); a
-    camera on
-    the far side (the slab axis flipped) at 130 x 97. Tolerances as
-    chip_smoke's COMP_ATOL / EXT_ATOL: 1e-4, 2e-4 with shading."""
-    from instantvnr_torch.render.camera import Camera
-
-    eye, size = {"orbit": ((20.0, 9.0, -110.0), (301, 157)),
-                 "zoomed-out": ((60.0, -40.0, -900.0), (23, 17)),
-                 "flipped": ((-15.0, 12.0, 100.0), (130, 97))}[camera]
-    cam = Camera(eye=eye, center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
-                 fovy=40.0)
-    comp, args, flipped = _rendered_inputs(cuda, cam, *size, view)
+    camera on the far side (the slab axis flipped) at 130 x 97; a volume
+    one voxel tall (slabs of one row: each pair reads its sole voxel).
+    Tolerances as chip_smoke's COMP_ATOL / EXT_ATOL: 1e-4, 2e-4 with
+    shading."""
+    cam, size, dims = _camera(camera)
+    comp, args, flipped = _rendered_inputs(cuda, cam, *size, view, dims)
     assert flipped == (camera == "flipped")
     plain = (sc.composite_slabs_reference if view == "plain"
              else sc.composite_slabs_ext_reference)
@@ -521,3 +533,72 @@ def test_banded_compositor_on_rendered_inputs(cuda, camera, view):
     atol = 2e-4 if "shaded" in view else 1e-4
     np.testing.assert_allclose(c1.cpu().numpy(), c2.cpu().numpy(), atol=atol)
     np.testing.assert_allclose(a1.cpu().numpy(), a2.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("camera", ["orbit", "zoomed-out", "flipped",
+                                    "one-voxel"])
+def test_iso_sweep_on_rendered_inputs(cuda, camera):
+    """The sweep against its plain version on the inputs an isosurface
+    frame builds (render/isosurf.py::slab_iso_args, the per-row pairs), at
+    the compositor cases' cameras and frames, the isovalue the volume's
+    median: found agrees on 99.9% of the pixels at least and hit_z, hit_g
+    within 1e-3 where both hit, as test_iso_sweep_kernel_matches_plain
+    (chip_smoke's ISO_ATOL)."""
+    from instantvnr_torch.data.volume import synthetic_volume
+    from instantvnr_torch.render import slabmarch as sm
+    from instantvnr_torch.render.isosurf import IsoSettings, slab_iso_args
+
+    cam, (w, h), dims = _camera(camera)
+    vol = synthetic_volume(dims, kind="vorts", device=cuda).data
+    axis, flipped = sm.principal_axis(cam)
+    assert flipped == (camera == "flipped")
+    args, _ = slab_iso_args(vol, sm.compute_gradient_volumes(vol), w, h,
+                            IsoSettings(), axis, flipped,
+                            sm.camera_arrays(cam, cuda))
+    iso = float(vol.median())
+    before = isw.counter.launches
+    f1, z1, g1 = isw.iso_sweep(*args, iso)
+    torch.cuda.synchronize()
+    assert isw.counter.launches == before + 1
+    f2, z2, g2 = isw.iso_sweep_reference(*args, iso)
+    assert float(f2.sum()) >= 3  # the surface is hit
+    assert float((f1 == f2).float().mean()) >= 0.999
+    both = (f1 > 0.5) & (f2 > 0.5)
+    np.testing.assert_allclose(z1[both].cpu().numpy(), z2[both].cpu().numpy(),
+                               atol=1e-3)
+    np.testing.assert_allclose(g1[both].cpu().numpy(), g2[both].cpu().numpy(),
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("table_dtype,compute", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("n_features", [1, 2, 4, 8])
+@pytest.mark.parametrize("log2", [14, 19])
+@pytest.mark.parametrize("b", [1 << 16, 50021])
+def test_hash_forward_kernel_at_schema_layouts(cuda, b, log2, n_features,
+                                               table_dtype, compute):
+    """K3 on the reference schema's 2^14 and 2^19 layouts (8 levels, F
+    features) at the training batch B = 2^16 and a ragged B, from an f32
+    or a bf16 table, against the plain gather: f32 at atol 1e-5, bf16 at
+    chip_smoke's HASH_FWD_ATOL (1e-2, one bf16 step: the 8-corner sum in
+    another order). Samples on the cube's faces and corners take the dense
+    levels' wrap at the upper face. One launch per call."""
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        log2_hashmap_size=log2, n_features_per_level=n_features))
+    rng = np.random.default_rng(log2 + n_features + b)
+    tdt, cdt = getattr(torch, table_dtype), getattr(torch, compute)
+    table = torch.tensor(rng.uniform(-1, 1, (spec.n_entries, n_features)
+                                     ).astype(np.float32), device=cuda).to(tdt)
+    c = rng.random((b, 3)).astype(np.float32)
+    c[:8] = [[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)]
+    coords = torch.tensor(c, device=cuda)
+    before = he.counter.launches
+    got = he.hash_encode(table, coords, spec, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert he.counter.launches == before + 1 and got.dtype == cdt
+    assert got.shape == (b, spec.n_output_dims)
+    ref = he.hash_encode_reference(table, coords, spec, compute_dtype=cdt)
+    atol = 1e-5 if compute == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol, rtol=0)

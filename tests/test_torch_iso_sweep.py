@@ -1,10 +1,12 @@
 """Port's first-hit isosurface sweep == the JAX package's.
 
 - `iso_sweep_reference` against the Pallas kernel `iso_sweep` (interpret
-  mode) on the same per-slab inputs: `found` exactly equal, hit_z and
-  hit_g at atol 1e-5 (float32 matmuls in another summation order; a
-  crossing within an ulp of the isovalue could flip `found`, none does at
-  these inputs).
+  mode) on the same per-slab inputs, the port's per-row pairs built from
+  the same geometry (they densify to the kernel's matrices bit for bit):
+  `found` exactly equal, hit_z and hit_g at atol 1e-5 (float32 matmuls
+  against the banded sums; a crossing within an ulp of the isovalue could
+  flip `found`, none does at these inputs).
+- `slab_iso_args` builds no dense interpolation matrix.
 - Whole isosurface frames (render/isosurf.py) against JAX's IsoRenderer
   through its Pallas sweep, at atol 2e-5, for the plain, clipped-scaled and
   two-isovalue cases of tests/test_slab_pallas.py:146-177.
@@ -27,7 +29,8 @@ from instantvnr_torch.config import TransferFunctionConfig
 from instantvnr_torch.data.volume import synthetic_volume
 from instantvnr_torch.ops import iso_sweep as isw
 from instantvnr_torch.render.camera import Camera
-from instantvnr_torch.render.isosurf import IsoRenderer
+from instantvnr_torch.render.isosurf import IsoRenderer, IsoSettings
+from instantvnr_torch.render.slabmarch import _densify_pairs, _per_slab_state
 from instantvnr_torch.render.transform import default_transform
 from instantvnr_torch.utils.tfn import bake_transfer_function
 
@@ -59,17 +62,24 @@ def _sweep_inputs(eye):
     keep = in_front & (z_ks >= clo[2]) & (z_ks <= chi[2])
     covy, covx = jsm._coverage_masks(my_all, mx_all, x_src, y_src, clo, chi,
                                      keep)
-    return [np.array(a) for a in (fields, my_all, mx_all, covy, covx)]
+    return ([np.array(a) for a in (fields, my_all, mx_all, covy, covx)],
+            [torch.from_numpy(np.array(a)) for a in (e, z_ref, xs, ys)])
 
 
 @pytest.mark.parametrize("eye,iso", [((0, 0, -70), 0.5), ((60, 9, 7), 0.5),
                                      ((-4, -66, 3), 0.3)])
 def test_reference_matches_pallas_kernel(eye, iso):
-    arrs = _sweep_inputs(eye)
+    arrs, geo = _sweep_inputs(eye)
     rf, rz, rg = j_iso_sweep(*[jnp.asarray(a) for a in arrs],
                              jnp.float32(iso), 12, interpret=True)
+    # the port's pairs from the same geometry densify to JAX's matrices
+    _, y_pairs, x_pairs, _, _ = _per_slab_state(*geo, 32, 32, 32,
+                                                banded=True)
+    assert torch.equal(_densify_pairs(y_pairs, 32), torch.from_numpy(arrs[1]))
+    assert torch.equal(_densify_pairs(x_pairs, 32), torch.from_numpy(arrs[2]))
+    fields, _, _, covy, covx = [torch.from_numpy(a) for a in arrs]
     before = isw.counter.launches
-    gf, gz, gg = isw.iso_sweep(*[torch.from_numpy(a) for a in arrs], iso)
+    gf, gz, gg = isw.iso_sweep(fields, y_pairs, x_pairs, covy, covx, iso)
     assert isw.counter.launches == before  # CPU: the plain version
     rf, rz, rg = np.asarray(rf), np.asarray(rz), np.asarray(rg)
     assert gg.shape == rg.shape == (36, 40, 3)
@@ -134,3 +144,40 @@ def test_isovalue_edits():
     ref = jr.mapframe()
     assert ref[..., 3].max() > 0.5
     np.testing.assert_allclose(tr.mapframe(), ref, atol=FRAME_ATOL)
+
+
+def test_iso_args_build_no_dense_matrices(monkeypatch):
+    """The isosurface sweep's inputs hold the per-row pairs and never call
+    _interp_matrix; the pairs densify to the matrices that
+    _per_slab_state builds without `banded` from the same geometry."""
+    from instantvnr_torch.render import isosurf
+    from instantvnr_torch.render import slabmarch as sm
+
+    vol = synthetic_volume((24, 20, 28), kind="vorts", device="cpu").data
+    grads = sm.compute_gradient_volumes(vol)
+    cam = Camera(eye=(25, -18, -62), center=(0, 0, 0), up=(0, 1, 0), fovy=40)
+    axis, flipped = sm.principal_axis(cam)
+    per_slab_state = sm._per_slab_state
+    calls = []
+
+    def refuse(*a, **kw):
+        raise AssertionError("the sweep's inputs built a dense matrix")
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return per_slab_state(*a, **kw)
+
+    monkeypatch.setattr(sm, "_interp_matrix", refuse)
+    monkeypatch.setattr(isosurf, "_per_slab_state", spy)
+    args, _ = isosurf.slab_iso_args(vol, grads, 33, 29, IsoSettings(), axis,
+                                    flipped, sm.camera_arrays(cam, "cpu"))
+    found, _, _ = isw.iso_sweep(*args, 0.5)
+    monkeypatch.undo()
+    assert len(calls) == 1 and calls[0][1] == {"banded": True}
+    assert float(found.sum()) > 0  # the surface is hit
+    _, my_all, mx_all, _, _ = per_slab_state(*calls[0][0])
+    fields, y_pairs, x_pairs = args[:3]
+    ay, ax = fields.shape[2:]
+    assert y_pairs[0].dtype == torch.int32 and x_pairs[0].dtype == torch.int32
+    assert torch.equal(_densify_pairs(y_pairs, ay), my_all)
+    assert torch.equal(_densify_pairs(x_pairs, ax), mx_all)

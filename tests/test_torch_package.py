@@ -159,7 +159,7 @@ def test_cpu_wrappers_never_build(monkeypatch):
         torch.ones(d, wi), f(hi, wi), f(d, wi), f(d, hi), f(d), ctrl, misc,
         (0, 1, 2))
     assert color.shape == (hi, wi, 3)
-    found, hit_z, hit_g = isw.iso_sweep(fields, f(d, hi, ay), f(d, wi, ax),
+    found, hit_z, hit_g = isw.iso_sweep(fields, pairs(hi, ay), pairs(wi, ax),
                                         torch.ones(d, hi), torch.ones(d, wi),
                                         0.5)
     assert found.shape == hit_z.shape == (hi, wi) and hit_g.shape == (hi, wi,

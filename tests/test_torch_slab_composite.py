@@ -28,6 +28,8 @@ from instantvnr_tpu.ops.pallas.slab_composite import pack_misc as j_pack_misc
 from instantvnr_tpu.render import slabmarch as jsm
 from instantvnr_tpu.render.camera import Camera as JCamera
 from instantvnr_tpu.render.decoded import DecodedRenderer as JDecodedRenderer
+from instantvnr_tpu.render.isosurf import IsoRenderer as JIsoRenderer
+from instantvnr_tpu.render.isosurf import IsoSettings as JIsoSettings
 from instantvnr_tpu.render.shadow import shadow_volume_for as j_shadow_for
 from instantvnr_tpu.render.transform import default_transform as j_default_xf
 from instantvnr_tpu.utils.tfn import bake_transfer_function as j_bake
@@ -37,6 +39,7 @@ from instantvnr_torch.data.volume import synthetic_volume
 from instantvnr_torch.ops import slab_composite as sc
 from instantvnr_torch.render.camera import Camera
 from instantvnr_torch.render.decoded import DecodedRenderer
+from instantvnr_torch.render.isosurf import IsoRenderer
 from instantvnr_torch.render.slabmarch import (SlabSettings, _densify_pairs,
                                                _interp_matrix, _interp_pairs)
 from instantvnr_torch.utils.tfn import bake_transfer_function
@@ -304,22 +307,66 @@ _RNG = np.random.default_rng(23)
     (17, 2, _f32(0.2, 0.13, 1.0), _f32(-0.3, 0.0, -0.5)),
     # src exactly on the range's and the fold's boundaries
     (6, 8, _f32(0.5, 0.5, 1.0), _f32(0.0, 6.0, -0.5)),
+    # a one-voxel axis: every in-range row folds onto the sole voxel, rows
+    # outside on both sides, a flipped scale
+    (9, 1, _f32(0.6, 0.25, -0.3), _f32(-0.2, 0.4, 1.5)),
 ], ids=["random", "outside", "integral", "flipped", "supersampled",
-        "zoomed-out", "n_in=2", "boundaries"])
+        "zoomed-out", "n_in=2", "boundaries", "n_in=1"])
 def test_interp_pairs_densify_to_interp_matrix(n_out, n_in, scale, offset):
     """The pairs carry every nonzero of the dense matrices, bit for bit."""
     dense = _interp_matrix(n_out, n_in, scale, offset)
     j0, w = _interp_pairs(n_out, n_in, scale, offset)
     assert j0.dtype == torch.int32 and w.shape == (scale.shape[0], n_out, 2)
-    assert int(j0.min()) >= 0 and int(j0.max()) <= n_in - 2
+    assert int(j0.min()) >= 0 and int(j0.max()) <= max(n_in - 2, 0)
     assert torch.equal(_densify_pairs((j0, w), n_in), dense)
     # coverage from the pairs is coverage from the matrices
     assert torch.equal(w.sum(-1) > 0, dense.sum(-1) > 0)
+    if n_in == 1:  # the second column does not exist: its weight is 0
+        assert not w[..., 1].any() and bool((dense == 1.0).any())
+        assert bool((dense == 0.0).any())
 
 
-def test_interp_pairs_refuse_a_one_voxel_axis():
-    with pytest.raises(ValueError, match="at least 2"):
-        _interp_pairs(4, 1, _f32(1.0), _f32(0.0))
+# one-voxel-axis volumes (dx, dy, dz) and three eyes each, whose slabs hold
+# the one-voxel axis (a slab of 1 row or 1 column), flipped and not
+_ONE_VOXEL = [((16, 1, 16), (3, 20, -40)), ((16, 1, 16), (40, 15, 5)),
+              ((16, 1, 16), (-30, -12, -20)), ((16, 16, 1), (60, 9, 7)),
+              ((16, 16, 1), (-4, 66, 3)), ((16, 16, 1), (12, -40, -9))]
+
+
+@pytest.mark.parametrize("view", ["decoded_slab", "isosurface"])
+@pytest.mark.parametrize("dims,eye", _ONE_VOXEL,
+                         ids=[f"{d[0]}x{d[1]}x{d[2]}-{e}"
+                              for d, e in _ONE_VOXEL])
+def test_one_voxel_axis_frame_matches_jax(view, dims, eye):
+    """A volume one voxel thick renders as in the JAX package, whose dense
+    matrices fold every in-range row onto the sole voxel: DECODED_SLAB
+    against its XLA scan at ATOL, the isosurface against its Pallas sweep
+    (interpret mode) at test_torch_iso_sweep's FRAME_ATOL 2e-5."""
+    jvol = j_synthetic_volume(dims, kind="vorts")
+    jtf = j_bake(JTFConfig())
+    tvol = synthetic_volume(dims, kind="vorts", device="cpu")
+    ttf = bake_transfer_function(TransferFunctionConfig(), device="cpu")
+    if view == "decoded_slab":
+        jr = JDecodedRenderer(32, 32, jmc.build(jvol.data, jvol.dims, jtf),
+                              jtf, jvol.dims, initial_volume=jvol.data)
+        tr = DecodedRenderer(32, 32, mcmod.build(tvol.data, tvol.dims, ttf),
+                             ttf, tvol.dims, initial_volume=tvol.data,
+                             device="cpu")
+        atol = ATOL
+    else:
+        iso = float(np.median(np.asarray(jvol.data)))
+        jr = JIsoRenderer(32, 32, jvol.data, jtf, isovalue=iso,
+                          settings=JIsoSettings(pallas_sweep=True))
+        tr = IsoRenderer(32, 32, tvol.data, ttf, isovalue=iso, device="cpu")
+        atol = 2e-5
+    jr.set_camera(JCamera(eye=eye, center=(0, 0, 0), up=(0, 1, 0), fovy=40))
+    tr.set_camera(Camera(eye=eye, center=(0, 0, 0), up=(0, 1, 0), fovy=40))
+    jr.render()
+    tr.render()
+    ref, got = jr.mapframe(), tr.mapframe()
+    assert ref[..., 3].max() > 0.3  # the sliver is visible
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=atol)
 
 
 def test_composite_args_build_no_dense_matrices(monkeypatch):
