@@ -17,6 +17,15 @@ points:
   FULL_SHADOW_DECODED and ISOSURFACE_DECODED; a breakdown of a blob and a
   frame; a BSON checkpoint round trip; small frames of volumes one voxel
   thick on the card against the CPU;
+- the exact wavefront: raymarch_emit against its plain version on a 512²
+  frame's rays; the seven wavefront modes (NEURAL_WAVEFRONT, _GRADIENT,
+  _SSH with streaming_cache="none" on the 2^19 model, REFERENCE_RAYMARCH,
+  _GRADIENT, _SSH, FULL_SHADOW_REFERENCE) at 512², with supersteps,
+  launches and the device's busy time of a profiled frame; the same modes
+  small on the card against the CPU; a degenerate camera in DECODED_SLAB
+  (wavefront fallback) and ISOSURFACE_DECODED (brute-force marcher);
+- checkpoints and CLI: a native .npz round trip that resumes exactly, and
+  the port's CLI in-process (train → .npz → render → view_model);
 - training: NeuralVolume.train(1000) at B = 2^16 on the 2^14 layout (PSNR
   and SSIM against the reference's bar, and against a control loop built
   here from the plain functions), on the 2^19 reference schema over three
@@ -114,6 +123,27 @@ HASH_BWD_ATOL, HASH_BWD_RTOL = 5e-4, 1e-4
 DECODE_LAUNCHES = {"fused_mlp": 8, "hash_encode_forward": 8}
 # K4's device time: its kernel and the wrapper's zeroing of the table
 K4_KERNELS = ("hash_encode_backward_kernel", "FillFunctor")
+# the wavefront (render/raymarch.py): frames a mode in wavefront_views, and
+# the f32 operations of one DDA probe of raymarch_emit (need_new and range
+# tests 3, the probe point 7, per axis its cell 2 and exit 11, the flat
+# index 10, the occupancy test 1, and an entered cell's rate and quantized
+# step 17) and of one emitted slot (9), for its operations bound
+WAVEFRONT_FRAMES = 2
+EMIT_PROBE_OPS, EMIT_SLOT_OPS = 77, 9
+WAVEFRONT_MODES = ("NEURAL_WAVEFRONT", "NEURAL_WAVEFRONT_GRADIENT",
+                   "NEURAL_WAVEFRONT_SSH", "REFERENCE_RAYMARCH",
+                   "REFERENCE_GRADIENT", "REFERENCE_SSH",
+                   "FULL_SHADOW_REFERENCE")
+# a small wavefront frame on the card against the CPU, from the same
+# jitter: the emission is exact on both devices; the neural modes' samples
+# part where the fused MLP rounds a bf16 activation the other way (the
+# decode's tolerance), and through a steep transfer function a pixel may
+# move far: the pixels within 5e-3 of the CPU's must be at least
+# WAVEFRONT_SHARE_MIN of the frame (2 of 1,480 parted in PR 7's run)
+WAVEFRONT_SHARE_MIN = 0.99
+# an .npz resume on the card: params and moments after one more step, as a
+# share of each array's largest entry (K4's atomics sum in a varying order)
+NPZ_RTOL = 1e-5
 # the fused-MLP kernel functions that must hold tensor-core MMAs (SASS)
 MMA_KERNELS = {"fused_mlp_forward": ("fused_mlp_forward_kernel", "Lb0E"),
                "fused_mlp_train_forward": ("fused_mlp_forward_kernel",
@@ -1388,6 +1418,7 @@ def counters():
     from instantvnr_torch.ops import hash_encoding as he
     from instantvnr_torch.ops import iso_sweep as isw
     from instantvnr_torch.ops import slab_composite as sc
+    from instantvnr_torch.render import raymarch as rm
 
     return {"fused_mlp": fm.counter,
             "fused_mlp_train_forward": fm.train_forward_counter,
@@ -1395,7 +1426,8 @@ def counters():
             "hash_encode_forward": he.counter,
             "hash_encode_backward": he.backward_counter,
             "composite_slabs": sc.counter,
-            "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter}
+            "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter,
+            "raymarch_emit": rm.emit_counter}
 
 
 def decode_launches(torch, fn):
@@ -1549,6 +1581,296 @@ def phase_views(torch, nv, r, plain):
     return views
 
 
+def wavefront_rays(torch, sv, w, h, cam):
+    """The voxel-space rays of a frame over sv, and its flipped light."""
+    from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
+    from instantvnr_torch.render.renderer import _frame_rays
+    from instantvnr_torch.render.slabmarch import camera_arrays
+
+    org, dirn, t0, t1, light, _, _ = _frame_rays(
+        w, h, camera_arrays(cam, sv.device),
+        torch.tensor(sv.dims, dtype=torch.float32, device=sv.device),
+        torch.tensor(DEFAULT_LIGHT, device=sv.device), sv.transform)
+    return org, dirn, t0, t1, light
+
+
+def phase_raymarch_emit(torch, sv):
+    """raymarch_emit on the neural wavefront's shapes (R = 512² rays of an
+    orbit frame over vorts 128³, K = 8 slots, 8 skips), from the state after
+    a first superstep, against the plain _emit_samples: equal bit for bit.
+    Timed by device time and CUDA events; the bound from this run's bytes
+    and the operations of the probes its data needs."""
+    from instantvnr_torch.render import raymarch as rm
+
+    org, dirn, t0, t1, _ = wavefront_rays(torch, sv, SIZE, SIZE,
+                                          orbit(1, N_FRAMES, max(DIMS)))
+    mc = sv.macrocell
+    k, skips = 8, 8
+    state = rm.init_ray_state(t0, t1)
+    (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state, mc, 1.0, k,
+                                        skips)
+    state = state._replace(t=t, t_cell_end=tce, ss=ss)
+
+    def kernel():
+        return rm.raymarch_emit(org, dirn, t1, state, mc, 1.0, k, skips)
+
+    def plain():
+        return rm._emit_samples(org, dirn, t1, state, mc, 1.0, k, skips)
+
+    got = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    outs = list(zip(got[0] + got[1:], ref[0] + ref[1:]))
+    same_bits = all(torch.equal(g, r) for g, r in outs)
+    err = max(float((g.float() - r.float()).abs().max()) for g, r in outs)
+    probes = rm._emit_samples(org, dirn, t1, state, mc, 1.0, k, skips,
+                              count_probes=True)[-1]
+    r = org.shape[0]
+    n_bytes = (nbytes(org, dirn, t1, state.t, state.t_cell_end, state.ss,
+                      mc.max_opacity) + nbytes(*got[0], *got[1:]))
+    ops = probes * EMIT_PROBE_OPS + r * k * EMIT_SLOT_OPS
+    b_ms, b_by = bound_ms(n_bytes, ops, H100_FP32_FLOPS)
+    rec = {"phase": "raymarch_emit", "rays": r, "slots": k,
+           "max_skips": skips, "probes": probes,
+           "valid_slots": int(ref[3].sum()), "same_bits": same_bits,
+           "max_abs_err": err, "tol": "bit for bit",
+           "ms": device_ms(torch, kernel, ("raymarch_emit_kernel",)),
+           "call_ms": cuda_ms(torch, kernel),
+           "plain_ms": cuda_ms(torch, plain, iters=3, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "mbytes": n_bytes / 1e6, "gflop": ops / 1e9}
+    log(rec)
+    if not same_bits:
+        raise AssertionError(f"raymarch_emit differs from its plain "
+                             f"version: {rec}")
+    return rec
+
+
+def run_wavefront_mode(torch, nv, mode):
+    """WAVEFRONT_FRAMES frames of one wavefront mode at SIZE² on an orbit,
+    the launch counts from 0 before and read after; then one more frame
+    under torch.profiler for the device's busy time against the host's
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instantvnr_torch import api
+
+    r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode[mode],
+                       streaming_cache="none")
+    torch.cuda.synchronize()
+    for c in counters().values():
+        c.reset()
+    frame_ms, supersteps, alpha_max = [], [], []
+    for i in range(WAVEFRONT_FRAMES):
+        t0 = time.perf_counter()
+        r.set_camera(orbit(i, N_FRAMES, max(DIMS)))
+        r.render()
+        frame = r.mapframe()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        supersteps.append(r.last_stats["supersteps"])
+        if frame.shape != (SIZE, SIZE, 4) or not np.isfinite(frame).all():
+            raise AssertionError(f"{mode} frame {i}: bad shape or "
+                                 "non-finite")
+        alpha_max.append(float(frame[..., 3].max()))
+    launches = {n: c.launches for n, c in counters().items()}
+    r.set_camera(orbit(WAVEFRONT_FRAMES, N_FRAMES, max(DIMS)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.render()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(kernel_us(e) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"phase": f"wavefront[{mode}]", "frames": WAVEFRONT_FRAMES,
+            "frame_ms": frame_ms, "ms_per_frame": float(np.mean(frame_ms)),
+            "supersteps": supersteps, "alpha_max_min": min(alpha_max),
+            "launches": launches,
+            "profiled_frame": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                               "device_idle_share": 1.0 - busy_ms / wall_ms,
+                               "supersteps": r.last_stats["supersteps"]}}
+
+
+def phase_wavefront_views(torch, nv):
+    """The seven wavefront modes of this slice at SIZE² on the main path's
+    2^19 model and vorts volume: every emission through raymarch_emit (one
+    launch a superstep, the SSH shadow march's included), the neural modes'
+    samples through K3 and K1, no other kernel."""
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    for mode in WAVEFRONT_MODES:
+        rec = run_wavefront_mode(torch, nv, mode)
+        log(rec)
+        ln = rec["launches"]
+        neural = mode.startswith("NEURAL")
+        others = {n: v for n, v in ln.items()
+                  if n not in ("raymarch_emit", "fused_mlp",
+                               "hash_encode_forward")}
+        if (ln["raymarch_emit"] != sum(rec["supersteps"])
+                or any(others.values())
+                or (ln["fused_mlp"] > 0) != neural
+                or ln["fused_mlp"] != ln["hash_encode_forward"]
+                or not rec["alpha_max_min"] > 0.05):
+            raise AssertionError(f"{mode}: wrong launches or an invisible "
+                                 f"frame: {rec}")
+        recs.append(rec)
+    log({"phase": "wavefront_memory",
+         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    return recs
+
+
+def phase_wavefront_cuda_vs_cpu(torch):
+    """Each wavefront mode at a small size (a 4-level model with seeded
+    weights, vorts 32³, 40 × 37) on the card against the CPU, the same
+    jitter handed to both."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import (EncodingConfig, ModelConfig,
+                                         NetworkConfig)
+    from instantvnr_torch.models.network import params_from_numpy
+
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=4,
+                                              n_features_per_level=2,
+                                              log2_hashmap_size=12),
+                      network=NetworkConfig(n_neurons=16, n_hidden_layers=2))
+    w, h = 40, 37
+    jitter = torch.rand(w * h, generator=torch.Generator().manual_seed(SEED))
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        sv = api.SimpleVolume.synthetic((32, 32, 32), "vorts", device=dev)
+        nv = api.NeuralVolume(cfg, sv, device=dev)
+        nv.params = params_from_numpy(seeded_params(nv.field, SEED + 3), dev)
+        for mode in WAVEFRONT_MODES:
+            r = api.VNRenderer(nv, w, h, api.RenderMode[mode],
+                               streaming_cache="none")
+            r._impl._next_jitter = lambda j=jitter.to(dev): j
+            r.set_camera(orbit(2, N_FRAMES, 32))
+            r.render()
+            frames[dev, mode] = r.mapframe()
+    tol = 5e-3
+    for mode in WAVEFRONT_MODES:
+        diff = np.abs(frames["cuda", mode] - frames["cpu", mode])
+        share = float((diff.max(-1) <= tol).mean())
+        rec = {"phase": f"wavefront_cuda_vs_cpu[{mode}]",
+               "max_abs_err": float(diff.max()),
+               "mean_abs_err": float(diff.mean()), "tol": tol,
+               "share_within_tol": share, "share_min": WAVEFRONT_SHARE_MIN,
+               "alpha_max": float(frames["cpu", mode][..., 3].max())}
+        log(rec)
+        if share < WAVEFRONT_SHARE_MIN or not rec["alpha_max"] > 0.05:
+            raise AssertionError(f"small wavefront frame disagrees: {rec}")
+
+
+def phase_fallbacks(torch, nv):
+    """A degenerate camera (the eye inside the volume, looking along a
+    diagonal with a wide fov: a frustum corner looks backward along the
+    principal axis, so no slab factorization) in DECODED_SLAB, on the main
+    path's decoded grid, through the wavefront (raymarch_emit, no
+    compositor), and in ISOSURFACE_DECODED through the brute-force
+    first-hit marcher (plain PyTorch: no kernel)."""
+    from instantvnr_torch import api
+    from instantvnr_torch.render.camera import Camera
+    from instantvnr_torch.render.slabmarch import (principal_axis,
+                                                   slab_path_valid)
+
+    d = max(DIMS)
+    cam = Camera(eye=(-0.25 * d, -0.3 * d, -0.35 * d),
+                 center=(0.25 * d, 0.2 * d, 0.15 * d), up=(0.0, 1.0, 0.0),
+                 fovy=100.0)
+    axis, flipped = principal_axis(cam)
+    if slab_path_valid(cam, DIMS, axis, flipped, None, aspect=1.0):
+        raise AssertionError("the fallback camera has a slab path")
+    for mode, kernel in (("DECODED_SLAB", "raymarch_emit"),
+                         ("ISOSURFACE_DECODED", None)):
+        r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode[mode])
+        if mode == "ISOSURFACE_DECODED":
+            r.set_isovalue(float(nv.decode_volume().median()))
+        r.set_camera(cam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame, launches = launches_during(lambda: (r.render(),
+                                                   r.mapframe())[1])
+        rec = {"phase": f"fallback[{mode}]",
+               "ms": (time.perf_counter() - t0) * 1e3,
+               "alpha_max": float(frame[..., 3].max()),
+               "launches": {n: v for n, v in launches.items() if v}}
+        log(rec)
+        ok = (np.isfinite(frame).all() and rec["alpha_max"] > 0.05
+              and set(rec["launches"]) == ({kernel} if kernel else set()))
+        if not ok:
+            raise AssertionError(f"fallback frame: {rec}")
+
+
+def phase_npz_roundtrip(torch, sv, tmp):
+    """A native .npz checkpoint of a 2^14 volume trained 20 steps: loaded
+    back, both volumes take one more step. The card's generator resumes
+    exactly (the same state after the step, the same batch, the same loss
+    bit for bit); params and moments agree to float32 sums in another
+    order, since K4 adds the gradient table with atomics in an order that
+    changes from run to run (NPZ_RTOL of each array's largest entry)."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import EncodingConfig, ModelConfig
+    from instantvnr_torch.serializer import native_leaves
+
+    cfg = ModelConfig(encoding=EncodingConfig(log2_hashmap_size=14))
+    nv = api.NeuralVolume(cfg, sv, seed=SEED, device="cuda")
+    nv.train(20)
+    path = os.path.join(tmp, "smoke.npz")
+    nv.save_params(path)
+    back = api.NeuralVolume.from_checkpoint(path, simple=sv, device="cuda")
+    for v in (nv, back):
+        v.train(1, fast_mode=True)
+    rel = max(float(np.abs(a.astype(np.float64) - b).max()
+                    / max(np.abs(b).max(), 1e-30))
+              for a, b in zip(native_leaves(nv.state),
+                              native_leaves(back.state)))
+    same_gen = torch.equal(nv.state.generator.get_state(),
+                           back.state.generator.get_state())
+    rec = {"phase": "npz_roundtrip", "bytes": os.path.getsize(path),
+           "step": back.step, "loss": back.get_training_loss(),
+           "loss_original": nv.get_training_loss(),
+           "generator_equal": same_gen, "max_rel_err": rel,
+           "tol": NPZ_RTOL}
+    log(rec)
+    if (not same_gen or rec["loss"] != rec["loss_original"]
+            or back.step != 21 or not rel <= NPZ_RTOL):
+        raise AssertionError(f"npz resume is not exact: {rec}")
+
+
+def phase_cli(torch, tmp):
+    """The port's CLI in-process on the card: a short training run of the
+    2^14 schema saved as .npz, then DECODED_SLAB and NEURAL_WAVEFRONT
+    renders of the checkpoint without a ground truth, and view_model."""
+    from instantvnr_torch.apps import view_model, vnr_cmd_render
+    from instantvnr_torch.apps import vnr_cmd_train
+
+    model = os.path.join(tmp, "model14.json")
+    with open(model, "w") as f:
+        json.dump({"encoding": {"log2_hashmap_size": 14}}, f)
+    npz = os.path.join(tmp, "cli.npz")
+    t0 = time.perf_counter()
+    vnr_cmd_train.main(["--synthetic", "vorts", "--dims", "64",
+                        "--model", model, "--max-num-steps", "100",
+                        "--save", npz, "--report-psnr"])
+    train_s = time.perf_counter() - t0
+    frames = {}
+    for mode, extra in (("decoded", []),
+                        ("neural", ["--streaming-cache", "none"])):
+        frames[mode] = vnr_cmd_render.main(
+            ["--load", npz, "--mode", mode, "--size", "256", "--num-frames",
+             "2", "--warmup", "1", "--output",
+             os.path.join(tmp, f"cli_{mode}.png")] + extra)
+    info = view_model.main([npz])
+    rec = {"phase": "cli", "train_s": train_s, "view_model": info,
+           "alpha_max": {m: float(f[..., 3].max()) for m, f in
+                         frames.items()}}
+    log(rec)
+    if (info["step"] != 100 or not all(np.isfinite(f).all()
+                                       for f in frames.values())
+            or min(rec["alpha_max"].values()) <= 0.05):
+        raise AssertionError(f"cli: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -1618,8 +1940,10 @@ def main() -> int:
                             ("shaded+shadow", sv.tf),
                             ("shaded,lut70", tf70))}
     iso = phase_iso_sweep(torch, vol, grads, float(vol.median()))
+    emit = phase_raymarch_emit(torch, sv)
     phase_small_parity(torch)
     phase_one_voxel(torch)
+    phase_wavefront_cuda_vs_cpu(torch)
 
     # -- main path: counts from 0, then decode + an orbit of frames --------
     nv = api.NeuralVolume(ModelConfig(), sv, device="cuda")
@@ -1664,10 +1988,17 @@ def main() -> int:
         r2.render()
         f2 = r2.mapframe()
         ckpt_bytes = os.path.getsize(path)
-    if not np.isfinite(f2).all() or not f2[..., 3].max() > 0.05:
-        raise AssertionError("checkpoint round trip rendered a bad frame")
-    log({"phase": "bson_roundtrip", "alpha_max": float(f2[..., 3].max()),
-         "bytes": ckpt_bytes})
+        if not np.isfinite(f2).all() or not f2[..., 3].max() > 0.05:
+            raise AssertionError("checkpoint round trip rendered a bad "
+                                 "frame")
+        log({"phase": "bson_roundtrip", "alpha_max": float(f2[..., 3].max()),
+             "bytes": ckpt_bytes})
+        phase_npz_roundtrip(torch, sv, tmp)
+        phase_cli(torch, tmp)
+
+    # -- the wavefront modes and the degenerate cameras' fallbacks ---------
+    wavefront = phase_wavefront_views(torch, nv)
+    phase_fallbacks(torch, nv)
 
     # -- training: 2^14 against its controls, 2^19 over three seeds -------
     train14, nv19 = phase_training(torch, sv)
@@ -1675,8 +2006,9 @@ def main() -> int:
     phase_online_loop(torch, nv19)
 
     # launches: totals over the main-path runs (the plain orbit with its
-    # decode, then the four views; the 1000 steps of train_2e14)
-    runs = [plain] + views
+    # decode, then the four views; the wavefront modes; the 1000 steps of
+    # train_2e14)
+    runs = [plain] + views + wavefront
     total = {name: sum(v["launches"][name] for v in runs)
              for name in counters()}
     for d in (decode, views[-1]["decode_launches"]):
@@ -1711,6 +2043,9 @@ def main() -> int:
         row("composite_slabs_ext", "slab_composite.cu",
             tpu + "slab_composite.py:292", ext["shaded+shadow"]),
         row("iso_sweep", "iso_sweep.cu", tpu + "iso_sweep.py:99", iso),
+        # XLA in JAX, as the hash grid: the wavefront's emission scan
+        row("raymarch_emit", "raymarch_emit.cu",
+            "instantvnr_tpu/render/raymarch.py:214", emit),
     ]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -9,12 +9,18 @@ device of a tensor decides between a CUDA kernel and its plain version.
 from __future__ import annotations
 
 import json
+import os
 import re
 from dataclasses import dataclass, field
 from typing import Any
 
 MACROCELL_SIZE_MIP = 4  # cell = 2^4 = 16 voxels/side (reference CMakeLists.txt:61)
 NEARLY_ONE = 0.9999  # early-termination opacity (reference instantvnr_types.h:160)
+
+
+def env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v else default
 
 _COMMENT_RE = re.compile(r'("(?:[^"\\]|\\.)*")|(//[^\n]*)|(/\*.*?\*/)', re.S)
 

@@ -114,6 +114,24 @@ def network_apply(params: Params, coords: torch.Tensor,
                      compute_dtype=compute_dtype)
 
 
+def network_apply_chunked(params: Params, coords: torch.Tensor,
+                          field: NeuralField,
+                          chunk: int = 1 << 18) -> torch.Tensor:
+    """network_apply over `chunk` samples at a time into one output, so a
+    wavefront superstep (2 M samples at 512² × 8 slots, four times that with
+    gradient shading) never builds the whole batch's encoding at once: the
+    peak holds one chunk's features. With `render_params` on the card each
+    chunk is one `hash_encode_forward` launch and one `fused_mlp` launch."""
+    b = coords.shape[0]
+    if b <= chunk:
+        return network_apply(params, coords, field)
+    out = torch.empty((b, field.n_output_dims), dtype=torch.float32,
+                      device=coords.device)
+    for i in range(0, b, chunk):
+        out[i:i + chunk] = network_apply(params, coords[i:i + chunk], field)
+    return out
+
+
 @torch.no_grad()
 def render_params(params: Params, field: NeuralField) -> Params:
     """Inference params: fresh copies (never aliases of `params`). Big

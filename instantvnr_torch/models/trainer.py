@@ -38,6 +38,12 @@ class TrainState(NamedTuple):
     opt: AdamState
     generator: torch.Generator  # the sample stream; advanced by each step
     loss: torch.Tensor  # last step's loss, a float32 scalar on the device
+    # the JAX package's uint32[2] key words, kept only for its native
+    # checkpoints (serializer.save_native): a state made here carries the
+    # raw words of jax.random.PRNGKey(seed), one loaded from a JAX file its
+    # key. The port's sample stream is `generator`; threefry and Philox
+    # never give the same numbers, so the stream does not cross packages.
+    key: tuple = (0, 0)
 
 
 def create_train_state(field: NeuralField, seed: int = 0,
@@ -58,7 +64,8 @@ def state_for_params(params: dict, seed: int = 0) -> TrainState:
     dev = params["table"].device
     gen = torch.Generator(device=dev).manual_seed(DEFAULT_SEED + seed)
     return TrainState(params=params, opt=adam_init(params), generator=gen,
-                      loss=torch.zeros((), dtype=torch.float32, device=dev))
+                      loss=torch.zeros((), dtype=torch.float32, device=dev),
+                      key=(0, seed & 0xFFFFFFFF))
 
 
 def derived_generator(gen: torch.Generator, tag: int) -> torch.Generator:
@@ -112,8 +119,7 @@ def _apply(field: NeuralField, state: TrainState, coords, targets
     loss, grads = value_and_grad(field, state.params, coords, targets)
     params, opt = adam_update(field.cfg.optimizer, state.params, grads,
                               state.opt, l2_mask=mlp_l2_mask(state.params))
-    return TrainState(params=params, opt=opt, generator=state.generator,
-                      loss=loss)
+    return state._replace(params=params, opt=opt, loss=loss)
 
 
 def train_step(field: NeuralField, volume: torch.Tensor, state: TrainState,

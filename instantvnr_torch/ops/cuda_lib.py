@@ -65,6 +65,11 @@ SIGNATURES = {
     # stream
     "iso_sweep_forward": (_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
                           _I, _I, _P),
+    # org, dirn, t_far, t, t_cell_end, ss, max_opacity, mx, my, mz,
+    # base_step, rate_scale, R, K, max_skips, t_out, tce_out, ss_out, t_x,
+    # t_y, valid, stream
+    "raymarch_emit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _L, _I,
+                      _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

@@ -5,7 +5,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+import torch
+
 from instantvnr_torch.config import CameraConfig
+from instantvnr_torch.utils.math import normalize
 
 
 @dataclass(frozen=True)
@@ -26,3 +30,41 @@ class Camera:
         d = max(dims)
         return cls(eye=(0.0, 0.0, -2.2 * d), center=(0.0, 0.0, 0.0),
                    up=(0.0, 1.0, 0.0), fovy=45.0)
+
+
+def camera_rays(cam: Camera, width: int, height: int,
+                jitter: torch.Tensor | None = None, device="cpu"):
+    """Per-pixel rays, reference parameterization (renderer.cpp:87-96):
+
+        t  = 2·tan(fovy/2);  aspect = W/H
+        horizontal = t·aspect · normalize(dir × up)
+        vertical   = (horizontal × dir)/aspect          (magnitude t)
+        ray = dir + (sx−.5)·horizontal + (sy−.5)·vertical,  s ∈ [0,1]²
+
+    The camera's fields may be tuples or tensors (the renderers' camera
+    arrays). Returns (origins [H·W,3], dirs [H·W,3] normalized), row-major
+    with pixel (0,0) at the bottom left."""
+    f32 = torch.float32
+
+    def t(v):
+        return torch.as_tensor(v, dtype=f32, device=device)
+
+    eye = t(cam.eye)
+    direction = normalize(t(cam.center) - eye)
+    up = t(cam.up)
+    tan = 2.0 * torch.tan(t(cam.fovy) * np.float32(np.pi) / 360.0)
+    aspect = width / float(height)
+    horizontal = tan * aspect * normalize(torch.linalg.cross(direction, up))
+    vertical = torch.linalg.cross(horizontal, direction) / aspect
+    yy, xx = torch.meshgrid(torch.arange(height, dtype=f32, device=device),
+                            torch.arange(width, dtype=f32, device=device),
+                            indexing="ij")
+    px, py = xx.reshape(-1), yy.reshape(-1)
+    if jitter is None:
+        sx, sy = (px + 0.5) / width, (py + 0.5) / height
+    else:
+        sx, sy = (px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height
+    dirs = (direction[None, :] + (sx - 0.5)[:, None] * horizontal[None, :]
+            + (sy - 0.5)[:, None] * vertical[None, :])
+    dirs = normalize(dirs)
+    return eye[None, :].expand(dirs.shape), dirs

@@ -15,7 +15,6 @@ from instantvnr_torch.accel.macrocell import MacroCell
 from instantvnr_torch.models.metrics import decode_slab
 from instantvnr_torch.render.camera import Camera
 from instantvnr_torch.render.slabmarch import (
-    FALLBACK_ITEM,
     SlabSettings,
     camera_arrays,
     compute_gradient_volumes,
@@ -162,10 +161,9 @@ class DecodedRenderer:
         if not slab_path_valid(cam, self.volume_dims, axis, flipped,
                                self._scale_h,
                                aspect=self.width / float(self.height)):
-            raise NotImplementedError(
-                "degenerate camera for the slab path (the frustum looks "
-                "backward along the principal axis); its wavefront fallback "
-                "is not ported yet: " + FALLBACK_ITEM)
+            # degenerate camera (the frustum looks backward along the
+            # principal axis): the masked wavefront marches the grid instead
+            return self._render_fallback(cam)
         d_slab = self.decoded.shape[0 if axis == 2 else (1 if axis == 1 else 2)]
         occ = (slab_occupancy_from_macrocell(self.mc, axis, flipped, d_slab)
                if self.settings.skip_empty_slabs else None)
@@ -178,6 +176,33 @@ class DecodedRenderer:
             self.decoded, self.tf, camera_arrays(cam, self.device),
             self.width, self.height, self.settings, axis, flipped, occ,
             self.transform, grad, self.shadow_volume)
+        return self._frame
+
+    def _fallback_jitter(self) -> torch.Tensor:
+        """The fallback frame's per-ray jitter, from a generator seeded 0
+        on the grid's device (the JAX package draws it from PRNGKey(0))."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        return torch.rand((self.width * self.height,), generator=gen,
+                          dtype=torch.float32, device=self.device)
+
+    def _render_fallback(self, cam):
+        """One wavefront frame of the decoded grid, with the slab path's
+        rate, density and shading, so that a degenerate camera does not pop
+        to another look (JAX render/decoded.py:203)."""
+        from instantvnr_torch.render.raymarch import RaymarchSettings
+        from instantvnr_torch.render.renderer import (_render_frame,
+                                                      reference_sample_fn)
+
+        settings = RaymarchSettings(
+            sampling_rate=self.settings.sampling_rate,
+            density_scale=self.settings.density_scale,
+            shading=self.settings.shading,
+            shading_scale=self.settings.shading_scale,
+            light_dir=self.settings.light_dir)
+        _, self._frame = _render_frame(
+            reference_sample_fn, self.width, self.height, settings,
+            self.decoded, camera_arrays(cam, self.device), self.mc, self.tf,
+            self._fallback_jitter(), None, 1, self.transform)
         return self._frame
 
     def mapframe(self) -> np.ndarray:

@@ -12,10 +12,11 @@ pairs of render/slabmarch.py::_interp_pairs), then shade with the scivis
 model and warp to the screen. The isovalue is an argument of the sweep, so
 an edit rebuilds nothing.
 
-The brute-force first-hit marcher that the JAX package uses for degenerate
-cameras (render/isosurf.py:244-381, over ops/trilinear.py) is not ported
-and raises NotImplementedError naming its ROADMAP item; mesh extraction
-(ops/isosurface.py) is a later item as well.
+A degenerate camera (the frustum looks backward along the principal axis)
+has no slab factorization; there `brute_iso_render` marches each pixel's
+ray at fixed steps through the trilinear grid (ops/trilinear.py), finds the
+first crossing and refines it by bisection (JAX render/isosurf.py:245-381).
+Mesh extraction (ops/isosurface.py) is a later item.
 """
 from __future__ import annotations
 
@@ -24,10 +25,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from instantvnr_torch.render.camera import Camera
+from instantvnr_torch.render.camera import Camera, camera_rays
 from instantvnr_torch.render.raymarch import DEFAULT_LIGHT, _shade_scivis
 from instantvnr_torch.render.slabmarch import (
-    FALLBACK_ITEM,
     _coverage_masks,
     _final_warp,
     _per_slab_state,
@@ -38,6 +38,8 @@ from instantvnr_torch.render.slabmarch import (
     principal_axis,
     slab_path_valid,
 )
+from instantvnr_torch.utils.device import device_constant
+from instantvnr_torch.utils.math import ray_box_intersect
 from instantvnr_torch.utils.tfn import TransferFunction, classify_controls
 
 
@@ -47,6 +49,9 @@ class IsoSettings:
     shading_scale: float = 0.95  # scivis blend (as the volume modes)
     light_dir: tuple = DEFAULT_LIGHT  # instantvnr_types.h:148
     color: tuple | None = None  # fixed albedo; None → TF color at isovalue
+    # the brute-force marcher of degenerate cameras
+    sampling_rate: float = 2.0  # steps per voxel along the ray
+    n_refine: int = 8  # bisection iterations after the crossing
 
 
 def _albedo(tf: TransferFunction, isovalue, settings: IsoSettings,
@@ -157,6 +162,127 @@ def _shade_and_warp(found, hit_z, hit_g, tf, iso, settings, cam_arrays,
                        xform.scale)
 
 
+@torch.no_grad()
+def _brute_init(volume, cam_arrays, width: int, height: int, xform):
+    """Ray setup of the brute marcher: voxel-space rays (t world-metric),
+    the world directions and the clipped t range."""
+    from instantvnr_torch.render.transform import clip_bounds, rays_to_voxel
+
+    dev = volume.device
+    dz, dy, dx = volume.shape
+    dims_w = device_constant((float(dx), float(dy), float(dz)),
+                             torch.float32, dev)
+    cam = Camera(eye=cam_arrays[0], center=cam_arrays[1], up=cam_arrays[2],
+                 fovy=cam_arrays[3])
+    org_w, dir_w = camera_rays(cam, width, height, device=dev)
+    org, dirn = rays_to_voxel(xform, dims_w, org_w, dir_w)
+    lo, hi = clip_bounds(xform, dims_w)
+    t0, t1, hit = ray_box_intersect(org, dirn, lo, hi)
+    t0 = torch.where(hit, torch.clamp(t0, min=0.0), 1.0)
+    t1 = torch.where(hit, t1, 0.0)
+    return org, dirn, dir_w, t0, t1
+
+
+def _value_at(volume, org, dirn, t):
+    from instantvnr_torch.ops.trilinear import sample_volume_voxel
+
+    return sample_volume_voxel(volume, org + t[:, None] * dirn)
+
+
+@torch.no_grad()
+def _brute_march_chunk(volume, org, dirn, t0, t1, iso, step, carry,
+                       chunk: int, i0: int, n_steps: int):
+    """`chunk` fixed steps from global step i0: each tests the segment
+    [prev_t, min(t, t1)] for a sign change of value − iso and keeps the
+    first crossing's bracket. Steps past n_steps change nothing."""
+    prev_t, prev_v, found, ta, tb, va, vb = carry
+    for gi in range(i0, min(i0 + chunk, n_steps)):
+        t = t0 + (float(gi) + 1.0) * step
+        t_c = torch.minimum(t, t1)
+        # test the segment whenever it is non-empty: requiring t <= t1 would
+        # skip the final partial segment up to the clip exit
+        ok = prev_t < t1
+        v = _value_at(volume, org, dirn, t_c)
+        cross = ok & ~found & ((prev_v - iso) * (v - iso) <= 0.0)
+        ta = torch.where(cross, prev_t, ta)
+        tb = torch.where(cross, t_c, tb)
+        va = torch.where(cross, prev_v, va)
+        vb = torch.where(cross, v, vb)
+        found = found | cross
+        prev_t, prev_v = t_c, v
+    return prev_t, prev_v, found, ta, tb, va, vb
+
+
+@torch.no_grad()
+def brute_iso_render(volume: torch.Tensor, tf: TransferFunction, width: int,
+                     height: int, settings: IsoSettings, n_steps: int,
+                     cam_arrays, isovalue: float, xform=None,
+                     chunk: int = 16) -> torch.Tensor:
+    """The exact fallback: a per-pixel fixed-step first-hit march and a
+    bisection, → rgba [H·W, 4] (alpha the hit mask). Gather-bound (8 taps a
+    step a ray); the slab sweep is the fast path, this covers degenerate
+    cameras."""
+    from instantvnr_torch.render.transform import default_transform
+
+    dz, dy, dx = volume.shape
+    if xform is None:
+        xform = default_transform((dx, dy, dz), volume.device)
+    org, dirn, dir_w, t0, t1 = _brute_init(volume, cam_arrays, width, height,
+                                           xform)
+    iso = float(isovalue)
+    step = 1.0 * xform.scale.min() / settings.sampling_rate
+    r = org.shape[0]
+    zeros = torch.zeros((r,), dtype=torch.float32, device=volume.device)
+    v0 = _value_at(volume, org, dirn, t0)
+    carry = (t0, v0, torch.zeros((r,), dtype=torch.bool,
+                                 device=volume.device),
+             zeros, zeros, zeros, zeros)
+    for c in range(-(-n_steps // chunk)):
+        carry = _brute_march_chunk(volume, org, dirn, t0, t1, iso, step,
+                                   carry, chunk, c * chunk, n_steps)
+    _, _, found, ta, tb, va, vb = carry
+    return _brute_finish(volume, tf, settings, found, ta, tb, va, vb, org,
+                         dirn, dir_w, iso, cam_arrays, xform)
+
+
+@torch.no_grad()
+def _brute_finish(volume, tf, settings: IsoSettings, found, ta, tb, va, vb,
+                  org, dirn, dir_w, iso, cam_arrays, xform):
+    """Bisection refinement and shading of the brute march's crossings."""
+    from instantvnr_torch.ops.trilinear import sample_volume_voxel
+
+    for _ in range(settings.n_refine):
+        tm = 0.5 * (ta + tb)
+        vm = _value_at(volume, org, dirn, tm)
+        left = (va - iso) * (vm - iso) <= 0.0
+        ta, va, tb, vb = (torch.where(left, ta, tm), torch.where(left, va, vm),
+                          torch.where(left, tm, tb), torch.where(left, vm, vb))
+    denom = vb - va
+    frac = torch.where(torch.abs(denom) > 1e-12, (iso - va) / denom, 0.5)
+    t_hit = ta + torch.clamp(frac, 0.0, 1.0) * (tb - ta)
+    p = org + t_hit[:, None] * dirn  # voxel coords
+    dev = volume.device
+
+    def cd(axis_vec):  # central difference in voxel space
+        d = device_constant(axis_vec, torch.float32, dev)
+        return (sample_volume_voxel(volume, p + d)
+                - sample_volume_voxel(volume, p - d)) * 0.5
+
+    g = torch.stack([cd((1.0, 0.0, 0.0)), cd((0.0, 1.0, 0.0)),
+                     cd((0.0, 0.0, 1.0))], dim=-1)
+    normal = -g / xform.scale  # world space, through the diagonal scale
+    light = _flip_light(settings, cam_arrays)
+    base = _albedo(tf, iso, settings, dev).expand(org.shape[0], 3)
+    view = dir_w / torch.clamp(torch.linalg.vector_norm(dir_w, dim=-1,
+                                                        keepdim=True),
+                               min=1e-9)
+    shaded = _shade_scivis(view, normal, base, light_dir=light)
+    s_ = settings.shading_scale
+    color = torch.where(found[:, None], s_ * shaded + (1.0 - s_) * base,
+                        torch.zeros_like(shaded))
+    return torch.cat([color, found.to(torch.float32)[:, None]], dim=-1)
+
+
 class IsoRenderer:
     """Interactive isosurface viewer backend: holds the grid and its
     gradients, renders first-hit frames; isovalue edits rebuild nothing."""
@@ -203,10 +329,19 @@ class IsoRenderer:
         if not slab_path_valid(cam, self.volume_dims, axis, flipped,
                                self._scale_h,
                                aspect=self.width / float(self.height)):
-            raise NotImplementedError(
-                "degenerate camera for the slab sweep (the frustum looks "
-                "backward along the principal axis); its brute-force "
-                "first-hit marcher is not ported yet: " + FALLBACK_ITEM)
+            # degenerate camera: the brute-force first-hit marcher, over
+            # enough steps to cross the scaled volume's diagonal
+            scale_h = self._scale_h
+            diag = float(np.linalg.norm(
+                np.asarray(self.volume_dims, np.float32)
+                * np.maximum(scale_h, 1e-9)))
+            n_steps = int(np.ceil(diag * self.settings.sampling_rate
+                                  / max(float(scale_h.min()), 1e-9)))
+            self._frame = brute_iso_render(
+                self.grid, self.tf, self.width, self.height, self.settings,
+                n_steps, camera_arrays(cam, self.device), self.isovalue,
+                self.transform)
+            return self._frame
         if self._grads is None:
             self._grads = compute_gradient_volumes(self.grid)
         self._frame = slab_iso_render(

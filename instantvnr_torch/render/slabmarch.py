@@ -16,8 +16,8 @@ resampled with the same matrices, shaded with the scivis model) and/or a
 shadow volume (render/shadow.py); the CUDA kernels on the card, their plain
 versions on the CPU.
 
-The wavefront fallback for degenerate cameras is a later item of the port
-and raises NotImplementedError.
+A degenerate camera (`slab_path_valid` false) has no slab factorization;
+render/decoded.py marches it with the wavefront (render/raymarch.py).
 """
 from __future__ import annotations
 
@@ -32,12 +32,6 @@ from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
 from instantvnr_torch.render.transform import clip_bounds
 from instantvnr_torch.utils.math import normalize
 from instantvnr_torch.utils.tfn import TransferFunction
-
-# the ROADMAP item that ports the part of the slab path this module refuses
-FALLBACK_ITEM = ("ROADMAP 'Next slices' item 3 (exact marchers: "
-                 "render/raymarch.py, the wavefront fallback of degenerate "
-                 "slab cameras)")
-
 
 @dataclass(frozen=True)
 class SlabSettings:

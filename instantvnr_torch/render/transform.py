@@ -30,6 +30,15 @@ def default_transform(dims, device="cuda") -> VolumeTransform:
     )
 
 
+def rays_to_voxel(xform: VolumeTransform, dims, org_w, dir_w):
+    """World rays → voxel-space rays. dir_w is normalized; the returned
+    direction is not (|dir_v| = |S⁻¹·dir_w|), so `t` along the voxel-space
+    ray measures WORLD distance, as the reference marches the transformed,
+    unnormalized direction (method_raymarching.cu:520-521)."""
+    d = torch.as_tensor(dims, dtype=torch.float32, device=org_w.device)
+    return org_w / xform.scale + 0.5 * d, dir_w / xform.scale
+
+
 def clip_bounds(xform: VolumeTransform, dims):
     """Clip box intersected with the volume box, in voxel coords."""
     d = torch.as_tensor(dims, dtype=torch.float32, device=xform.scale.device)

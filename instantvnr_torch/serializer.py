@@ -14,7 +14,10 @@ Layout (`NeuralVolume::save_params_to_json`, core/network.cu:827-955):
 
 Keys are sorted at every level (nlohmann backs objects with std::map), so
 files are byte-identical to those the JAX package and the reference write.
-fV-SRN and native `.npz` checkpoints are later items of the port.
+
+Native `.npz` checkpoints (`save_native`/`load_native`) hold the whole
+training state in the JAX package's layout, so a file crosses between the
+packages with its Adam moments. fV-SRN documents are a later item.
 """
 from __future__ import annotations
 
@@ -169,3 +172,112 @@ def load_checkpoint_doc(root: dict, device="cuda"):
     params = params_from_numpy(unpack_params(field, blob), dev)
     meta = {"step": psec.get("step", 0), "loss": psec.get("loss", 0.0)}
     return field, params, mc, volume_dims, meta
+
+
+# ---------------------------------------------------------------------------
+# Native exact-resume checkpoints (.npz), the JAX package's layout
+# ---------------------------------------------------------------------------
+
+_FVSRN_ITEM = ("ROADMAP 'Next slices' item 5 (data and model breadth: "
+               "models/fvsrn.py)")
+
+
+def native_leaves(state) -> list:
+    """The leaves of a train state in the order jax.tree_util.tree_flatten
+    gives for the JAX package's TrainState(params, opt=AdamState(step, mu,
+    nu), key, loss): NamedTuple fields in order, dict keys sorted ("mlp"
+    before "table"), list items in order. So:
+
+        params.mlp[0..n-1], params.table,
+        opt.step,
+        opt.mu.mlp[0..n-1], opt.mu.table,
+        opt.nu.mlp[0..n-1], opt.nu.table,
+        key (uint32[2]), loss (float32 scalar)
+
+    numpy arrays, each with the JAX leaf's dtype. mu and nu share their
+    shapes, so a wrong order would load without an error:
+    tests/test_torch_native_ckpt.py holds this one to jax.tree_util."""
+    def tree(d):  # {"mlp": [...], "table": t} in sorted-key order
+        return [_np(w) for w in d["mlp"]] + [_np(d["table"])]
+
+    return (tree(state.params) + [np.asarray(state.opt.step, np.int32)]
+            + tree(state.opt.mu) + tree(state.opt.nu)
+            + [np.asarray(state.key, np.uint32).reshape(2),
+               np.asarray(_np(state.loss), np.float32).reshape(())])
+
+
+def save_native(path: str, field: NeuralField, state,
+                volume_dims=None) -> None:
+    """Write the whole TrainState (params, Adam moments, step, key, loss)
+    and the model config, as the JAX package does (`leaf_i`, `model_json`,
+    `volume_dims`), plus `torch_generator_state`, the port's sample stream,
+    which the JAX package's loader does not read."""
+    import json
+
+    arrs = {f"leaf_{i}": v for i, v in enumerate(native_leaves(state))}
+    arrs["model_json"] = np.frombuffer(
+        json.dumps(field.cfg.to_json()).encode(), np.uint8)
+    if volume_dims is not None:
+        arrs["volume_dims"] = np.asarray(volume_dims, np.int32)
+    arrs["torch_generator_state"] = state.generator.get_state().numpy()
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrs)
+
+
+def load_native(path: str, device="cuda"):
+    """→ (field, state, volume_dims) with the training state restored on
+    `device` (volume_dims None for files without it). The sample stream
+    resumes exactly from a file this package wrote on the same kind of
+    device; from a JAX file (or another device's) the generator is seeded
+    from the two key words instead, and the stream does not carry over."""
+    import json
+
+    from instantvnr_torch.config import model_config_from_dict
+    from instantvnr_torch.models.optimizer import AdamState
+    from instantvnr_torch.models.trainer import TrainState
+    from instantvnr_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    data = np.load(path)
+    doc = json.loads(bytes(data["model_json"]))
+    if isinstance(doc, dict) and doc.get("family") == "fvsrn":
+        raise NotImplementedError(
+            "fV-SRN native checkpoints are not ported yet: " + _FVSRN_ITEM)
+    field = NeuralField.from_config(model_config_from_dict(doc))
+    spec, net = field.spec, field.cfg.network
+    widths = ([spec.n_output_dims] + [net.n_neurons] * net.n_hidden_layers
+              + [field.n_output_dims])
+    tree_shapes = ([(a, b) for a, b in zip(widths[:-1], widths[1:])]
+                   + [(spec.n_entries, spec.n_features)])
+    shapes = tree_shapes + [()] + tree_shapes * 2 + [(2,), ()]
+    leaves = []
+    for i, shape in enumerate(shapes):
+        arr = data[f"leaf_{i}"]
+        if arr.shape != shape:
+            raise ValueError(f"checkpoint leaf {i} shape {arr.shape} != "
+                             f"model {shape}")
+        leaves.append(arr)
+    n = len(tree_shapes)
+
+    def tree(ls):
+        ts = [torch.tensor(np.asarray(a, np.float32), device=dev) for a in ls]
+        return {"table": ts[-1], "mlp": ts[:-1]}
+
+    params = tree(leaves[:n])
+    opt = AdamState(step=int(leaves[n]), mu=tree(leaves[n + 1:2 * n + 1]),
+                    nu=tree(leaves[2 * n + 1:3 * n + 1]))
+    key = tuple(int(k) for k in np.asarray(leaves[-2], np.uint32))
+    gen = torch.Generator(device=dev)
+    stored = (data["torch_generator_state"]
+              if "torch_generator_state" in data else None)
+    if stored is not None and stored.size == gen.get_state().numel():
+        gen.set_state(torch.from_numpy(np.array(stored, np.uint8)))
+    else:
+        gen.manual_seed((key[0] << 32) | key[1])
+    state = TrainState(params=params, opt=opt, generator=gen,
+                       loss=torch.tensor(float(leaves[-1]),
+                                         dtype=torch.float32, device=dev),
+                       key=key)
+    dims = (tuple(int(d) for d in data["volume_dims"])
+            if "volume_dims" in data else None)
+    return field, state, dims

@@ -602,3 +602,110 @@ def test_hash_forward_kernel_at_schema_layouts(cuda, b, log2, n_features,
     atol = 1e-5 if compute == "float32" else 1e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                ref.float().cpu().numpy(), atol=atol, rtol=0)
+
+
+def _wavefront_rays(device, w, h, dims=(128, 128, 128)):
+    """The rays of a w × h frame over a vorts volume (the bench camera),
+    voxel space, with the ground truth's macrocell."""
+    from instantvnr_torch import api
+    from instantvnr_torch.render.camera import Camera
+    from instantvnr_torch.render.renderer import _frame_rays
+    from instantvnr_torch.render.slabmarch import camera_arrays
+
+    sv = api.SimpleVolume.synthetic(dims, "vorts", device=device)
+    d = max(dims)
+    cam = Camera(eye=(0.15 * d, 0.1 * d, -2.0 * d), center=(0.0, 0.0, 0.0),
+                 up=(0.0, 1.0, 0.0), fovy=45.0)
+    org, dirn, t0, t1, light, lo, hi = _frame_rays(
+        w, h, camera_arrays(cam, device),
+        torch.tensor(dims, dtype=torch.float32, device=device),
+        torch.tensor([0.7, 0.9, 0.4], device=device), sv.transform)
+    return sv, org, dirn, t0, t1, light
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (300, 167)])
+@pytest.mark.parametrize("k,skips", [(8, 8), (16, 8), (8, 1), (16, 1)])
+def test_raymarch_emit_kernel_matches_plain(cuda, w, h, k, skips):
+    """raymarch_emit against the plain _emit_samples on the rays of a
+    frame (R = 2^18 at 512², and a ragged R), three supersteps each from
+    the carried state: equal bit for bit (IEEE division, floorf, no FMA, the
+    same order of operations). One launch per call."""
+    from instantvnr_torch.render import raymarch as rm
+
+    sv, org, dirn, t0, t1, _ = _wavefront_rays(cuda, w, h)
+    state = rm.init_ray_state(t0, t1)
+    emitted = 0
+    for _ in range(3):
+        before = rm.emit_counter.launches
+        got = rm.raymarch_emit(org, dirn, t1, state, sv.macrocell, 1.0, k,
+                               skips)
+        torch.cuda.synchronize()
+        assert rm.emit_counter.launches == before + 1
+        ref = rm._emit_samples(org, dirn, t1, state, sv.macrocell, 1.0, k,
+                               skips)
+        for g, r in zip(got[0] + got[1:], ref[0] + ref[1:]):
+            assert torch.equal(g, r)
+        emitted += int(ref[3].sum())
+        state = state._replace(t=ref[0][0], t_cell_end=ref[0][1],
+                               ss=ref[0][2])
+    assert emitted > 1000
+
+
+@pytest.mark.parametrize("shading,neural", [("none", True), ("ssh", False)])
+def test_wavefront_frame_on_card_matches_cpu(cuda, shading, neural):
+    """A NEURAL_WAVEFRONT frame (a 2-level model, seeded weights) and a
+    REFERENCE_SSH frame of a 32³ volume, 48², on the card against the
+    CPU, from the same rays and jitter: the emission is exact on both, so
+    the frames part only by the sample values: the fused MLP's tolerance
+    (atol 2e-2, mean 1e-3) for the network, 1e-4 for the trilinear ground
+    truth (pow and exp of the two devices' libraries)."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import (NeuralField,
+                                                 params_from_numpy,
+                                                 render_params)
+    from instantvnr_torch.render import raymarch as rm
+    from instantvnr_torch.render.renderer import (make_neural_sample_fn,
+                                                  reference_sample_fn)
+
+    frames = []
+    jitter = torch.rand(48 * 48, generator=torch.Generator().manual_seed(3))
+    field = NeuralField.from_config(ModelConfig(
+        encoding=EncodingConfig(n_levels=2, n_features_per_level=4,
+                                log2_hashmap_size=10),
+        network=NetworkConfig(n_neurons=16, n_hidden_layers=2)))
+    rng = np.random.default_rng(8)
+    params_np = {
+        "table": rng.uniform(-0.5, 0.5, (field.spec.n_entries, 4)
+                             ).astype(np.float32),
+        "mlp": [(rng.standard_normal(s) * np.sqrt(2.0 / s[0])).astype(
+            np.float32) for s in ((8, 16), (16, 16), (16, 1))]}
+    for dev in ("cpu", cuda):
+        sv, org, dirn, t0, t1, light = _wavefront_rays("cpu", 48, 48,
+                                                       (32, 32, 32))
+        if dev != "cpu":
+            sv = type(sv)(sv.volume, device=dev)
+            org, dirn, t0, t1, light = (x.to(dev) for x in
+                                        (org, dirn, t0, t1, light))
+        if neural:
+            ctx = render_params(params_from_numpy(params_np, dev), field)
+            fn = make_neural_sample_fn(field)
+            sample = lambda p, fn=fn, ctx=ctx: fn(ctx, p)  # noqa: E731
+        else:
+            vol = sv.volume.data
+            sample = lambda p, vol=vol: reference_sample_fn(vol, p)  # noqa
+        before = rm.emit_counter.launches
+        rgba = rm.raymarch(sample, org, dirn, t0, t1, sv.macrocell, sv.tf,
+                           jitter.to(dev), rm.RaymarchSettings(
+                               shading=shading, n_iters=8),
+                           light_dir=light, scale=sv.transform.scale)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert rm.emit_counter.launches > before
+        frames.append(rgba.cpu().numpy())
+    cpu, card = frames
+    assert cpu[:, 3].max() > 0.05
+    if neural:
+        np.testing.assert_allclose(card, cpu, atol=2e-2, rtol=0)
+        assert np.abs(card - cpu).mean() <= 1e-3
+    else:
+        np.testing.assert_allclose(card, cpu, atol=1e-4, rtol=0)

@@ -23,6 +23,7 @@ from instantvnr_torch.ops import fused_mlp as fm
 from instantvnr_torch.ops import hash_encoding as he
 from instantvnr_torch.ops import iso_sweep as isw
 from instantvnr_torch.ops import slab_composite as sc
+from instantvnr_torch.render import raymarch as rm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "instantvnr_tpu")
@@ -53,6 +54,10 @@ def _imported_roots(path):
 def test_port_never_imports_jax_or_the_reference():
     files = _port_sources()
     assert len(files) > 20 and os.path.exists(files[-1])
+    names = {os.path.relpath(p, ROOT) for p in files}
+    assert {os.path.join("instantvnr_torch", "bench.py"),
+            os.path.join("instantvnr_torch", "apps", "vnr_cmd_render.py"),
+            os.path.join("instantvnr_torch", "render", "renderer.py")} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert bad == []
@@ -80,20 +85,23 @@ def test_unported_modes_raise_naming_roadmap():
                                               log2_hashmap_size=8),
                       network=cfg.network)
     nv = api.NeuralVolume(cfg, dims=(16, 16, 16), device="cpu")
-    for mode in (api.RenderMode.NEURAL_WAVEFRONT,
-                 api.RenderMode.FULL_SHADOW_REFERENCE,
-                 api.RenderMode.PATHTRACE_DECODED):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.VNRenderer(nv, 8, 8, mode)
+    # the path tracer, and the neural wavefront's streaming caches (its
+    # default "auto" included), are ROADMAP item 3b
+    for mode in (api.RenderMode.PATHTRACE_DECODED,
+                 api.RenderMode.PATHTRACE_NEURAL):
+        with pytest.raises(NotImplementedError, match="item 3b"):
+            api.VNRenderer(nv, 8, 8, mode, streaming_cache="none")
+    with pytest.raises(NotImplementedError, match="item 3b"):
+        api.VNRenderer(nv, 8, 8, api.RenderMode.NEURAL_WAVEFRONT)
+    # the ground-truth modes need a SimpleVolume
+    with pytest.raises(ValueError, match="SimpleVolume"):
+        api.VNRenderer(nv, 8, 8, api.RenderMode.FULL_SHADOW_REFERENCE)
     r = api.VNRenderer(nv, 8, 8)
-    # training is ported; native .npz checkpoints are not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nv.save_params("unported.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nv.set_params("unported.npz")
+    # native .npz checkpoints are ported; fV-SRN documents are item 5
+    # (tests/test_torch_native_ckpt.py)
     # an eye inside the volume looking back along the principal axis has
-    # no slab factorization; neither the slab path's wavefront fallback
-    # nor the isosurface's brute-force marcher is ported
+    # no slab factorization: the slab path's wavefront fallback and the
+    # isosurface's brute-force marcher render it
     from instantvnr_torch.render.camera import Camera
 
     back = Camera(eye=(0.0, 0.0, 2.0), center=(0.0, 0.0, 6.0), up=(0, 1, 0),
@@ -101,8 +109,8 @@ def test_unported_modes_raise_naming_roadmap():
     r_iso = api.VNRenderer(nv, 8, 8, api.RenderMode.ISOSURFACE_DECODED)
     for renderer in (r, r_iso):
         renderer.set_camera(back)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            renderer.render()
+        renderer.render()
+        assert np.isfinite(renderer.mapframe()).all()
     # the decoded-slab knobs belong to DECODED_SLAB
     with pytest.raises(ValueError, match="DECODED_SLAB"):
         r_iso.set_slab_shading("gradient")
@@ -120,7 +128,7 @@ def test_cpu_wrappers_never_build(monkeypatch):
     x = torch.from_numpy(rng.standard_normal((33, 16)).astype(np.float32))
     counters = (fm.counter, fm.train_forward_counter, fm.backward_counter,
                 he.counter, he.backward_counter, sc.counter, sc.ext_counter,
-                isw.counter)
+                isw.counter, rm.emit_counter)
     before = [c.launches for c in counters]
     y = fm.fused_mlp_apply(ws, x, NetworkConfig(n_neurons=16,
                                                 n_hidden_layers=1))
@@ -164,6 +172,19 @@ def test_cpu_wrappers_never_build(monkeypatch):
                                         0.5)
     assert found.shape == hit_z.shape == (hi, wi) and hit_g.shape == (hi, wi,
                                                                      3)
+    # the wavefront's emission: the plain _emit_samples
+    from instantvnr_torch.accel import macrocell as mcmod
+
+    mc = mcmod.build(torch.rand((20, 20, 20)), (20, 20, 20))
+    mc = mcmod.MacroCell(mc.value_lo, mc.value_hi,
+                         torch.ones_like(mc.value_lo), mc.volume_dims)
+    r = 40
+    org = torch.full((r, 3), -5.0)
+    dirn = torch.nn.functional.normalize(torch.rand((r, 3)) + 0.5, dim=-1)
+    state = rm.init_ray_state(torch.full((r,), 5.0), torch.full((r,), 30.0))
+    _, t_x, t_y, valid = rm.raymarch_emit(org, dirn, torch.full((r,), 30.0),
+                                          state, mc, 1.0, 8, 8)
+    assert t_x.shape == t_y.shape == valid.shape == (r, 8) and valid.any()
     assert [c.launches for c in counters] == before
 
 
@@ -185,12 +206,12 @@ def test_loader_is_lazy():
                    timeout=120)
     srcs = [os.path.basename(p) for p in cuda_lib._sources()]
     assert {"fused_mlp.cu", "hash_encode.cu", "slab_composite.cu",
-            "iso_sweep.cu"} <= set(srcs)
+            "iso_sweep.cu", "raymarch_emit.cu"} <= set(srcs)
     assert set(cuda_lib.SIGNATURES) == {
         "fused_mlp_forward", "fused_mlp_train_forward", "fused_mlp_backward",
         "hash_encode_forward", "hash_encode_backward",
         "slab_composite_forward", "slab_composite_ext_forward",
-        "iso_sweep_forward"}
+        "iso_sweep_forward", "raymarch_emit"}
 
 
 def test_ctypes_signatures_match_sources():
