@@ -24,6 +24,15 @@ points:
   launches and the device's busy time of a profiled frame; the same modes
   small on the card against the CPU; a degenerate camera in DECODED_SLAB
   (wavefront fallback) and ISOSURFACE_DECODED (brute-force marcher);
+- the path tracer and the brick cache: pt_track and pt_resolve against
+  their plain versions on a 512² frame's rays (after the first event and
+  a later one), brick_sample against its plain version on a superstep's
+  samples from four pools (f16 and f32, ss = 1 and 2); PATHTRACE_REFERENCE,
+  _DECODED and _NEURAL at 512² (progressive frames, events, launches, a
+  profiled frame, the mean against a longer run's); the brick wavefront
+  (NEURAL_WAVEFRONT, _GRADIENT and _SSH on the default streaming_cache
+  "auto", and "hq" and "lazy") at 512²; small path-traced frames on the
+  card against the CPU from one uniform stream;
 - checkpoints and CLI: a native .npz round trip that resumes exactly, and
   the port's CLI in-process (train → .npz → render → view_model);
 - training: NeuralVolume.train(1000) at B = 2^16 on the 2^14 layout (PSNR
@@ -141,6 +150,39 @@ WAVEFRONT_MODES = ("NEURAL_WAVEFRONT", "NEURAL_WAVEFRONT_GRADIENT",
 # move far: the pixels within 5e-3 of the CPU's must be at least
 # WAVEFRONT_SHARE_MIN of the frame (2 of 1,480 parted in PR 7's run)
 WAVEFRONT_SHARE_MIN = 0.99
+# the path tracer (render/pathtrace.py): its three modes, the progressive
+# frames a mode is timed over and the longer run its mean is held to
+# (PT_MEAN_BAND of the longer mean: the MC noise of a 512² frame's mean is
+# well under 1%); pt_kernels compares at the first event and at
+# PT_LATE_EVENT (shadow rays in flight); pt_resolve's floats within
+# PT_RESOLVE_RTOL of max(1, |x|) (log1pf, sinf and cosf of two builds of
+# the CUDA math library); small frames on the card against the CPU: at
+# least PT_SHARE_MIN of the pixels within PT_PIXEL_TOL (a path parts where
+# those functions, or the network's bf16 rounding, differ)
+PT_MODES = ("PATHTRACE_REFERENCE", "PATHTRACE_DECODED", "PATHTRACE_NEURAL")
+PT_FRAMES, PT_LONG_FRAMES, PT_MEAN_BAND = 4, 12, 0.05
+PT_LATE_EVENT = 12
+PT_RESOLVE_RTOL = 1e-6
+PT_PIXEL_TOL, PT_SHARE_MIN = 1e-5, 0.99
+# f32 operations for the bounds: a tracking probe of pt_track (the probe
+# point 7, per axis its cell 3 and exit 11, the flat index 10, majorant,
+# clamps and the crossing test 10), pt_resolve's control chain a segment
+# (sub, div, 2 clamps, 4 × sub, mul, add) and the rest of its event
+# (classification set-up 4, decisions 10, radiance 12, the sphere ~50 with
+# sin and cos, roulette 10, phase 6, restart ~30), brick_sample a sample
+# (per axis ~15, weights 22, the sum 15)
+PT_PROBE_OPS, PT_CONTROL_OPS, PT_RESOLVE_OPS = 60, 16, 122
+BRICK_SAMPLE_OPS = 82
+# brick_sample's pools: (name, dtype, supersample, lattice)
+BRICK_POOLS = (("f16,ss1,exact", "float16", 1, "exact"),
+               ("f32,ss1,decoded", "float32", 1, "decoded"),
+               ("f16,ss2,exact", "float16", 2, "exact"),
+               ("f32,ss2,exact", "float32", 2, "exact"))
+# the brick wavefront: (mode, streaming_cache)
+BRICK_WAVEFRONT = (("NEURAL_WAVEFRONT", "auto"),
+                   ("NEURAL_WAVEFRONT_GRADIENT", "auto"),
+                   ("NEURAL_WAVEFRONT_SSH", "auto"),
+                   ("NEURAL_WAVEFRONT", "hq"), ("NEURAL_WAVEFRONT", "lazy"))
 # an .npz resume on the card: params and moments after one more step, as a
 # share of each array's largest entry (K4's atomics sum in a varying order)
 NPZ_RTOL = 1e-5
@@ -1414,9 +1456,11 @@ def phase_breakdown(torch, nv, renderer, r_iso):
 
 def counters():
     """Every kernel's launch counter, by kernel name."""
+    from instantvnr_torch.ops import brick_sample as bs
     from instantvnr_torch.ops import fused_mlp as fm
     from instantvnr_torch.ops import hash_encoding as he
     from instantvnr_torch.ops import iso_sweep as isw
+    from instantvnr_torch.ops import pathtrace as opt
     from instantvnr_torch.ops import slab_composite as sc
     from instantvnr_torch.render import raymarch as rm
 
@@ -1427,7 +1471,8 @@ def counters():
             "hash_encode_backward": he.backward_counter,
             "composite_slabs": sc.counter,
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter,
-            "raymarch_emit": rm.emit_counter}
+            "raymarch_emit": rm.emit_counter, "pt_track": opt.track_counter,
+            "pt_resolve": opt.resolve_counter, "brick_sample": bs.counter}
 
 
 def decode_launches(torch, fn):
@@ -1871,6 +1916,439 @@ def phase_cli(torch, tmp):
         raise AssertionError(f"cli: {rec}")
 
 
+def pt_frame_state(torch, sv, n_events):
+    """The tracker's state on a 512² frame's rays (orbit camera 1 over the
+    main path's volume, brick pool of the grid, seeded draws) after
+    n_events events, and the frame's constants."""
+    from instantvnr_torch.render import pathtrace as tpt
+    from instantvnr_torch.render.brickcache import (
+        brick_sample_fn, build_brick_cache_from_grid)
+    from instantvnr_torch.render.renderer import _frame_rays
+    from instantvnr_torch.render.slabmarch import camera_arrays
+
+    dev = sv.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    settings = tpt.PathTraceSettings()
+    jitter = torch.rand((SIZE * SIZE, 2), generator=gen, device=dev)
+    org, dirn, t0, t1, light, lo, hi = _frame_rays(
+        SIZE, SIZE, camera_arrays(orbit(1, N_FRAMES, max(DIMS)), dev),
+        torch.tensor(sv.dims, dtype=torch.float32, device=dev),
+        torch.tensor(settings.light_dir, device=dev), sv.transform,
+        jitter=jitter)
+    mc, tf = sv.macrocell, sv.tf
+    consts = tpt._pt_consts(mc, tf, settings, light, sv.transform.scale, lo,
+                            hi)
+    ctx = build_brick_cache_from_grid(sv.volume.data, mc)
+    uni = tpt.TorchUniforms(gen)
+    r = org.shape[0]
+    st = tpt.init_pt_state(org, dirn, t0, t1,
+                           -torch.log1p(-uni.tau(r, dev)))
+    for _ in range(n_events):
+        st = tpt._pt_event(lambda p: brick_sample_fn(ctx, p), settings, mc,
+                           consts, st, uni.event(r, dev))
+    return st, consts, ctx, uni, settings
+
+
+def bits_equal(torch, a, b):
+    """Bitwise equality (NaN included) of two tensors of one dtype."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def phase_pt_kernels(torch, sv):
+    """pt_track and pt_resolve against their plain versions on a 512²
+    frame's rays (R = 2^18), from the state after the first event and
+    after PT_LATE_EVENT events (shadow rays in flight): pt_track bit for
+    bit; pt_resolve's decisions bit for bit and its floats within
+    PT_RESOLVE_RTOL (log1pf / sinf / cosf), with the share of rays whose
+    floats differ at all. Device times, plain times and the bound from this
+    run's bytes (the kernels' operations, ~60 a probe, stay under them)."""
+    from instantvnr_torch.ops import pathtrace as opt
+    from instantvnr_torch.render.brickcache import brick_sample_fn
+
+    recs = {}
+    mc = sv.macrocell
+    for n_events in (1, PT_LATE_EVENT):
+        st, consts, ctx, uni, settings = pt_frame_state(torch, sv, n_events)
+        r = st.org.shape[0]
+        track_args = (st.org, st.dirn, st.t, st.t_far, st.tau,
+                      mc.max_opacity, mc.volume_dims, settings.density_scale,
+                      settings.cell_skips)
+        track = opt.pt_track(*track_args)
+        track_ref = opt.pt_track_reference(*track_args)
+        values = brick_sample_fn(ctx, track[5])
+        u = uni.event(r, sv.device)
+        res_args = (st.org, st.dirn, st.t_far, st.throughput, st.radiance,
+                    st.scatter_index, st.shadow, st.active, *track[:5],
+                    values, u, consts.ctrl, consts.lut, consts.vec,
+                    settings.density_scale, settings.light_ambient)
+        res = opt.pt_resolve(*res_args)
+        res_ref = opt.pt_resolve_reference(*res_args)
+        torch.cuda.synchronize()
+        track_same = all(bits_equal(torch, a, b)
+                         for a, b in zip(track, track_ref))
+        decisions = all(torch.equal(res[i], res_ref[i]) for i in (7, 8, 9))
+        floats = range(7)
+        err = max(float(((res[i] - res_ref[i]).abs()
+                         / torch.clamp(res_ref[i].abs(), min=1.0)).max())
+                  for i in floats)
+        differ = torch.zeros(r, dtype=torch.bool, device=sv.device)
+        for i in floats:
+            d = res[i] != res_ref[i]
+            differ |= d if d.dim() == 1 else d.any(-1)
+        shadow_rays = int((st.shadow & st.active).sum())
+        track_bytes = (nbytes(st.org, st.dirn, st.t, st.t_far, st.tau,
+                              mc.max_opacity) + nbytes(*track))
+        probes = r * (settings.cell_skips + 1)
+        tb_ms, tb_by = bound_ms(track_bytes, probes * PT_PROBE_OPS,
+                                H100_FP32_FLOPS)
+        res_bytes = (nbytes(*[a for a in res_args[:15]], consts.ctrl,
+                            consts.vec) + nbytes(*res))
+        ops = r * (PT_CONTROL_OPS * (consts.ctrl.shape[0] - 1)
+                   + PT_RESOLVE_OPS)
+        rb_ms, rb_by = bound_ms(res_bytes, ops, H100_FP32_FLOPS)
+        rec = {"phase": f"pt_kernels[event {n_events}]", "rays": r,
+               "active": int(st.active.sum()), "shadow_rays": shadow_rays,
+               "pt_track": {
+                   "same_bits": track_same, "max_abs_err": max(
+                       float((a.float() - b.float()).abs().max())
+                       for a, b in zip(track, track_ref)),
+                   "ms": device_ms(torch, lambda: opt.pt_track(*track_args),
+                                   ("pt_track_kernel",)),
+                   "call_ms": cuda_ms(torch,
+                                      lambda: opt.pt_track(*track_args)),
+                   "plain_ms": cuda_ms(
+                       torch, lambda: opt.pt_track_reference(*track_args),
+                       iters=5, warmup=1),
+                   "bound_ms": tb_ms, "bound_by": tb_by,
+                   "mbytes": track_bytes / 1e6, "library_ms": None},
+               "pt_resolve": {
+                   "decisions_equal": decisions, "max_rel_err": err,
+                   "tol": PT_RESOLVE_RTOL,
+                   "rays_with_any_float_differing": int(differ.sum()),
+                   "share_bit_equal": 1.0 - float(differ.float().mean()),
+                   "max_abs_err": max(float((res[i] - res_ref[i]).abs().max())
+                                      for i in floats),
+                   "ms": device_ms(torch, lambda: opt.pt_resolve(*res_args),
+                                   ("pt_resolve_kernel",)),
+                   "call_ms": cuda_ms(torch,
+                                      lambda: opt.pt_resolve(*res_args)),
+                   "plain_ms": cuda_ms(
+                       torch, lambda: opt.pt_resolve_reference(*res_args),
+                       iters=5, warmup=1),
+                   "bound_ms": rb_ms, "bound_by": rb_by,
+                   "mbytes": res_bytes / 1e6, "library_ms": None}}
+        log(rec)
+        if (not track_same or not decisions or not err <= PT_RESOLVE_RTOL
+                or (n_events > 1 and shadow_rays == 0)):
+            raise AssertionError(f"pt kernels differ from their plain "
+                                 f"versions: {rec}")
+        recs[n_events] = rec
+    return recs
+
+
+def superstep_samples(torch, sv):
+    """The positions a brick-wavefront superstep samples: the valid slots
+    of the first superstep of a 512² orbit frame (n_iters = 8, 1 skip),
+    and 1% more points anywhere (misses included)."""
+    from instantvnr_torch.render import raymarch as rm
+
+    org, dirn, t0, t1, _ = wavefront_rays(torch, sv, SIZE, SIZE,
+                                          orbit(1, N_FRAMES, max(DIMS)))
+    state = rm.init_ray_state(t0, t1)
+    _, t_x, t_y, valid = rm.raymarch_emit(org, dirn, t1, state, sv.macrocell,
+                                          1.0, 8, 1)
+    gen = torch.Generator(device=sv.device).manual_seed(SEED)
+    jit = torch.rand(t0.shape, generator=gen, device=sv.device)
+    t_s = t_x + jit[:, None] * (t_y - t_x)
+    pos = (org[:, None, :] + t_s[..., None] * dirn[:, None, :]) / torch.tensor(
+        sv.dims, dtype=torch.float32, device=sv.device)
+    pos = pos.reshape(-1, 3)[valid.reshape(-1)]
+    extra = torch.rand((pos.shape[0] // 100, 3), generator=gen,
+                       device=sv.device)
+    return torch.cat([pos, extra]).contiguous()
+
+
+def touched_sectors(torch, ctx, p):
+    """The distinct 32-byte sectors of pool rows the samples read (the
+    bytes the function needs from the pool; a miss reads no row)."""
+    from instantvnr_torch.ops.brick_sample import _rows
+
+    slot, idx, _ = _rows(ctx["lut"], p, ctx["dims"], ctx["mcdims"],
+                         ctx["ss"])
+    row_bytes = 8 * ctx["packed"].element_size()
+    return int(torch.unique(idx[slot >= 0] * row_bytes // 32).numel())
+
+
+def phase_brick_sample(torch, nv):
+    """brick_sample against its plain version on a superstep's samples
+    (BRICK_POOLS: f16 and f32 pools, ss = 1 and 2, the 2^19 model's decode
+    into them through K3 and K1), misses included (every 7th macrocell
+    taken out of the LUT): bit for bit. The bound
+    from the bytes this data needs: the samples, the LUT, the distinct
+    32-byte sectors of pool rows read and the values."""
+    from instantvnr_torch.models.network import render_params
+    from instantvnr_torch.ops import brick_sample as bs
+    from instantvnr_torch.render.brickcache import build_brick_cache
+
+    sv = nv.simple
+    p = superstep_samples(torch, sv)
+    params = render_params(nv.params, nv.field)
+    recs = {}
+    for name, dtype, ss, conv in BRICK_POOLS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx = build_brick_cache(nv.field, params, sv.macrocell,
+                                dtype=getattr(torch, dtype), supersample=ss,
+                                convention=conv)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        lut = ctx["lut"].clone()
+        lut[::7] = -1
+        ctx["lut"] = lut
+        args = (lut, ctx["packed"], p, ctx["dims"], ctx["mcdims"], ss)
+        got = bs.brick_sample(*args)
+        ref = bs.brick_sample_reference(*args)
+        torch.cuda.synchronize()
+        sectors = touched_sectors(torch, ctx, p)
+        n_bytes = nbytes(p, ctx["lut"]) + 32 * sectors + 4 * p.shape[0]
+        b_ms, b_by = bound_ms(n_bytes, p.shape[0] * BRICK_SAMPLE_OPS,
+                              H100_FP32_FLOPS)
+        rec = {"phase": f"brick_sample[{name}]", "samples": p.shape[0],
+               "misses": int((ref == 0).sum()), "pool_bytes": nbytes(
+                   ctx["packed"]), "build_ms": build_ms,
+               "distinct_sectors": sectors, "same_bits": torch.equal(got, ref),
+               "max_abs_err": float((got - ref).abs().max()),
+               "tol": "bit for bit",
+               "ms": device_ms(torch, lambda: bs.brick_sample(*args),
+                               ("brick_sample_kernel",)),
+               "call_ms": cuda_ms(torch, lambda: bs.brick_sample(*args)),
+               "plain_ms": cuda_ms(
+                   torch, lambda: bs.brick_sample_reference(*args), iters=5,
+                   warmup=1),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "mbytes": n_bytes / 1e6}
+        log(rec)
+        del ctx
+        if not rec["same_bits"] or rec["misses"] == 0:
+            raise AssertionError(f"brick_sample differs from its plain "
+                                 f"version: {rec}")
+        recs[name] = rec
+    return recs
+
+
+def profiled_frame(torch, r, render):
+    """One frame under torch.profiler: the host's wall time against the
+    device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(kernel_us(e) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            **r.last_stats}
+
+
+def run_pathtrace_mode(torch, nv, mode):
+    """PT_FRAMES progressive frames of one path-tracing mode at SIZE² on
+    orbit camera 0 (each timed from render() to the device's end), the
+    launch counts from 0 before and read after; one more frame profiled;
+    then PT_LONG_FRAMES more for the longer run's mean."""
+    from instantvnr_torch import api
+
+    t0 = time.perf_counter()
+    r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode[mode])
+    r.set_camera(orbit(0, N_FRAMES, max(DIMS)))
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    for c in counters().values():
+        c.reset()
+    frame_ms, events = [], []
+    for _ in range(PT_FRAMES):
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append(r.last_stats["events"])
+    launches = {n: c.launches for n, c in counters().items()}
+    frame = r.mapframe()
+    if frame.shape != (SIZE, SIZE, 4) or not np.isfinite(frame).all():
+        raise AssertionError(f"{mode}: bad shape or non-finite frame")
+    prof = profiled_frame(torch, r, r.render)
+    mean_short = float(frame[..., :3].mean())
+    for _ in range(PT_LONG_FRAMES):
+        r.render()
+    long = r.mapframe()
+    mean_long = float(long[..., :3].mean())
+    return {"phase": f"pathtrace[{mode}]", "frames": PT_FRAMES,
+            "setup_ms": setup_ms, "frame_ms": frame_ms,
+            "ms_per_frame": float(np.mean(frame_ms[1:])), "events": events,
+            "launches": launches, "profiled_frame": prof,
+            "alpha_mean": float(frame[..., 3].mean()),
+            "rgb_mean": mean_short,
+            "rgb_mean_after": {"frames": r._impl.frame_index,
+                               "rgb_mean": mean_long},
+            "mean_band": PT_MEAN_BAND}
+
+
+def phase_pathtrace(torch, nv):
+    """The three path-tracing modes at SIZE² on the main path's volume and
+    2^19 model: every event one pt_track and one pt_resolve launch; the
+    grid modes' samples one brick_sample launch an event (the grid's brick
+    pool), PATHTRACE_NEURAL's through K3 and K1 (one each an event with
+    candidates), no other kernel."""
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    for mode in PT_MODES:
+        rec = run_pathtrace_mode(torch, nv, mode)
+        log(rec)
+        ln = rec["launches"]
+        n_ev = sum(rec["events"])
+        neural = mode == "PATHTRACE_NEURAL"
+        sampler = ({"fused_mlp", "hash_encode_forward"} if neural
+                   else {"brick_sample"})
+        others = {n: v for n, v in ln.items()
+                  if n not in sampler | {"pt_track", "pt_resolve"}}
+        ok = (ln["pt_track"] == ln["pt_resolve"] == n_ev
+              and not any(others.values())
+              and all(0 < ln[s] <= n_ev for s in sampler)
+              and (not neural or ln["fused_mlp"] == ln["hash_encode_forward"])
+              and (neural or ln["brick_sample"] == n_ev)
+              and rec["alpha_mean"] > 0.05
+              and abs(rec["rgb_mean"] - rec["rgb_mean_after"]["rgb_mean"])
+              <= PT_MEAN_BAND * rec["rgb_mean_after"]["rgb_mean"])
+        if not ok:
+            raise AssertionError(f"{mode}: wrong launches, an empty frame or "
+                                 f"a mean out of its band: {rec}")
+        recs.append(rec)
+    log({"phase": "pathtrace_memory",
+         "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    return recs
+
+
+def phase_brick_wavefront(torch, nv):
+    """NEURAL_WAVEFRONT, _GRADIENT and _SSH on the default streaming_cache
+    ("auto"), and "hq" and "lazy" on NEURAL_WAVEFRONT, at SIZE² on the
+    main path's 2^19 model: the pool's build (K3 and K1), its bytes and
+    dtype, streaming_cache_info, and WAVEFRONT_FRAMES orbit frames whose
+    samples all go through brick_sample (one emission a superstep, no
+    network launch)."""
+    from instantvnr_torch import api
+
+    recs = []
+    for mode, policy in BRICK_WAVEFRONT:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode[mode],
+                           streaming_cache=policy)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        ctx = r._brick_ctx()
+        for c in counters().values():
+            c.reset()
+        frame_ms, supersteps, alpha_max = [], [], []
+        for i in range(WAVEFRONT_FRAMES):
+            t0 = time.perf_counter()
+            r.set_camera(orbit(i, N_FRAMES, max(DIMS)))
+            r.render()
+            frame = r.mapframe()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            supersteps.append(r.last_stats["supersteps"])
+            if not np.isfinite(frame).all():
+                raise AssertionError(f"{mode}/{policy}: non-finite frame")
+            alpha_max.append(float(frame[..., 3].max()))
+        launches = {n: c.launches for n, c in counters().items()}
+        rec = {"phase": f"brick_wavefront[{mode},{policy}]",
+               "build_ms": build_ms, "pool_bytes": nbytes(ctx["packed"]),
+               "pool_dtype": str(ctx["packed"].dtype),
+               "streaming_cache_info": r.streaming_cache_info,
+               "frame_ms": frame_ms, "ms_per_frame": float(np.mean(frame_ms)),
+               "supersteps": supersteps, "alpha_max_min": min(alpha_max),
+               "launches": launches,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if policy == "lazy":
+            rec["lazy_decoded"] = [r._lazy.n_decoded, r._lazy.n_bricks]
+        log(rec)
+        ln = launches
+        others = {n: v for n, v in ln.items()
+                  if n not in ("raymarch_emit", "brick_sample", "fused_mlp",
+                               "hash_encode_forward")}
+        lazy_decodes = policy == "lazy" and ln["fused_mlp"] > 0
+        if (ln["raymarch_emit"] != sum(supersteps) or any(others.values())
+                or not ln["brick_sample"] >= 1
+                or (ln["fused_mlp"] > 0 and not lazy_decodes)
+                or rec["streaming_cache_info"]["resolved"] == "none"
+                or not rec["alpha_max_min"] > 0.05):
+            raise AssertionError(f"{mode}/{policy}: wrong launches, no pool "
+                                 f"or an invisible frame: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def phase_pathtrace_cuda_vs_cpu(torch):
+    """Each path-tracing mode at a small size (the 4-level model with
+    seeded weights, vorts 32³, 40 × 37) on the card against the CPU, from
+    one uniform stream drawn on the CPU and copied to both, and the same
+    jitter: the share of pixels within PT_PIXEL_TOL."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import (EncodingConfig, ModelConfig,
+                                         NetworkConfig)
+    from instantvnr_torch.models.network import params_from_numpy
+
+    class Stream:
+        """Uniforms drawn on the CPU from a seeded generator, copied to
+        the frame's device."""
+
+        def __init__(self):
+            self.g = torch.Generator().manual_seed(SEED)
+
+        def tau(self, r, device):
+            return torch.rand(r, generator=self.g).to(device)
+
+        def event(self, r, device):
+            return torch.rand((6, r), generator=self.g).to(device)
+
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=4,
+                                              n_features_per_level=2,
+                                              log2_hashmap_size=12),
+                      network=NetworkConfig(n_neurons=16, n_hidden_layers=2))
+    w, h = 40, 37
+    jitter = torch.rand((w * h, 2),
+                        generator=torch.Generator().manual_seed(SEED + 1))
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        sv = api.SimpleVolume.synthetic((32, 32, 32), "vorts", device=dev)
+        nv = api.NeuralVolume(cfg, sv, device=dev)
+        nv.params = params_from_numpy(seeded_params(nv.field, SEED + 3), dev)
+        for mode in PT_MODES:
+            r = api.VNRenderer(nv, w, h, api.RenderMode[mode])
+            r._impl._next_jitter = lambda j=jitter.to(dev): j
+            r._impl._uniforms = Stream
+            r.set_camera(orbit(2, N_FRAMES, 32))
+            r.render()
+            frames[dev, mode] = r.mapframe()
+    for mode in PT_MODES:
+        diff = np.abs(frames["cuda", mode] - frames["cpu", mode]).max(-1)
+        share = float((diff <= PT_PIXEL_TOL).mean())
+        rec = {"phase": f"pathtrace_cuda_vs_cpu[{mode}]",
+               "max_abs_err": float(diff.max()), "tol": PT_PIXEL_TOL,
+               "pixels_over_tol": int((diff > PT_PIXEL_TOL).sum()),
+               "share_within_tol": share, "share_min": PT_SHARE_MIN,
+               "alpha_mean": float(frames["cpu", mode][..., 3].mean())}
+        log(rec)
+        if share < PT_SHARE_MIN or not rec["alpha_mean"] > 0.05:
+            raise AssertionError(f"small path-traced frame disagrees: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -1941,9 +2419,11 @@ def main() -> int:
                             ("shaded,lut70", tf70))}
     iso = phase_iso_sweep(torch, vol, grads, float(vol.median()))
     emit = phase_raymarch_emit(torch, sv)
+    pt = phase_pt_kernels(torch, sv)
     phase_small_parity(torch)
     phase_one_voxel(torch)
     phase_wavefront_cuda_vs_cpu(torch)
+    phase_pathtrace_cuda_vs_cpu(torch)
 
     # -- main path: counts from 0, then decode + an orbit of frames --------
     nv = api.NeuralVolume(ModelConfig(), sv, device="cuda")
@@ -2000,15 +2480,20 @@ def main() -> int:
     wavefront = phase_wavefront_views(torch, nv)
     phase_fallbacks(torch, nv)
 
+    # -- the path tracer and the brick wavefront --------------------------
+    bricks = phase_brick_sample(torch, nv)
+    pathtrace = phase_pathtrace(torch, nv)
+    brick_wavefront = phase_brick_wavefront(torch, nv)
+
     # -- training: 2^14 against its controls, 2^19 over three seeds -------
     train14, nv19 = phase_training(torch, sv)
     phase_train_breakdown(torch, nv19)
     phase_online_loop(torch, nv19)
 
     # launches: totals over the main-path runs (the plain orbit with its
-    # decode, then the four views; the wavefront modes; the 1000 steps of
-    # train_2e14)
-    runs = [plain] + views + wavefront
+    # decode, then the four views; the wavefront modes; the path tracer's
+    # modes and the brick wavefront; the 1000 steps of train_2e14)
+    runs = [plain] + views + wavefront + pathtrace + brick_wavefront
     total = {name: sum(v["launches"][name] for v in runs)
              for name in counters()}
     for d in (decode, views[-1]["decode_launches"]):
@@ -2046,6 +2531,17 @@ def main() -> int:
         # XLA in JAX, as the hash grid: the wavefront's emission scan
         row("raymarch_emit", "raymarch_emit.cu",
             "instantvnr_tpu/render/raymarch.py:214", emit),
+        # XLA in JAX as well: the tracker's event (its halves, at the late
+        # event's state) and the brick pool's sampler (the "auto" pool)
+        row("pt_track", "pathtrace.cu",
+            "instantvnr_tpu/render/pathtrace.py:236",
+            pt[PT_LATE_EVENT]["pt_track"]),
+        row("pt_resolve", "pathtrace.cu",
+            "instantvnr_tpu/render/pathtrace.py:236",
+            pt[PT_LATE_EVENT]["pt_resolve"]),
+        row("brick_sample", "brick_sample.cu",
+            "instantvnr_tpu/render/brickcache.py:762",
+            bricks["f16,ss1,exact"]),
     ]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

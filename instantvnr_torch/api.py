@@ -10,21 +10,24 @@ reference C API, `api.h:91-188`):
                                    .npz: the native exact-resume format)
   vnrCreateRenderer/vnrRender/vnrRendererMapFrame → VNRenderer.render()/mapframe()
 
-Render modes ported: DECODED_SLAB (with `set_slab_shading("gradient")` and
-`enable_shadows()`), FULL_SHADOW_DECODED, ISOSURFACE_DECODED and
+Every RenderMode renders: DECODED_SLAB (with `set_slab_shading("gradient")`
+and `enable_shadows()`), FULL_SHADOW_DECODED, ISOSURFACE_DECODED and
 ISOSURFACE_REFERENCE (slab paths, with the wavefront and brute-force
-fallbacks of degenerate cameras), and the exact wavefront modes
-NEURAL_WAVEFRONT(_GRADIENT, _SSH) with streaming_cache="none",
-REFERENCE_RAYMARCH, REFERENCE_GRADIENT, REFERENCE_SSH and
-FULL_SHADOW_REFERENCE. Every entry point takes a `device` and defaults to
+fallbacks of degenerate cameras), the wavefront modes NEURAL_WAVEFRONT
+(_GRADIENT, _SSH) under every `streaming_cache` policy ("auto", the
+default, and "brick", "hq", "lazy": brick pools, render/brickcache.py;
+"none": exact per-sample network evaluation), REFERENCE_RAYMARCH,
+REFERENCE_GRADIENT, REFERENCE_SSH and FULL_SHADOW_REFERENCE, and the path
+tracer (render/pathtrace.py) in PATHTRACE_REFERENCE, PATHTRACE_DECODED and
+PATHTRACE_NEURAL. Every entry point takes a `device` and defaults to
 "cuda": on a machine without CUDA it raises rather than running on the
-CPU. The path tracer and the streaming caches (ROADMAP item 3b) raise
-NotImplementedError naming their item.
+CPU.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 
 import numpy as np
 import torch
@@ -54,8 +57,7 @@ from instantvnr_torch.utils.tfn import TransferFunction, bake_transfer_function
 
 
 class RenderMode(enum.IntEnum):
-    """The JAX package's mode matrix (instantvnr_tpu/api.py:71); all but
-    the path tracer are ported (_PORTED_MODES)."""
+    """The JAX package's mode matrix (instantvnr_tpu/api.py:71)."""
 
     DECODED_SLAB = 0
     NEURAL_WAVEFRONT = 1
@@ -80,14 +82,9 @@ _REFERENCE_WAVEFRONT = {RenderMode.REFERENCE_RAYMARCH: "none",
                         RenderMode.REFERENCE_GRADIENT: "gradient",
                         RenderMode.REFERENCE_SSH: "ssh",
                         RenderMode.FULL_SHADOW_REFERENCE: "shadow"}
-_PORTED_MODES = ((RenderMode.DECODED_SLAB, RenderMode.FULL_SHADOW_DECODED,
-                  RenderMode.ISOSURFACE_DECODED,
-                  RenderMode.ISOSURFACE_REFERENCE)
-                 + tuple(_NEURAL_WAVEFRONT) + tuple(_REFERENCE_WAVEFRONT))
+_PATHTRACE = (RenderMode.PATHTRACE_REFERENCE, RenderMode.PATHTRACE_DECODED,
+              RenderMode.PATHTRACE_NEURAL)
 _STREAMING_CACHES = ("auto", "brick", "hq", "lazy", "none")
-# the ROADMAP item that ports the path tracer and the streaming caches
-_ITEM_3B = ("ROADMAP 'Next slices' item 3b (render/compaction.py, "
-            "render/brickcache.py, render/pathtrace.py)")
 
 
 class SimpleVolume:
@@ -117,6 +114,28 @@ class SimpleVolume:
     @property
     def dims(self):
         return self.volume.dims
+
+    def set_clipping_box(self, lower, upper):
+        """vnrVolumeSetClippingBox (api.cpp:322-338): bounds in voxel
+        coordinates [0, dims], the reference's user-facing convention."""
+        self.transform = _clipped(self.transform, lower, upper)
+
+    def set_scaling(self, scale):
+        """vnrVolumeSetScaling (api.cpp:340-351): composes scale with the
+        existing data transform."""
+        self.transform = _scaled(self.transform, scale)
+
+
+def _clipped(xform, lower, upper):
+    dev = xform.scale.device
+    return xform._replace(
+        clip_lower=torch.as_tensor(lower, dtype=torch.float32, device=dev),
+        clip_upper=torch.as_tensor(upper, dtype=torch.float32, device=dev))
+
+
+def _scaled(xform, scale):
+    return xform._replace(scale=torch.as_tensor(
+        scale, dtype=torch.float32, device=xform.scale.device) * xform.scale)
 
 
 @dataclasses.dataclass
@@ -168,6 +187,18 @@ class NeuralVolume:
         sample stream goes on."""
         self.state = self.state._replace(params=params,
                                          opt=adam_init(params))
+
+    def set_clipping_box(self, lower, upper):
+        """vnrVolumeSetClippingBox on the neural volume (api.cpp:322-338)."""
+        self.transform = _clipped(self.transform, lower, upper)
+        if self._decoder is not None:
+            self._decoder.set_transform(self.transform)
+
+    def set_scaling(self, scale):
+        """vnrVolumeSetScaling on the neural volume (api.cpp:340-351)."""
+        self.transform = _scaled(self.transform, scale)
+        if self._decoder is not None:
+            self._decoder.set_transform(self.transform)
 
     # -- training -----------------------------------------------------------
 
@@ -459,15 +490,17 @@ class NeuralVolume:
 
 class VNRenderer:
     """Renderer handle (reference RendererContext, api_internal.h:37-45):
-    dispatches between the slab paths (decoded grid) and the wavefront
-    (network or ground truth) by RenderMode, and owns the camera and the
-    frame size.
+    dispatches between the slab paths (decoded grid), the wavefront
+    (network, brick pool or ground truth) and the path tracer by
+    RenderMode, and owns the camera and the frame size.
 
     streaming_cache: the sample-streaming policy of the NEURAL_WAVEFRONT*
-    modes. Only "none" (exact per-sample network evaluation, the
-    reference's mode 5) is ported; the JAX package's default "auto" and its
-    brick pools ("brick", "hq", "lazy") raise for those modes, naming
-    ROADMAP item 3b."""
+    modes (JAX api.py:706-717): "auto" / "brick" a macrocell-guided brick
+    pool (render/brickcache.py); "hq" the pool at a 2× nested lattice;
+    "lazy" the pool with each brick decoded at its first visibility;
+    "none" exact per-sample network evaluation (the reference's mode 5).
+    A constructor argument, so "lazy" never pays the eager build.
+    `streaming_cache_info` reports what a policy resolved to."""
 
     def __init__(self, volume, width=512, height=512,
                  mode: RenderMode = RenderMode.DECODED_SLAB,
@@ -478,6 +511,8 @@ class VNRenderer:
         self.width, self.height = width, height
         self.mode = mode
         self.streaming_cache = streaming_cache
+        self._lazy = None  # LazyBrickCache under streaming_cache="lazy"
+        self._brick_cursor = 0  # refresh_params(budget_bricks=...)'s
         self._impl = None
         self._camera = None
         # vnrRendererSetVolumeSamplingRate / SetVolumeDensityScale /
@@ -497,8 +532,9 @@ class VNRenderer:
 
     def _subject(self, mode: RenderMode):
         """The volume object a mode renders; raises if it is missing."""
-        needs_simple = (mode == RenderMode.ISOSURFACE_REFERENCE
-                        or mode in _REFERENCE_WAVEFRONT)
+        needs_simple = mode in (RenderMode.ISOSURFACE_REFERENCE,
+                                RenderMode.PATHTRACE_REFERENCE) or (
+            mode in _REFERENCE_WAVEFRONT)
         subject = self.simple if needs_simple else self.neural
         if subject is None:
             raise ValueError(f"{mode.name} renders a "
@@ -513,20 +549,23 @@ class VNRenderer:
             return self.simple.tf
         return bake_transfer_function(TransferFunctionConfig(), device=device)
 
+    def _scene_mc(self):
+        """The ground truth's macrocell when there is one, else the neural
+        volume's (JAX VNRenderer._scene_parts)."""
+        if self.simple is not None:
+            return self.simple.macrocell
+        return self.neural.macrocell
+
+    def _transform(self):
+        return (self.neural or self.simple).transform
+
     def set_mode(self, mode: RenderMode):
         from instantvnr_torch.render.isosurf import IsoRenderer, IsoSettings
 
         mode = RenderMode(mode)
-        if mode not in _PORTED_MODES:
-            raise NotImplementedError(
-                f"render mode {mode.name} is not ported yet: " + _ITEM_3B)
-        if mode in _NEURAL_WAVEFRONT and self.streaming_cache != "none":
-            raise NotImplementedError(
-                f"streaming_cache={self.streaming_cache!r} is not ported yet "
-                "(pass streaming_cache='none', exact per-sample network "
-                "evaluation): " + _ITEM_3B)
         subject = self._subject(mode)
         self.mode = mode
+        self._lazy = None  # re-established by _build_streaming_ctx("lazy")
         if mode in (RenderMode.DECODED_SLAB, RenderMode.FULL_SHADOW_DECODED):
             tf = self.simple.tf if self.simple is not None else None
             impl = self.neural.ensure_decoded(self.width, self.height, tf=tf)
@@ -553,25 +592,7 @@ class VNRenderer:
                                                     shadow_ambient=0.35)
                 impl._mode_shadows = False
         elif mode in _NEURAL_WAVEFRONT:
-            from instantvnr_torch.models.network import render_params
-            from instantvnr_torch.render.renderer import (
-                Renderer, make_neural_sample_fn)
-
-            nv = self.neural
-            # the ground truth's macrocell when there is one
-            # (JAX VNRenderer._scene_parts); n_iters = 8: the JAX package's
-            # exact-path setting (its sweep at 512², api.py:800-812)
-            mc = (self.simple.macrocell if self.simple is not None
-                  else nv.macrocell)
-            impl = Renderer(
-                self.width, self.height, mc,
-                self._tf(subject.device), make_neural_sample_fn(nv.field),
-                sample_ctx=render_params(nv.params, nv.field),
-                settings=RaymarchSettings(
-                    shading=_NEURAL_WAVEFRONT[mode], compact=True, n_iters=8,
-                    sampling_rate=self.sampling_rate,
-                    density_scale=self.density_scale),
-                transform=nv.transform)
+            impl = self._neural_wavefront(mode, subject)
         elif mode in _REFERENCE_WAVEFRONT:
             from instantvnr_torch.render.renderer import (Renderer,
                                                           reference_sample_fn)
@@ -584,13 +605,15 @@ class VNRenderer:
                     shading=_REFERENCE_WAVEFRONT[mode], compact=True,
                     sampling_rate=self.sampling_rate,
                     density_scale=self.density_scale),
-                transform=self.simple.transform)
+                transform=self._transform())
             if mode == RenderMode.FULL_SHADOW_REFERENCE:
                 # reference mode 2 on the ground truth: the wavefront
                 # modulated by the shadow volume (JAX api.py:878-895)
                 self._shadow_light_used = self._flipped_light()
                 impl.set_shadow_volume(self._reference_shadow_volume(
                     self._shadow_light_used))
+        elif mode in _PATHTRACE:
+            impl = self._pathtracer(mode, subject)
         else:
             grid = (self.neural.decode_volume()
                     if mode == RenderMode.ISOSURFACE_DECODED
@@ -600,11 +623,142 @@ class VNRenderer:
                 isovalue=self.isovalue,
                 settings=IsoSettings(
                     sampling_rate=max(self.sampling_rate, 2.0)),
-                transform=(self.neural or self.simple).transform,
-                device=subject.device)
+                transform=self._transform(), device=subject.device)
         if self._camera is not None:
             impl.set_camera(self._camera)
         self._impl = impl
+
+    def _neural_wavefront(self, mode: RenderMode, nv):
+        """The NEURAL_WAVEFRONT* renderer: on a brick pool under "auto" /
+        "brick" / "hq" / "lazy" (n_iters = 8, max_skips = 1: JAX
+        api.py:793-801), else exact per-sample network evaluation
+        (n_iters = 8, the JAX package's exact setting)."""
+        from instantvnr_torch.models.network import render_params
+        from instantvnr_torch.render.renderer import (Renderer,
+                                                      make_neural_sample_fn)
+
+        mc = self._scene_mc()
+        tf = self._tf(nv.device)
+        shading = _NEURAL_WAVEFRONT[mode]
+        ctx = (self._build_streaming_ctx(mc)
+               if self.streaming_cache != "none" else None)
+        if ctx is not None:
+            from instantvnr_torch.render.brickcache import brick_sample_fn
+
+            return Renderer(
+                self.width, self.height, mc, tf, brick_sample_fn,
+                sample_ctx=ctx, settings=RaymarchSettings(
+                    shading=shading, compact=True, n_iters=8, max_skips=1,
+                    sampling_rate=self.sampling_rate,
+                    density_scale=self.density_scale),
+                transform=nv.transform)
+        return Renderer(
+            self.width, self.height, mc, tf, make_neural_sample_fn(nv.field),
+            sample_ctx=render_params(nv.params, nv.field),
+            settings=RaymarchSettings(
+                shading=shading, compact=True, n_iters=8,
+                sampling_rate=self.sampling_rate,
+                density_scale=self.density_scale),
+            transform=nv.transform)
+
+    def _pathtracer(self, mode: RenderMode, subject):
+        """PATHTRACE_REFERENCE (the ground truth), _DECODED (the decoded
+        grid; both wrapped in a brick pool when it fits) and _NEURAL (the
+        network sampled inside the tracking loop, the reference's neural
+        path tracing, method_pathtracing.cu:679-813)."""
+        from instantvnr_torch.render.pathtrace import (PathTraceRenderer,
+                                                       PathTraceSettings)
+
+        mc = self._scene_mc()
+        tf = self._tf(subject.device)
+        # the JAX package's compacted schedule (api.py:980-987): accepted,
+        # and traced masked
+        settings = PathTraceSettings(density_scale=self.density_scale,
+                                     compact=True)
+        if mode == RenderMode.PATHTRACE_NEURAL:
+            from instantvnr_torch.models.network import render_params
+            from instantvnr_torch.render.renderer import make_neural_sample_fn
+
+            nv = self.neural
+            return PathTraceRenderer(
+                self.width, self.height, mc, tf,
+                render_params(nv.params, nv.field),
+                sample_fn=make_neural_sample_fn(nv.field),
+                settings=settings, transform=self._transform())
+        grid = (self.simple.volume.data
+                if mode == RenderMode.PATHTRACE_REFERENCE
+                else self.neural.decode_volume())
+        return PathTraceRenderer(self.width, self.height, mc, tf, grid,
+                                 settings=settings,
+                                 transform=self._transform())
+
+    def _build_streaming_ctx(self, mc):
+        """The memory-gated brick pool of the sample-streaming modes (JAX
+        api.py:1068-1136): "brick" the f32 pool on the decoded lattice; a
+        budget of VNR_BRICK_MAX_MB (default 4096) gates the rest: "hq" the
+        f16 pool on the exact lattice at ss = 2 when it fits, else at
+        ss = 1; "auto" and "lazy" the f16 pool on the exact lattice while
+        half the f32 pool's bytes fit, else None (exact per-sample network
+        evaluation: the JAX package's documented policy, which
+        `streaming_cache_info` reports as resolved "none")."""
+        from instantvnr_torch.models.network import render_params
+        from instantvnr_torch.render.brickcache import (LazyBrickCache,
+                                                        brick_cache_bytes,
+                                                        build_brick_cache)
+
+        nv = self.neural
+        args = (nv.field, render_params(nv.params, nv.field), mc)
+        if self.streaming_cache == "brick":
+            return build_brick_cache(*args)
+        budget = float(os.environ.get("VNR_BRICK_MAX_MB", "4096")) * 2**20
+        f16 = torch.float16
+        if self.streaming_cache == "hq":
+            ss = 2 if brick_cache_bytes(mc, dtype=f16,
+                                        supersample=2) <= budget else 1
+            if brick_cache_bytes(mc, dtype=f16, supersample=ss) <= budget:
+                return build_brick_cache(*args, dtype=f16, supersample=ss,
+                                         convention="exact")
+        if brick_cache_bytes(mc) / 2 > budget:
+            return None
+        if self.streaming_cache == "lazy":
+            self._lazy = LazyBrickCache(*args, dtype=f16, convention="exact")
+            return self._lazy.ctx
+        return build_brick_cache(*args, dtype=f16, convention="exact")
+
+    @property
+    def streaming_cache_info(self) -> dict:
+        """The sample-streaming policy, what it resolved to and its quality
+        class (JAX api.py:1138-1183)."""
+        info = {"policy": self.streaming_cache, "resolved": "n/a",
+                "quality": "n/a"}
+        if self.mode not in _NEURAL_WAVEFRONT:
+            return info
+        ctx = self._brick_ctx()
+        if self._lazy is not None:
+            info["resolved"] = "lazy"
+        elif ctx is not None:
+            info["resolved"] = "brick"
+        else:
+            # "none" requested, or "auto" past the memory gate
+            info["resolved"] = "none"
+        info["quality"] = ("exact-network" if ctx is None
+                           else "decoded-trilinear")
+        if ctx is not None:
+            from instantvnr_torch.render.brickcache import (ctx_convention,
+                                                            ctx_supersample)
+
+            info["pool_dtype"] = str(ctx["packed"].dtype).replace("torch.",
+                                                                  "")
+            info["supersample"] = ctx_supersample(ctx)
+            info["lattice"] = ctx_convention(ctx)
+            if info["lattice"] == "exact":
+                info["quality"] = "exact-trilinear"
+        return info
+
+    def _brick_ctx(self):
+        """The brick pool the neural wavefront samples, if it samples one."""
+        ctx = getattr(self._impl, "sample_ctx", None)
+        return ctx if isinstance(ctx, dict) and "packed" in ctx else None
 
     def _reference_shadow_volume(self, light):
         from instantvnr_torch.render.shadow import shadow_volume_for
@@ -649,6 +803,17 @@ class VNRenderer:
         # inside the first set_mode there is no impl yet, so no camera
         return self._impl.camera if self._impl is not None else None
 
+    def set_clipping_box(self, lower, upper):
+        """vnrVolumeSetClippingBox and a renderer refresh (api.cpp:322-338,
+        :455); voxel coordinates in [0, dims]."""
+        (self.neural or self.simple).set_clipping_box(lower, upper)
+        self._impl.set_transform(self._transform())
+
+    def set_scaling(self, scale):
+        """vnrVolumeSetScaling and a renderer refresh (api.cpp:340-351)."""
+        (self.neural or self.simple).set_scaling(scale)
+        self._impl.set_transform(self._transform())
+
     def set_volume_sampling_rate(self, rate: float):
         """vnrRendererSetVolumeSamplingRate (batch_renderer.cpp:203)."""
         self.sampling_rate = float(rate)
@@ -668,8 +833,8 @@ class VNRenderer:
             self._impl.set_isovalue(self.isovalue)
 
     def set_streaming_cache(self, policy: str):
-        """The NEURAL_WAVEFRONT* modes' sample-streaming policy; only
-        "none" is ported (see the class docstring)."""
+        """The NEURAL_WAVEFRONT* modes' sample-streaming policy (the class
+        docstring)."""
         if policy not in _STREAMING_CACHES:
             raise ValueError(f"streaming_cache={policy!r}: expected one of "
                              f"{_STREAMING_CACHES}")
@@ -711,41 +876,106 @@ class VNRenderer:
         self._impl.settings = dataclasses.replace(self._impl.settings,
                                                   shading=shading)
 
-    def refresh_params(self):
+    def refresh_params(self, budget_bricks: int | None = None):
         """Rebind the render path to the neural volume's current parameters
         (the online-training hook): the decoded slab modes re-read them at
-        render(), the neural wavefront takes new inference params,
-        ISOSURFACE_DECODED decodes its grid again."""
+        render(); the exact neural wavefront and PATHTRACE_NEURAL take new
+        inference params; a brick pool re-decodes (at most `budget_bricks`
+        bricks a call, round-robin across calls, when given: the pool's
+        refresh_brick_pool, or the lazy pool's refresh; None rebuilds it);
+        PATHTRACE_DECODED and ISOSURFACE_DECODED decode their grid again."""
         if self.neural is None:
             return
-        if self.mode == RenderMode.ISOSURFACE_DECODED:
-            self._impl.set_grid(self.neural.decode_volume())
-        elif self.mode in _NEURAL_WAVEFRONT:
-            from instantvnr_torch.models.network import render_params
+        from instantvnr_torch.models.network import render_params
+        from instantvnr_torch.render.renderer import make_neural_sample_fn
 
-            nv = self.neural
-            self._impl.set_sample_ctx(render_params(nv.params, nv.field))
+        nv = self.neural
+        if self.mode in _NEURAL_WAVEFRONT:
+            if self._lazy is not None:
+                # full restale without a budget: the next render()'s ensure
+                # re-decodes what the frame can see against the new params
+                self._lazy.refresh(render_params(nv.params, nv.field),
+                                   budget_bricks=budget_bricks)
+                self._impl.set_sample_ctx(self._lazy.ctx)
+                return
+            ctx = self._brick_ctx()
+            if ctx is None:
+                self._impl.set_sample_ctx(render_params(nv.params, nv.field))
+                return
+            if budget_bricks is not None:
+                from instantvnr_torch.render.brickcache import (
+                    refresh_brick_pool)
+
+                ctx, self._brick_cursor = refresh_brick_pool(
+                    nv.field, render_params(nv.params, nv.field), ctx,
+                    start=self._brick_cursor, n_bricks=budget_bricks)
+                self._impl.set_sample_ctx(ctx)
+                return
+            self._brick_cursor = 0
+            ctx = self._build_streaming_ctx(self._scene_mc())
+            if ctx is not None:
+                self._impl.set_sample_ctx(ctx)
+            else:
+                # the pool's budget gated it off (occupancy grew): exact
+                # per-sample network evaluation
+                self._impl.set_sample_fn(make_neural_sample_fn(nv.field),
+                                         render_params(nv.params, nv.field))
+        elif self.mode == RenderMode.PATHTRACE_NEURAL:
+            self._impl.sample_ctx = render_params(nv.params, nv.field)
+            self._impl.reset_accumulation()
+        elif self.mode in (RenderMode.PATHTRACE_DECODED,
+                           RenderMode.ISOSURFACE_DECODED):
+            # PATHTRACE_DECODED's set_grid re-applies the grid → brick-pool
+            # policy its sample fn was wired with
+            self._impl.set_grid(nv.decode_volume())
 
     def reset_accumulation(self):
-        """vnrRendererResetAccumulation: restart the wavefront's progressive
-        accumulation (the one-shot slab paths accumulate nothing)."""
+        """vnrRendererResetAccumulation: restart the progressive
+        accumulation of the wavefront and the path tracer (the one-shot
+        slab paths accumulate nothing)."""
         if hasattr(self._impl, "reset_accumulation"):
             self._impl.reset_accumulation()
 
     @property
     def last_stats(self) -> dict:
-        """The last wavefront frame's counts ({"supersteps": n}); empty for
-        the slab paths."""
+        """The last frame's counts ({"supersteps": n} of a wavefront frame,
+        {"events": n} of a path-traced one); empty for the slab paths."""
         return getattr(self._impl, "last_stats", {})
+
+    def _ensure_lazy(self):
+        """Decode the lazy pool's bricks this frame can touch: the view's,
+        and under SSH their light-swept superset (the shadow rays leave
+        the frustum only along the light, render/brickcache.py)."""
+        lazy = self._lazy
+        if lazy.n_decoded == lazy.n_bricks:
+            return
+        scale = self._transform().scale.detach().cpu().numpy()
+        cam = self.camera
+        if self.mode == RenderMode.NEURAL_WAVEFRONT_SSH:
+            # the frame light, flipped as render/renderer.py::_frame_rays
+            light = np.asarray(self._impl.settings.light_dir, np.float64)
+            view = (np.asarray(cam.center, np.float64)
+                    - np.asarray(cam.eye, np.float64))
+            if float(np.dot(view, light)) > 0:
+                light = -light
+            n = lazy.ensure_view_ssh(cam, self.width, self.height,
+                                     light / scale, scale=scale)
+        else:
+            n = lazy.ensure_view(cam, self.width, self.height, scale=scale)
+        if n:
+            self._impl.set_sample_ctx(lazy.ctx)
 
     def render(self):
         """vnrRender (api.cpp:522). Rebinding the same params object every
         frame costs nothing: the decoder caches its inference params by
-        identity. The neural wavefront keeps its params until
-        refresh_params(), as in the JAX package."""
+        identity. The neural wavefront and the path tracer keep their
+        params until refresh_params(), as in the JAX package; a lazy brick
+        pool first decodes what the frame can touch."""
         if self.mode in (RenderMode.DECODED_SLAB,
                          RenderMode.FULL_SHADOW_DECODED):
             self._impl.set_params(self.neural.params)
+        if self._lazy is not None and self.mode in _NEURAL_WAVEFRONT:
+            self._ensure_lazy()
         return self._impl.render()
 
     def mapframe(self) -> np.ndarray:

@@ -5,9 +5,12 @@ frames, N timed frames, a per-frame fps CSV, a PNG of the last frame.
     python -m instantvnr_torch.apps.vnr_cmd_render --load params.bson \\
         --size 512 --num-frames 20 --output frame.png --fps-log fps.csv
 
-The neural wavefront modes take `--streaming-cache none` (exact per-sample
-network evaluation); the path tracer and the brick caches are ROADMAP item
-3b and raise. `--profile` (an Xprof trace in the JAX package) is item 7.
+The neural wavefront modes take `--streaming-cache` (default "auto", a
+brick pool; "none" is exact per-sample network evaluation); `pathtrace`,
+`pathtrace-neural` and `pathtrace-reference` run the path tracer on the
+decoded grid (the ground truth without a checkpoint), the network and the
+ground truth. `--profile` (an Xprof trace in the JAX package) is ROADMAP
+item 7.
 """
 from __future__ import annotations
 
@@ -27,8 +30,6 @@ from instantvnr_torch.apps.common import (
 _MODES = ("decoded", "neural", "reference", "gradient", "ssh", "pathtrace",
           "pathtrace-neural", "pathtrace-reference", "isosurface",
           "isosurface-reference")
-_ITEM_3B = ("ROADMAP 'Next slices' item 3b (render/compaction.py, "
-            "render/brickcache.py, render/pathtrace.py)")
 _ITEM_7 = "ROADMAP 'Next slices' item 7 (the rest of the apps: profiling)"
 
 
@@ -37,9 +38,6 @@ def render_mode(name: str, neural: bool):
     loaded, so gradient/ssh/isosurface render the network)."""
     from instantvnr_torch.api import RenderMode
 
-    if name.startswith("pathtrace"):
-        raise NotImplementedError(f"--mode {name} is not ported yet: "
-                                  + _ITEM_3B)
     return {
         "decoded": RenderMode.DECODED_SLAB,
         "neural": RenderMode.NEURAL_WAVEFRONT,
@@ -51,6 +49,10 @@ def render_mode(name: str, neural: bool):
         "isosurface": (RenderMode.ISOSURFACE_DECODED if neural
                        else RenderMode.ISOSURFACE_REFERENCE),
         "isosurface-reference": RenderMode.ISOSURFACE_REFERENCE,
+        "pathtrace": (RenderMode.PATHTRACE_DECODED if neural
+                      else RenderMode.PATHTRACE_REFERENCE),
+        "pathtrace-neural": RenderMode.PATHTRACE_NEURAL,
+        "pathtrace-reference": RenderMode.PATHTRACE_REFERENCE,
     }[name]
 
 
@@ -73,8 +75,8 @@ def main(argv=None):
     p.add_argument("--streaming-cache", default="auto",
                    choices=["auto", "brick", "hq", "lazy", "none"],
                    help="sample-streaming policy of the neural wavefront "
-                   "modes (only none, exact per-sample evaluation, is "
-                   "ported)")
+                   "modes: a brick pool (auto, brick, hq, lazy) or exact "
+                   "per-sample evaluation (none)")
     p.add_argument("--denoise", action="store_true",
                    help="à-trous denoiser at mapframe (vnrRendererSetDenoiser)")
     p.add_argument("--shadows", action="store_true",

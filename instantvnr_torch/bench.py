@@ -15,9 +15,11 @@ section:
 - training at the untouched reference schema (2^19): Msamples/s;
 - the headline: a full decode of the trained network, then DECODED_SLAB
   frames of the decoded grid (decode + slab render, fps);
-- gradient-shaded slab frames, ISOSURFACE_DECODED frames, and the exact
-  neural wavefront (NEURAL_WAVEFRONT, streaming_cache="none"), with its
-  supersteps a frame.
+- gradient-shaded slab frames, ISOSURFACE_DECODED frames, the exact
+  neural wavefront (NEURAL_WAVEFRONT, streaming_cache="none") with its
+  supersteps a frame, the brick wavefront (NEURAL_WAVEFRONT on the default
+  streaming_cache="auto" pool) and the path tracer (PATHTRACE_DECODED,
+  progressive frames) with its events a frame.
 
 Prints ONE JSON line, {"metric", "value", "unit", "secondary", "device"},
 with the card's name and power limit (nvidia-smi). A stage that fails ends
@@ -160,6 +162,25 @@ def run(args) -> dict:
     frame = rw.mapframe()
     if not (frame == frame).all() or frame[..., 3].max() <= 0.0:
         raise AssertionError("the neural wavefront frame is empty or NaN")
+
+    rb = api.VNRenderer(nv, size, size, api.RenderMode.NEURAL_WAVEFRONT)
+    rb.set_camera(cam)
+    sec["brick_wavefront_fps_512"] = _time_frames(rb, dev,
+                                                  args.wavefront_frames,
+                                                  warm=1)
+    log(f"brick wavefront {size}²: {sec['brick_wavefront_fps_512']} fps "
+        f"({rb.streaming_cache_info})")
+    rp = api.VNRenderer(nv, size, size, api.RenderMode.PATHTRACE_DECODED)
+    rp.set_camera(cam)
+    sec["pathtrace_fps_512"] = _time_frames(rp, dev, args.wavefront_frames,
+                                            warm=1)
+    sec["pathtrace_events"] = rp.last_stats["events"]
+    log(f"path tracer {size}²: {sec['pathtrace_fps_512']} fps, "
+        f"{sec['pathtrace_events']} events a frame")
+    for name, r_ in (("brick wavefront", rb), ("path tracer", rp)):
+        frame = r_.mapframe()
+        if not (frame == frame).all() or frame[..., 3].max() <= 0.0:
+            raise AssertionError(f"the {name} frame is empty or NaN")
     return {"metric": METRIC if (size, args.dims) == (512, 128) else
             f"neural decode+slab-render fps @ {size}x{size} (hash 2^14, "
             f"vorts {args.dims}^3)",

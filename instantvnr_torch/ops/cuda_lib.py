@@ -70,6 +70,19 @@ SIGNATURES = {
     # t_y, valid, stream
     "raymarch_emit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _L, _I,
                       _I, _P, _P, _P, _P, _P, _P, _P),
+    # lut, packed, is_half, p, n, dx, dy, dz, mx, my, mz, ss, out, stream
+    "brick_sample": (_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # org, dirn, t, t_far, tau, max_opacity, mx, my, mz, dx, dy, dz,
+    # density_scale, cell_skips, R, new_t, new_tau, majorant, crosses,
+    # exited, pos_obj, stream
+    "pt_track": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _L,
+                 _P, _P, _P, _P, _P, _P, _P),
+    # org, dirn, t_far, throughput, radiance, scatter_index, shadow, active,
+    # new_t, new_tau, majorant, crosses, exited, values, u, ctrl, kc, lut,
+    # n_lut, consts, density_scale, light_ambient, R, org_out, dir_out,
+    # t_out, tfar_out, tau_out, thr_out, rad_out, si_out, shadow_out,
+    # active_out, stream
+    "pt_resolve": (_P,) * 16 + (_I, _P, _I, _P, _F, _F, _L) + (_P,) * 11,
 }
 
 

@@ -21,9 +21,11 @@ condition of the JAX package's while_loop; selecting the valid slots is a
 second one. Marching semantics are the
 reference's (method_raymarching.cu:263-306; see the JAX module's
 docstring). The JAX package's schedule machinery (ray compaction, schedule
-replay, speculation, tiles) hides its TPU's dispatch latency and never
-changes a frame; it is ROADMAP item 3b, and its knobs raise here when set
-away from their defaults (`compact=True` is accepted and ignored).
+replay, speculation, tiles; `instantvnr_tpu/render/compaction.py`) hides
+its TPU's dispatch latency and never changes a frame
+(`tests/test_compaction.py`); it has no counterpart here, and its knobs
+raise when set away from their defaults (`compact=True` is accepted and
+ignored).
 """
 from __future__ import annotations
 
@@ -47,8 +49,6 @@ _PROBE_EPS = 1e-3
 # default directional light (instantvnr_types.h:148); it points toward the
 # light
 DEFAULT_LIGHT = (0.7, 0.9, 0.4)
-_SCHEDULE_ITEM = ("ROADMAP 'Next slices' item 3b (the compacted wavefront's "
-                  "schedule: compaction, replay, brick cache)")
 # RaymarchSettings knobs that shape only the JAX package's TPU schedule:
 # name → the one value the port takes
 _SCHEDULE_KNOBS = {"samples_per_slot": 1, "speculate": 0,
@@ -95,7 +95,8 @@ class RaymarchSettings:
             if getattr(self, name) != value:
                 raise NotImplementedError(
                     f"RaymarchSettings.{name}={getattr(self, name)!r} shapes "
-                    f"the TPU schedule and is not ported: {_SCHEDULE_ITEM}")
+                    "the JAX package's TPU schedule (render/compaction.py) "
+                    "and has no counterpart in the port")
 
 
 class _RayState(NamedTuple):

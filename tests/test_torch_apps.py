@@ -82,10 +82,13 @@ def trained(tmp_path_factory):
     ("neural", ["--streaming-cache", "none", "--denoise"]),
     ("ssh", ["--streaming-cache", "none"]),
     ("isosurface", ["--isovalue", "0.3", "--orbit"]),
+    ("neural", ["--streaming-cache", "lazy"]),
+    ("pathtrace", ["--denoise"]),
+    ("pathtrace-neural", []),
 ])
 def test_render_modes_from_checkpoint(trained, mode, extra):
     tmp, _, bson = trained
-    out = str(tmp / f"{mode}.png")
+    out = str(tmp / f"{mode}{len(extra)}.png")
     frame = vnr_cmd_render.main(
         ["--device", "cpu", "--load", bson, "--mode", mode, "--size", "16",
          "--num-frames", "2", "--warmup", "1", "--output", out,
@@ -97,7 +100,8 @@ def test_render_modes_from_checkpoint(trained, mode, extra):
 
 
 @pytest.mark.parametrize("mode", ["reference", "gradient",
-                                  "isosurface-reference"])
+                                  "isosurface-reference", "pathtrace",
+                                  "pathtrace-reference"])
 def test_render_ground_truth_modes(tmp_path, mode):
     frame = vnr_cmd_render.main(VOLUME + ["--mode", mode, "--size", "16",
                                           "--num-frames", "1", "--warmup",
@@ -108,13 +112,6 @@ def test_render_ground_truth_modes(tmp_path, mode):
 
 def test_unported_options_raise(trained):
     _, _, bson = trained
-    for mode in ("pathtrace", "pathtrace-neural", "pathtrace-reference"):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            vnr_cmd_render.main(["--device", "cpu", "--load", bson, "--mode",
-                                 mode, "--size", "8"])
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        vnr_cmd_render.main(["--device", "cpu", "--load", bson, "--mode",
-                             "neural", "--size", "8"])  # cache "auto"
     with pytest.raises(NotImplementedError, match="item 7"):
         vnr_cmd_render.main(["--device", "cpu", "--load", bson,
                              "--profile", "trace"])
@@ -144,7 +141,8 @@ def test_bench_prints_one_json_line(capsys):
     assert set(line["secondary"]) >= {
         "slab_fps_512_shaded", "isosurface_fps_512",
         "neural_wavefront_fps_512", "train_msamples_per_s_hash14",
-        "train_msamples_per_s_hash19_ref_schema", "psnr_db", "ssim"}
+        "train_msamples_per_s_hash19_ref_schema", "psnr_db", "ssim",
+        "brick_wavefront_fps_512", "pathtrace_fps_512", "pathtrace_events"}
     assert line["device"] == {"platform": "cpu", "name": "cpu",
                               "power_limit": None}
     assert bench.METRIC == ("neural decode+slab-render fps @ 512x512 "

@@ -709,3 +709,216 @@ def test_wavefront_frame_on_card_matches_cpu(cuda, shading, neural):
         assert np.abs(card - cpu).mean() <= 1e-3
     else:
         np.testing.assert_allclose(card, cpu, atol=1e-4, rtol=0)
+
+
+# -- the path tracer and the brick pool --------------------------------------
+
+
+def _random_pool(rng, ss, dtype, n_cells=(5, 4, 3)):
+    """A LUT over n_cells macrocells with some cells missing and a random
+    corner-packed pool behind it."""
+    from instantvnr_torch.ops.brick_sample import _brick_edge
+
+    mx, my, mz = n_cells
+    n = mx * my * mz
+    lut = np.full(n, -1, np.int32)
+    held = rng.permutation(n)[: n * 2 // 3]
+    lut[held] = np.arange(held.size, dtype=np.int32)
+    packed = rng.uniform(-1.0, 2.0, (held.size * _brick_edge(ss) ** 3, 8))
+    return (torch.from_numpy(lut), torch.from_numpy(packed).to(dtype),
+            (mx * 16 - 3, my * 16 - 7, mz * 16), (mx, my, mz))
+
+
+@pytest.mark.parametrize("n", [1 << 18, 1001])
+@pytest.mark.parametrize("ss", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_brick_sample_kernel_matches_plain(cuda, n, ss, dtype):
+    """brick_sample equals its plain version bit for bit, misses (cells the
+    pool does not hold: 0.0) and the domain's faces and corners
+    included."""
+    from instantvnr_torch.ops import brick_sample as bs
+
+    rng = np.random.default_rng(n + ss)
+    lut, packed, dims, mcd = _random_pool(rng, ss, dtype)
+    p = rng.random((n, 3)).astype(np.float32)
+    p[:8] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 0.25],
+             [0.5, 0.5, 1], [1, 0.5, 0], [0, 0, 1], [0.999999, 0, 1]]
+    p = torch.from_numpy(p)
+    ref = bs.brick_sample_reference(lut, packed, p, dims, mcd, ss)
+    before = bs.counter.launches
+    got = bs.brick_sample(lut.to(cuda), packed.to(cuda), p.to(cuda), dims,
+                          mcd, ss)
+    torch.cuda.synchronize()
+    assert bs.counter.launches == before + 1
+    card_plain = bs.brick_sample_reference(lut.to(cuda), packed.to(cuda),
+                                           p.to(cuda), dims, mcd, ss)
+    assert torch.equal(got, card_plain)
+    assert (ref == 0).any() and (ref != 0).any()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+def _random_pt_state(rng, r, dims=(40, 36, 48)):
+    """A tracker state of r rays inside (and around) a volume of `dims`:
+    shadow rays, inactive rays and late scatter counts included."""
+    dx, dy, dz = dims
+    org = rng.uniform(0.0, 1.0, (r, 3)) * np.array([dx, dy, dz])
+    d = rng.standard_normal((r, 3))
+    d[: r // 50, 0] = 0.0  # axis-parallel rays
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = rng.uniform(0.0, 5.0, r)
+    t_far = t + rng.uniform(0.0, 60.0, r)
+    f = np.float32
+    return [torch.from_numpy(a) for a in (
+        org.astype(f), d.astype(f), t.astype(f), t_far.astype(f),
+        rng.exponential(1.0, r).astype(f),
+        rng.uniform(0.0, 1.0, (r, 3)).astype(f),
+        rng.uniform(0.0, 1.0, (r, 3)).astype(f),
+        rng.integers(0, 8, r).astype(np.int32), rng.random(r) < 0.4,
+        rng.random(r) < 0.9)]
+
+
+def _pt_scene(dims, lut_tf):
+    from instantvnr_torch.accel import macrocell as mcmod
+    from instantvnr_torch.config import TransferFunctionConfig
+    from instantvnr_torch.data.volume import synthetic_volume
+    from instantvnr_torch.utils.tfn import bake_transfer_function
+
+    cfg = TransferFunctionConfig()
+    if lut_tf:
+        knots = np.linspace(0.0, 1.0, 70)
+        alphas = np.random.default_rng(4).uniform(0.0, 0.9, 70)
+        cfg = TransferFunctionConfig(
+            colors=((0.0, 0.2, 0.3, 0.9), (0.5, 0.9, 0.6, 0.1),
+                    (1.0, 1.0, 0.2, 0.2)),
+            alphas=tuple((float(a), float(b)) for a, b in zip(knots, alphas)))
+    vol = synthetic_volume(dims, kind="vorts", device="cpu")
+    tf = bake_transfer_function(cfg, device="cpu")
+    return vol, tf, mcmod.build(vol.data, vol.dims, tf)
+
+
+@pytest.mark.parametrize("r", [1 << 18, 1001])
+@pytest.mark.parametrize("cell_skips,density", [(0, 1.0), (2, 1.0),
+                                                (2, 2.5)])
+def test_pt_track_kernel_matches_plain(cuda, r, cell_skips, density):
+    """pt_track equals its plain version bit for bit on every ray (NaN-free
+    outputs compared by their bits)."""
+    from instantvnr_torch.ops import pathtrace as opt
+
+    dims = (40, 36, 48)
+    _, _, mc = _pt_scene(dims, False)
+    st = _random_pt_state(np.random.default_rng(r + cell_skips), r, dims)
+    args = st[:5] + [mc.max_opacity]
+    ref = opt.pt_track_reference(*[a.to(cuda) for a in args], dims, density,
+                                 cell_skips)
+    before = opt.track_counter.launches
+    got = opt.pt_track(*[a.to(cuda) for a in args], dims, density,
+                       cell_skips)
+    torch.cuda.synchronize()
+    assert opt.track_counter.launches == before + 1
+    for g, w in zip(got, ref):
+        assert torch.equal(g, w)
+    cpu = opt.pt_track_reference(*args, dims, density, cell_skips)
+    for g, w in zip(got, cpu):
+        assert torch.equal(g.cpu(), w)
+    assert got[3].any() and (~got[3]).any() and got[4].any()
+
+
+@pytest.mark.parametrize("r", [1 << 18, 1001])
+@pytest.mark.parametrize("lut_tf", [False, True])
+def test_pt_resolve_kernel_matches_plain(cuda, r, lut_tf):
+    """pt_resolve against its plain version on the card: the decisions
+    (scatter counts, shadow and active flags) equal, the floats equal bit
+    for bit but for log1pf / sinf / cosf, where two builds of the CUDA math
+    library may round one ulp apart (rtol 1e-6)."""
+    from instantvnr_torch.ops import pathtrace as opt
+    from instantvnr_torch.ops.slab_composite import pack_controls, pack_lut
+    from instantvnr_torch.ops.trilinear import sample_volume
+
+    dims = (40, 36, 48)
+    vol, tf, mc = _pt_scene(dims, lut_tf)
+    rng = np.random.default_rng(r + lut_tf)
+    st = _random_pt_state(rng, r, dims)
+    track = opt.pt_track_reference(*st[:5], mc.max_opacity, dims, 1.0, 2)
+    values = sample_volume(vol.data, track[5])
+    u = torch.from_numpy(rng.random((6, r)).astype(np.float32))
+    consts = torch.tensor([0.4, 0.5, -0.76, 1.0, 0.9, 0.8, 1.0, 0.5, 2.0,
+                           2.0, 0.0, 1.0, 38.0, 36.0, 40.0])
+    args = (st[0], st[1], st[3], *st[5:], *track[:5], values, u,
+            pack_controls(tf), pack_lut(tf), consts)
+    on_card = [None if a is None else a.to(cuda) for a in args]
+    ref = opt.pt_resolve_reference(*on_card, 1.0, 1.5)
+    before = opt.resolve_counter.launches
+    got = opt.pt_resolve(*on_card, 1.0, 1.5)
+    torch.cuda.synchronize()
+    assert opt.resolve_counter.launches == before + 1
+    for g, w in zip(got, ref):
+        if g.dtype in (torch.bool, torch.int32):
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    assert (got[7] > st[7].to(cuda)).any()  # hits
+    assert (got[8] != st[8].to(cuda)).any()  # shadow rays fired / resolved
+    assert (~got[9] & st[9].to(cuda)).any()  # paths ended
+
+
+@pytest.mark.parametrize("mode", ["PATHTRACE_REFERENCE", "PATHTRACE_DECODED",
+                                  "PATHTRACE_NEURAL"])
+def test_pathtrace_frame_on_card_matches_cpu(cuda, mode):
+    """A 24² frame of each path-tracing mode (vorts 32³, a 2-level model
+    with seeded weights) on the card against the CPU, from one uniform
+    stream drawn on the CPU and copied to both: at least 99% of the pixels
+    within 1e-5 (a path parts where log1pf / sinf / cosf, or the network's
+    bf16 rounding, differ between the devices)."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import params_from_numpy
+    from instantvnr_torch.ops import brick_sample as bs
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.ops import pathtrace as opt
+    from instantvnr_torch.render.camera import Camera
+
+    class Stream:
+        def __init__(self):
+            self.g = torch.Generator().manual_seed(11)
+
+        def tau(self, r, device):
+            return torch.rand(r, generator=self.g).to(device)
+
+        def event(self, r, device):
+            return torch.rand((6, r), generator=self.g).to(device)
+
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=2,
+                                              n_features_per_level=4,
+                                              log2_hashmap_size=10),
+                      network=NetworkConfig(n_neurons=16, n_hidden_layers=2))
+    rng = np.random.default_rng(8)
+    n_entries = NeuralField.from_config(cfg).spec.n_entries
+    params_np = {
+        "table": rng.uniform(-0.5, 0.5, (n_entries, 4)).astype(np.float32),
+        "mlp": [(rng.standard_normal(s) * np.sqrt(2.0 / s[0])).astype(
+            np.float32) for s in ((8, 16), (16, 16), (16, 1))]}
+    jitter = torch.rand((24 * 24, 2),
+                        generator=torch.Generator().manual_seed(5))
+    frames = []
+    for dev in ("cpu", "cuda"):
+        sv = api.SimpleVolume.synthetic((32, 32, 32), "vorts", device=dev)
+        nv = api.NeuralVolume(cfg, sv, device=dev)
+        nv.params = params_from_numpy(params_np, dev)
+        r = api.VNRenderer(nv, 24, 24, api.RenderMode[mode])
+        r.set_camera(Camera(eye=(5, 4, -60), center=(0, 0, 0),
+                            up=(0, 1, 0), fovy=45))
+        r._impl._next_jitter = lambda j=jitter.to(dev): j
+        r._impl._uniforms = Stream
+        counts = (opt.track_counter.launches, bs.counter.launches)
+        r.render()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert opt.track_counter.launches > counts[0]
+            assert (bs.counter.launches > counts[1]) == (
+                mode != "PATHTRACE_NEURAL")
+        frames.append(r.mapframe())
+    cpu, card = frames
+    assert cpu[..., 3].max() > 0
+    share = float((np.abs(card - cpu).max(-1) <= 1e-5).mean())
+    assert share >= 0.99, share

@@ -18,10 +18,12 @@ import torch
 
 from instantvnr_torch import api
 from instantvnr_torch.config import ModelConfig, NetworkConfig
+from instantvnr_torch.ops import brick_sample as bs
 from instantvnr_torch.ops import cuda_lib
 from instantvnr_torch.ops import fused_mlp as fm
 from instantvnr_torch.ops import hash_encoding as he
 from instantvnr_torch.ops import iso_sweep as isw
+from instantvnr_torch.ops import pathtrace as opt
 from instantvnr_torch.ops import slab_composite as sc
 from instantvnr_torch.render import raymarch as rm
 
@@ -57,7 +59,12 @@ def test_port_never_imports_jax_or_the_reference():
     names = {os.path.relpath(p, ROOT) for p in files}
     assert {os.path.join("instantvnr_torch", "bench.py"),
             os.path.join("instantvnr_torch", "apps", "vnr_cmd_render.py"),
-            os.path.join("instantvnr_torch", "render", "renderer.py")} <= names
+            os.path.join("instantvnr_torch", "render", "renderer.py"),
+            os.path.join("instantvnr_torch", "render", "pathtrace.py"),
+            os.path.join("instantvnr_torch", "render", "brickcache.py"),
+            os.path.join("instantvnr_torch", "ops", "pathtrace.py"),
+            os.path.join("instantvnr_torch", "ops", "brick_sample.py")
+            } <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert bad == []
@@ -85,17 +92,12 @@ def test_unported_modes_raise_naming_roadmap():
                                               log2_hashmap_size=8),
                       network=cfg.network)
     nv = api.NeuralVolume(cfg, dims=(16, 16, 16), device="cpu")
-    # the path tracer, and the neural wavefront's streaming caches (its
-    # default "auto" included), are ROADMAP item 3b
-    for mode in (api.RenderMode.PATHTRACE_DECODED,
-                 api.RenderMode.PATHTRACE_NEURAL):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            api.VNRenderer(nv, 8, 8, mode, streaming_cache="none")
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        api.VNRenderer(nv, 8, 8, api.RenderMode.NEURAL_WAVEFRONT)
-    # the ground-truth modes need a SimpleVolume
-    with pytest.raises(ValueError, match="SimpleVolume"):
-        api.VNRenderer(nv, 8, 8, api.RenderMode.FULL_SHADOW_REFERENCE)
+    # every RenderMode is ported; the ground-truth modes need a
+    # SimpleVolume
+    for mode in (api.RenderMode.FULL_SHADOW_REFERENCE,
+                 api.RenderMode.PATHTRACE_REFERENCE):
+        with pytest.raises(ValueError, match="SimpleVolume"):
+            api.VNRenderer(nv, 8, 8, mode)
     r = api.VNRenderer(nv, 8, 8)
     # native .npz checkpoints are ported; fV-SRN documents are item 5
     # (tests/test_torch_native_ckpt.py)
@@ -128,7 +130,8 @@ def test_cpu_wrappers_never_build(monkeypatch):
     x = torch.from_numpy(rng.standard_normal((33, 16)).astype(np.float32))
     counters = (fm.counter, fm.train_forward_counter, fm.backward_counter,
                 he.counter, he.backward_counter, sc.counter, sc.ext_counter,
-                isw.counter, rm.emit_counter)
+                isw.counter, rm.emit_counter, opt.track_counter,
+                opt.resolve_counter, bs.counter)
     before = [c.launches for c in counters]
     y = fm.fused_mlp_apply(ws, x, NetworkConfig(n_neurons=16,
                                                 n_hidden_layers=1))
@@ -185,6 +188,21 @@ def test_cpu_wrappers_never_build(monkeypatch):
     _, t_x, t_y, valid = rm.raymarch_emit(org, dirn, torch.full((r,), 30.0),
                                           state, mc, 1.0, 8, 8)
     assert t_x.shape == t_y.shape == valid.shape == (r, 8) and valid.any()
+    # the path tracer's event and the brick pool's sample
+    track = opt.pt_track(org, dirn, state.t, torch.full((r,), 30.0),
+                         torch.ones(r), mc.max_opacity, (20, 20, 20), 1.0, 2)
+    assert track[5].shape == (r, 3)
+    nxt = opt.pt_resolve(
+        org, dirn, torch.full((r,), 30.0), torch.ones((r, 3)),
+        torch.zeros((r, 3)), torch.zeros(r, dtype=torch.int32),
+        torch.zeros(r, dtype=torch.bool), torch.ones(r, dtype=torch.bool),
+        *track[:5], torch.rand(r), torch.rand((6, r)), ctrl, None,
+        torch.ones(15), 1.0, 1.5)
+    assert len(nxt) == 10 and nxt[7].dtype == torch.int32
+    lut = torch.tensor([0, -1], dtype=torch.int32)
+    vals = bs.brick_sample(lut, torch.rand((8000, 8)), torch.rand((r, 3)),
+                           (32, 16, 16), (2, 1, 1))
+    assert vals.shape == (r,)
     assert [c.launches for c in counters] == before
 
 
@@ -206,12 +224,14 @@ def test_loader_is_lazy():
                    timeout=120)
     srcs = [os.path.basename(p) for p in cuda_lib._sources()]
     assert {"fused_mlp.cu", "hash_encode.cu", "slab_composite.cu",
-            "iso_sweep.cu", "raymarch_emit.cu"} <= set(srcs)
+            "iso_sweep.cu", "raymarch_emit.cu", "pathtrace.cu",
+            "brick_sample.cu"} <= set(srcs)
     assert set(cuda_lib.SIGNATURES) == {
         "fused_mlp_forward", "fused_mlp_train_forward", "fused_mlp_backward",
         "hash_encode_forward", "hash_encode_backward",
         "slab_composite_forward", "slab_composite_ext_forward",
-        "iso_sweep_forward", "raymarch_emit"}
+        "iso_sweep_forward", "raymarch_emit", "pt_track", "pt_resolve",
+        "brick_sample"}
 
 
 def test_ctypes_signatures_match_sources():

@@ -268,17 +268,31 @@ def test_neural_modes_match_jax(neural, mode):
 
 
 def test_streaming_caches_and_pathtracer_raise(neural, volumes):
+    """What still raises around the streaming caches and the path tracer:
+    an unknown policy, a mode without its volume, and the schedule knobs
+    of the JAX package's compacted tracker (the policies and the path
+    tracer themselves render: tests/test_torch_brickcache.py,
+    tests/test_torch_pathtrace.py)."""
+    from instantvnr_torch.render.pathtrace import PathTraceSettings
+
     _, tnv = neural
-    for cache in ("auto", "brick", "hq", "lazy"):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            api.VNRenderer(tnv, 8, 8, api.RenderMode.NEURAL_WAVEFRONT,
-                           streaming_cache=cache)
+    with pytest.raises(ValueError, match="streaming_cache"):
+        api.VNRenderer(tnv, 8, 8, api.RenderMode.NEURAL_WAVEFRONT,
+                       streaming_cache="pool")
     r = api.VNRenderer(tnv, 8, 8, streaming_cache="auto")  # DECODED_SLAB
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        r.set_mode(api.RenderMode.PATHTRACE_NEURAL)
-    with pytest.raises(ValueError, match="SimpleVolume"):
-        api.VNRenderer(api.NeuralVolume(tnv.cfg, dims=DIMS, device="cpu"),
-                       8, 8, api.RenderMode.REFERENCE_RAYMARCH)
+    with pytest.raises(ValueError, match="streaming_cache"):
+        r.set_streaming_cache("bricks")
+    no_gt = api.NeuralVolume(tnv.cfg, dims=DIMS, device="cpu")
+    for mode in (api.RenderMode.REFERENCE_RAYMARCH,
+                 api.RenderMode.PATHTRACE_REFERENCE):
+        with pytest.raises(ValueError, match="SimpleVolume"):
+            api.VNRenderer(no_gt, 8, 8, mode)
+    for kw in ({"events_per_dispatch": 8}, {"finish_bucket": 0},
+               {"speculate": 1}, {"schedule_replay": False},
+               {"deferred_validation": False}, {"fused_replay": False}):
+        with pytest.raises(NotImplementedError, match="no counterpart"):
+            PathTraceSettings(**kw)
+    PathTraceSettings(compact=True)  # accepted: the frames are the same
     r.set_streaming_cache("none")
     r.set_mode(api.RenderMode.NEURAL_WAVEFRONT)
     r.render()
