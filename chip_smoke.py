@@ -39,7 +39,17 @@ points:
   and SSIM against the reference's bar, and against a control loop built
   here from the plain functions), on the 2^19 reference schema over three
   seeds, a breakdown of a step, and the online loop: rounds of train(10),
-  a full re-decode and a frame.
+  a full re-decode and a frame;
+- isosurfaces: mt_count + mt_emit against their plain version on the
+  vorts 128³ grid and the serving model's decoded slabs (bit for bit),
+  extract_isosurface_network on the 2^19 model (seeded and trained) with
+  its stages and peak memory, and the grid path;
+- real volumes in: a diva scene of two 256³ big-endian UNSIGNED_SHORT
+  timesteps (load, train, DECODED_SLAB, switch the timestep, again),
+  analytic training on the tubes field and out-of-core training from a
+  512³ uint8 file through the native loader (its rate, the idle share,
+  the in-core step beside it), and the data CLI (each --sampling-mode,
+  vnr_cmd_isosurface, generate_shadow_map, a render of timestep 1).
 
 Launch counts, reset before each of these paths and read after it, prove
 which kernels each ran. Any failed phase raises, so the script exits
@@ -186,6 +196,22 @@ BRICK_WAVEFRONT = (("NEURAL_WAVEFRONT", "auto"),
 # an .npz resume on the card: params and moments after one more step, as a
 # share of each array's largest entry (K4's atomics sum in a varying order)
 NPZ_RTOL = 1e-5
+# the ninth slice's training runs (2^19; analytic 250 steps, out-of-core
+# 230) must have learned: over a floor and by at least DATA_PSNR_GAIN over
+# the same model untrained (both PSNRs are logged)
+DATA_PSNR_MIN = 20.0
+DATA_PSNR_GAIN = 5.0
+# an out-of-core run and an in-core twin fed the same coords (targets
+# sampled from the volume in memory) must agree in PSNR within this; the
+# in-core run of uniform batches is no yardstick: in 230 steps the loader
+# draws ~100 of the 256 blocks, with replacement
+OOC_PSNR_GAP = 2.0
+# a batch of the native out-of-core loader against the in-memory volume's
+# trilinear sample at its coords (float32 rounding of the coords moves a
+# sample by ~3e-5 voxel; a wrong value or coordinate moves it by ~1e-2)
+OOC_BATCH_ATOL = 1e-4
+# the isovalue of the trained model's extraction (the tubes' surface)
+TRAINED_ISO = 0.25
 # the fused-MLP kernel functions that must hold tensor-core MMAs (SASS)
 MMA_KERNELS = {"fused_mlp_forward": ("fused_mlp_forward_kernel", "Lb0E"),
                "fused_mlp_train_forward": ("fused_mlp_forward_kernel",
@@ -1460,6 +1486,7 @@ def counters():
     from instantvnr_torch.ops import fused_mlp as fm
     from instantvnr_torch.ops import hash_encoding as he
     from instantvnr_torch.ops import iso_sweep as isw
+    from instantvnr_torch.ops import isosurface as mt
     from instantvnr_torch.ops import pathtrace as opt
     from instantvnr_torch.ops import slab_composite as sc
     from instantvnr_torch.render import raymarch as rm
@@ -1472,7 +1499,8 @@ def counters():
             "composite_slabs": sc.counter,
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter,
             "raymarch_emit": rm.emit_counter, "pt_track": opt.track_counter,
-            "pt_resolve": opt.resolve_counter, "brick_sample": bs.counter}
+            "pt_resolve": opt.resolve_counter, "brick_sample": bs.counter,
+            "mt_count/mt_emit": mt.counter}
 
 
 def decode_launches(torch, fn):
@@ -2349,6 +2377,572 @@ def phase_pathtrace_cuda_vs_cpu(torch):
             raise AssertionError(f"small path-traced frame disagrees: {rec}")
 
 
+# -- the ninth slice: isosurfaces, scenes, analytic and out-of-core -------
+
+
+def mt_plain(grid, iso, z0):
+    """The plain version of one slab and its masked gather, on the grid's
+    device."""
+    from instantvnr_torch.ops import isosurface as mt
+
+    tris, valid, ids = mt._extract_slab_reference(grid, iso, z0)
+    return tris[valid], ids[valid]
+
+
+def same_mesh(a, b):
+    """Two (verts, faces) numpy meshes equal bit for bit."""
+    return (a[0].shape == b[0].shape and a[1].shape == b[1].shape
+            and np.array_equal(a[0].view(np.int32), b[0].view(np.int32))
+            and np.array_equal(a[1], b[1]))
+
+
+def mt_slabs_equal(torch, grid, iso, slab):
+    """Each slab of an extraction through the kernels against the plain
+    version: (slabs, live triangles, all bit for bit)."""
+    from instantvnr_torch.ops import isosurface as mt
+
+    ok, k, n_slabs, z = True, 0, 0, 0
+    while z < grid.shape[0] - 1:
+        g = grid[z:z + slab + 1]
+        kt, ki = mt.extract_slab(g, iso, z)
+        pt, pi = mt_plain(g, iso, z)
+        ok = ok and bits_equal(torch, kt, pt) and bits_equal(torch, ki, pi)
+        k += kt.shape[0]
+        n_slabs += 1
+        z += slab
+    return n_slabs, k, ok
+
+
+def phase_isosurface_kernel(torch, vol, nv):
+    """mt_count + mt_emit against the plain version on the card: on the
+    vorts 128³ grid at its median (slabs of 32 planes, the grid path) and
+    on the 17-plane slabs of the serving model's decode (the network
+    path); tris and ids bit for bit slab by slab, then the welded mesh of
+    the whole grid against the plain slabs welded alike. Times one 33-plane
+    slab of the grid: the kernels' device time (torch.profiler) and the
+    wrapper's call (CUDA events, the host read of the count included)
+    against the plain version's."""
+    from instantvnr_torch.ops import isosurface as mt
+
+    iso = float(vol.median())
+    grid_slabs, grid_tris, grid_ok = mt_slabs_equal(torch, vol, iso, 32)
+    dec = nv.decode_volume()
+    dec_iso = float(dec.median())
+    dec_slabs, dec_tris, dec_ok = mt_slabs_equal(torch, dec, dec_iso, 16)
+    kernel_mesh = mt.extract_isosurface(vol, iso, slab=32)
+    pt, pi, z = [], [], 0
+    while z < vol.shape[0] - 1:
+        t, i = mt_plain(vol[z:z + 33], iso, z)
+        pt.append(t)
+        pi.append(i)
+        z += 32
+    v, f = mt.weld_triangles(torch.cat(pt), torch.cat(pi))
+    faces_ok = same_mesh(kernel_mesh, (v.cpu().numpy(),
+                                              f.cpu().numpy()))
+    g = vol[:33].contiguous()
+    ms = device_ms(torch, lambda: mt.extract_slab(g, iso, 0),
+                   ("mt_count", "mt_emit"))
+    # the two kernels apart, and the cumulative sum between them (CUB's
+    # scan kernels)
+    split = {name: device_ms(torch, lambda: mt.extract_slab(g, iso, 0),
+                             pats)
+             for name, pats in (("mt_count", ("mt_count",)),
+                                ("mt_emit", ("mt_emit",)),
+                                ("cumsum", ("Scan",)))}
+    call_ms = cuda_ms(torch, lambda: mt.extract_slab(g, iso, 0))
+    plain_ms = cuda_ms(torch, lambda: mt_plain(g, iso, 0), iters=3,
+                       warmup=1)
+    k = int(mt.extract_slab(g, iso, 0)[0].shape[0])
+    # bytes the function needs: the slab read once, the live triangles'
+    # 84 B written (the second read of the two-pass design is its own
+    # cost, as are the counts and their sums); the operations (a few
+    # hundred a cell) take far less
+    b_ms, b_by = bound_ms(nbytes(g) + 84 * k, 0, H100_FP32_FLOPS)
+    rec = {"phase": "isosurface_kernel", "grid": f"vorts {DIMS}",
+           "isovalue": iso, "slab_planes": 33, "live_triangles": k,
+           "grid_slabs": grid_slabs, "grid_triangles": grid_tris,
+           "decoded_slabs": dec_slabs, "decoded_isovalue": dec_iso,
+           "decoded_triangles": dec_tris,
+           "bit_for_bit": {"grid_slabs": grid_ok, "decoded_slabs": dec_ok,
+                           "welded_faces": faces_ok},
+           "grid_vertices": int(len(kernel_mesh[0])),
+           "max_abs_err": 0.0 if grid_ok and dec_ok else None,
+           "tol": "bit for bit", "ms": ms, "device_ms_by_kernel": split,
+           "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(rec)
+    if not (grid_ok and dec_ok and faces_ok) or grid_tris == 0 \
+            or dec_tris == 0:
+        raise AssertionError(f"isosurface kernels miss the plain version: "
+                             f"{rec}")
+    return rec
+
+
+def network_extraction(torch, nv, iso, name):
+    """extract_isosurface_network on nv at its dims (slabs of 17 planes),
+    every launch count set to 0 before and read after, the host clock
+    around it; then the same call once under torch.profiler, whose ranges
+    (ops/isosurface.py::_extract_loop) split it into its stages (decode,
+    kernels, weld, the copy to the host), each by its host time and the
+    device time of the kernels it launched; and its peak memory. The mesh
+    must equal the kernels' extraction of the same model's decoded
+    grid."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instantvnr_torch.ops import isosurface as mt
+
+    dims = nv.dims
+    mt.extract_isosurface_network(nv.field, nv.params, dims, iso)  # warm
+    for c in counters().values():
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    verts, faces = mt.extract_isosurface_network(nv.field, nv.params, dims,
+                                                 iso)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    launches = {n: c.launches for n, c in counters().items() if c.launches}
+    starts = list(range(0, dims[2] - 1, 16))
+    grid_mesh = mt.extract_isosurface(nv.decode_volume(), iso, slab=16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mt.extract_isosurface_network(nv.field, nv.params, dims, iso)
+        torch.cuda.synchronize()
+    stage_of = {"isosurface.slab": "decode", "isosurface.extract": "kernels",
+                "isosurface.weld": "weld", "isosurface.to_host": "host_copy"}
+    stages = {s: {"host_ms": 0.0, "device_ms": 0.0, "ranges": 0}
+              for s in stage_of.values()}
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = []
+    for e in events:
+        if e.name in stage_of and e.device_type == cpu:
+            st = stages[stage_of[e.name]]
+            st["host_ms"] += e.cpu_time_total / 1e3
+            st["ranges"] += 1
+            ranges.append((e.time_range.start, e.time_range.end,
+                           stage_of[e.name]))
+    # a device event shares its correlation id with the runtime call that
+    # launched it (cudaLaunchKernel, cudaMemcpyAsync, ...): the kernels of
+    # the ctypes wrappers too, which no aten op encloses
+    launched_at = {e.id: e.time_range.start for e in events
+                   if e.device_type == cpu and e.name.startswith("cu")}
+    device_total = 0.0
+    for e in events:
+        # (the ranges come back on the device's timeline too: not kernels)
+        if e.device_type != cuda or e.name in stage_of:
+            continue
+        device_total += kernel_us(e) / 1e3
+        t = launched_at.get(e.id)
+        for a, b, stage in ranges:
+            if t is not None and a <= t <= b:
+                stages[stage]["device_ms"] += kernel_us(e) / 1e3
+                break
+    rec = {"phase": f"isosurface_network[{name}]", "dims": dims,
+           "isovalue": iso, "slab": 16, "ms": total_ms,
+           "stages_profiled": stages,
+           "profiled_device_ms_total": device_total,
+           "unstaged_device_ms": device_total - sum(
+               st["device_ms"] for st in stages.values()),
+           "triangles": int(len(faces)), "vertices": int(len(verts)),
+           "peak_memory_bytes": int(peak), "launches": launches,
+           "equals_grid_extraction": same_mesh((verts, faces),
+                                               grid_mesh),
+           "finite": bool(np.isfinite(verts).all())}
+    log(rec)
+    want = {"mt_count/mt_emit": 2 * len(starts),
+            "fused_mlp": len(starts), "hash_encode_forward": len(starts)}
+    staged = sum(st["device_ms"] for st in stages.values())
+    if (launches != want or not rec["equals_grid_extraction"]
+            or not rec["finite"] or len(faces) == 0
+            or not 0.0 < staged <= device_total * 1.001):
+        raise AssertionError(f"{rec['phase']}: launches expected {want}, "
+                             f"the stages' device time in (0, the trace's]")
+    return rec
+
+
+def phase_isosurface_network(torch, nv, trained):
+    """The main path of the extraction at 128³ on the 2^19 model: the
+    serving model's seeded random weights at its decode's median (a noisy
+    field: a dense surface), and the model trained on vorts
+    (train_2e19[seed 0]) at TRAINED_ISO (the tubes' surface); then the
+    grid path, extract_isosurface of vorts 128³ at its median in slabs of
+    32, with its launches."""
+    from instantvnr_torch.ops import isosurface as mt
+
+    serving = network_extraction(torch, nv,
+                                 float(nv.decode_volume().median()),
+                                 "seeded")
+    network_extraction(torch, trained, TRAINED_ISO, "trained")
+    for c in counters().values():
+        c.reset()
+    vol = nv.simple.volume.data
+    mt.extract_isosurface(vol, float(vol.median()), slab=32)
+    serving["grid_path_launches"] = mt.counter.launches
+    log({"phase": "isosurface_grid_path",
+         "launches": mt.counter.launches})
+    if mt.counter.launches != 8:
+        raise AssertionError(f"the grid path launched "
+                             f"{mt.counter.launches}, not 8")
+    return serving
+
+
+def vorts_u16_volumes(dims):
+    """Two timesteps of a 256³ scene as uint16 in data units: vorts and
+    vorts mirrored in z (numpy, from the seed)."""
+    from instantvnr_torch.data.volume import synthetic_array
+
+    a, _ = synthetic_array(dims, "vorts", SEED)
+    u16 = np.round(a * 65535.0).astype(np.uint16)
+    return a, [u16, np.ascontiguousarray(u16[::-1])]
+
+
+def write_scene(tmp, vols, offset=4096):
+    """A diva scene of big-endian UNSIGNED_SHORT raw files with a header
+    of `offset` bytes, one file a timestep."""
+    names = []
+    for t, v in enumerate(vols):
+        name = f"scene_t{t}.raw"
+        with open(os.path.join(tmp, name), "wb") as f:
+            f.write(bytes(range(256)) * (offset // 256))
+            f.write(v.astype(">u2").tobytes())
+        names.append(name)
+    dz, dy, dx = vols[0].shape
+    path = os.path.join(tmp, "scene.json")
+    with open(path, "w") as f:
+        f.write("// a time series of two raw files\n" + json.dumps(
+            {"volume": {"filename": names, "dims": {"x": dx, "y": dy,
+                                                    "z": dz},
+                        "type": "UNSIGNED_SHORT", "bigendian": True,
+                        "offset": offset}}))
+    return path
+
+
+def phase_scene_load(torch, path, vols):
+    """A diva scene of two 256³ big-endian UNSIGNED_SHORT timesteps with
+    an offset: SimpleVolume(path) (load ms; the data equal to numpy's
+    normalization), 100 training steps of the 2^19 model, a DECODED_SLAB
+    frame; then the renderer switches to timestep 1 (a new macrocell),
+    100 more steps, a frame, and an ISOSURFACE_REFERENCE frame of each
+    timestep (the ground truth changes)."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.data.volume import normalize_array
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sv = api.SimpleVolume(path, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    ref0 = normalize_array(vols[0])[0]
+    exact0 = bool(np.array_equal(sv.volume.data.cpu().numpy(), ref0))
+    nv = api.NeuralVolume(ModelConfig(), sv, seed=SEED, device="cuda")
+    nv.train(100)
+    r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode.DECODED_SLAB)
+    r_iso = api.VNRenderer(sv, SIZE, SIZE, api.RenderMode.ISOSURFACE_REFERENCE)
+    frames = {}
+    for tag in ("t0", "t1"):
+        if tag == "t1":
+            t1 = time.perf_counter()
+            r.set_current_timestep(1)
+            r_iso.set_mode(r_iso.mode)
+            torch.cuda.synchronize()
+            switch_ms = (time.perf_counter() - t1) * 1e3
+            nv.train(100)
+            r.set_mode(r.mode)  # the new weights
+        for name, rr in (("decoded", r), ("isosurface", r_iso)):
+            rr.set_camera(orbit(1, N_FRAMES, max(vols[0].shape)))
+            rr.render()
+            frames[f"{name}_{tag}"] = rr.mapframe()
+    exact1 = bool(np.array_equal(sv.volume.data.cpu().numpy(),
+                                 normalize_array(vols[1])[0]))
+    iso_change = float(np.abs(frames["isosurface_t1"]
+                              - frames["isosurface_t0"]).max())
+    rec = {"phase": "scene_load", "scene": "diva, 256^3 UNSIGNED_SHORT "
+           "big-endian, offset 4096, 2 timesteps",
+           "file_bytes": int(vols[0].nbytes + 4096), "load_ms": load_ms,
+           "timestep_switch_ms": switch_ms, "data_exact": [exact0, exact1],
+           "timesteps": sv.num_timesteps, "psnr_t1": nv.get_psnr(),
+           "alpha_max": {k: float(f[..., 3].max()) for k, f in
+                         frames.items()},
+           "isosurface_frame_change": iso_change}
+    log(rec)
+    if (not (exact0 and exact1) or sv.current_timestep != 1
+            or not all(np.isfinite(f).all() for f in frames.values())
+            or min(rec["alpha_max"].values()) <= 0.05 or iso_change == 0.0):
+        raise AssertionError(f"scene_load: {rec}")
+    return rec
+
+
+def step_ms_host(torch, fn, n):
+    """ms per step of fn(n) on the host clock, synchronized at both ends
+    (the steps are host-bound: the clock sees what a user waits for), and
+    the launches of the run, every count set to 0 just before it."""
+    for c in counters().values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(n)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    return ms, {k: c.launches for k, c in counters().items() if c.launches}
+
+
+def check_train_launches(rec, launches, n):
+    """A training run of n steps launched each training kernel n times and
+    nothing else."""
+    if launches != {k: n for k in TRAIN_KERNELS}:
+        raise AssertionError(f"{rec['phase']}: launches {launches}, not "
+                             f"{n} of each of {TRAIN_KERNELS}")
+
+
+def idle_share(torch, fn, n, step_ms):
+    """The device's busy time a step over n profiled steps, and its idle
+    share of the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(n)
+        torch.cuda.synchronize()
+    busy = sum(kernel_us(e) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return busy, max(0.0, 1.0 - busy / step_ms)
+
+
+def phase_analytic_training(torch):
+    """train_steps_source on the analytic 'tubes' field: the 2^19 model,
+    B = 2^16, 200 steps after 10 of warm-up; ms a step (host clock around
+    synchronized runs, and CUDA events), then the PSNR against
+    lattice_grid at 128³."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.data.procedural import AnalyticSampler
+    from instantvnr_torch.models.metrics import psnr_vs
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.models.trainer import (create_train_state,
+                                                 train_steps_source)
+
+    field = NeuralField.from_config(ModelConfig())
+    sampler = AnalyticSampler.create("tubes", SEED)
+    box = [create_train_state(field, SEED, "cuda")]
+
+    def run(n):
+        box[0] = train_steps_source(field, sampler, box[0], n, TRAIN_BATCH)
+
+    lattice = sampler.lattice_grid(DIMS, device="cuda")
+    psnr0 = float(psnr_vs(field, box[0].params, lattice))
+    run(10)
+    ms, launches = step_ms_host(torch, run, 200)
+    events_ms = cuda_ms(torch, lambda: run(1), iters=20, warmup=0)
+    busy, idle = idle_share(torch, run, 20, ms)
+    psnr = float(psnr_vs(field, box[0].params, lattice))
+    rec = {"phase": "analytic_training", "field": "tubes",
+           "model": "ModelConfig() 2^19", "batch": TRAIN_BATCH,
+           "steps": 210 + 20 + 20, "ms_per_step": ms,
+           "ms_per_step_events": events_ms, "device_busy_ms_per_step": busy,
+           "device_idle_share": idle, "psnr_vs_lattice_128": psnr,
+           "untrained_psnr_vs_lattice_128": psnr0,
+           "loss": float(box[0].loss), "launches": launches}
+    log(rec)
+    check_train_launches(rec, launches, 200)
+    if not (math.isfinite(psnr) and psnr > DATA_PSNR_MIN
+            and psnr >= psnr0 + DATA_PSNR_GAIN):
+        raise AssertionError(f"analytic training did not learn: {rec}")
+    return rec
+
+
+def write_ooc_file(tmp, vorts256):
+    """The 512³ UNSIGNED_BYTE file: vorts 256³ with each voxel repeated
+    2× along each axis (134 MB)."""
+    u8 = np.round(vorts256 / vorts256.max() * 255.0).astype(np.uint8)
+    path = os.path.join(tmp, "vorts512_u8.raw")
+    with open(path, "wb") as f:
+        for z in range(u8.shape[0]):
+            plane = np.repeat(np.repeat(u8[z], 2, axis=0), 2, axis=1)
+            f.write(plane.tobytes())
+            f.write(plane.tobytes())
+    return path, u8
+
+
+class RecordingSampler:
+    """An out-of-core sampler whose batches' coords are kept on the host as
+    they are drawn."""
+
+    def __init__(self, inner):
+        self.inner, self.coords = inner, []
+
+    def sample_into(self, coords, values):
+        self.inner.sample_into(coords, values)
+        self.coords.append(coords.copy())
+
+    def sample(self, batch):
+        coords, values = self.inner.sample(batch)
+        self.coords.append(coords.copy())
+        return coords, values
+
+
+def phase_out_of_core_training(torch, tmp, vorts256):
+    """train_out_of_core on the 512³ uint8 file through the native loader
+    (demanded: use_native=True), 4 reader threads, 16 resident blocks of
+    32 × 32 rows (256 blocks in the file: they rotate during the run); the
+    2^19 model, B = 2^16, 200 steps. Reports ms a step, the loader's
+    Msamples/s, the blocks loaded, the device's idle share over 20
+    profiled steps, the in-core step on the same volume for comparison,
+    and the PSNRs against the volume of the model untrained, trained out
+    of core and trained in core as many steps (the out-of-core run sees
+    the blocks it draws, not the whole volume); one of the loader's
+    batches against the in-memory volume's trilinear sample at its
+    coords; and a second out-of-core run of 230 steps with its batches
+    recorded beside an in-core twin fed the same coords, targets sampled
+    from the volume in memory: their PSNRs must agree within
+    OOC_PSNR_GAP."""
+    from instantvnr_torch.config import ModelConfig, VolumeDesc
+    from instantvnr_torch.data.outofcore import OutOfCoreSampler
+    from instantvnr_torch.models.metrics import psnr_vs
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.models.trainer import (create_train_state,
+                                                 train_out_of_core,
+                                                 train_step_hostbatch,
+                                                 train_steps)
+    from instantvnr_torch.ops.trilinear import sample_volume_tex
+
+    path, u8 = write_ooc_file(tmp, vorts256)
+    desc = VolumeDesc(filename=path, dims=tuple(2 * s for s in u8.shape),
+                      dtype="UNSIGNED_BYTE")
+    t0 = time.perf_counter()
+    sampler = OutOfCoreSampler(desc, block_y=32, block_z=32, n_resident=16,
+                               n_threads=4, use_native=True, seed=SEED)
+    open_ms = (time.perf_counter() - t0) * 1e3
+    msps = sampler.measure_throughput(TRAIN_BATCH, 2.0) / 1e6
+    field = NeuralField.from_config(ModelConfig())
+    box = [create_train_state(field, SEED, "cuda")]
+    vol = torch.as_tensor(np.repeat(np.repeat(np.repeat(
+        u8, 2, 0), 2, 1), 2, 2), device="cuda").to(torch.float32)
+    lo, hi = sampler.value_range
+    vol = (vol - lo) / (hi - lo)
+    psnr0 = float(psnr_vs(field, box[0].params, vol))
+
+    def run(n):
+        box[0] = train_out_of_core(field, sampler, box[0], n, TRAIN_BATCH)
+
+    run(10)
+    loads0 = sampler.loads()
+    ms, launches = step_ms_host(torch, run, 200)
+    loads = sampler.loads() - loads0
+    busy, idle = idle_share(torch, run, 20, ms)
+    psnr = float(psnr_vs(field, box[0].params, vol))
+    coords, values = sampler.sample(TRAIN_BATCH)
+    coords = torch.as_tensor(coords, device="cuda")
+    values = torch.as_tensor(values[:, 0], device="cuda")
+    batch_err = float((sample_volume_tex(vol, coords) - values).abs().max())
+    coords_in_unit = bool(((coords >= 0) & (coords <= 1)).all())
+    incore = [create_train_state(field, SEED, "cuda")]
+
+    def run_incore(n):
+        incore[0] = train_steps(field, vol, incore[0], n, TRAIN_BATCH)
+
+    run_incore(10)
+    incore_ms, in_launches = step_ms_host(torch, run_incore, 200)
+    in_busy, in_idle = idle_share(torch, run_incore, 20, incore_ms)
+    incore_psnr = float(psnr_vs(field, incore[0].params, vol))
+    recording = RecordingSampler(sampler)
+    twin_ooc = train_out_of_core(field, recording,
+                                 create_train_state(field, SEED, "cuda"),
+                                 230, TRAIN_BATCH)
+    twin_in = create_train_state(field, SEED, "cuda")
+    for c in recording.coords:
+        c = torch.as_tensor(c, device="cuda")
+        twin_in = train_step_hostbatch(field, twin_in, c,
+                                       sample_volume_tex(vol, c)[:, None])
+    twins = {"steps": len(recording.coords),
+             "out_of_core_psnr": float(psnr_vs(field, twin_ooc.params, vol)),
+             "incore_same_coords_psnr": float(psnr_vs(field, twin_in.params,
+                                                      vol))}
+    rec = {"phase": "out_of_core_training", "file": "512^3 UNSIGNED_BYTE "
+           "(vorts 256^3, each voxel 2x along each axis)",
+           "file_bytes": desc.n_bytes, "native": sampler.is_native,
+           "value_range": sampler.value_range, "n_resident": 16,
+           "blocks_in_file": (desc.dims[1] // 32) * (desc.dims[2] // 32),
+           "threads": 4, "open_ms": open_ms,
+           "loader_msamples_per_s": msps, "blocks_loaded_in_200_steps": loads,
+           "ms_per_step": ms, "device_busy_ms_per_step": busy,
+           "device_idle_share": idle, "psnr_vs_volume": psnr,
+           "untrained_psnr_vs_volume": psnr0,
+           "incore_psnr_vs_volume": incore_psnr,
+           "batch_vs_volume_max_abs": batch_err, "batch_tol": OOC_BATCH_ATOL,
+           "twins": twins,
+           "incore_ms_per_step": incore_ms,
+           "incore_device_busy_ms_per_step": in_busy,
+           "incore_device_idle_share": in_idle,
+           "out_of_core_over_incore": ms / incore_ms, "launches": launches}
+    sampler.close()
+    del vol
+    log(rec)
+    check_train_launches(rec, launches, 200)
+    check_train_launches(rec, in_launches, 200)
+    rotating = rec["blocks_in_file"] > 16
+    if (not rec["native"] or (rotating and loads <= 16)
+            or not math.isfinite(psnr) or not psnr > DATA_PSNR_MIN
+            or psnr < psnr0 + DATA_PSNR_GAIN
+            or not coords_in_unit or not batch_err <= OOC_BATCH_ATOL
+            or twins["steps"] != 230
+            or not abs(twins["out_of_core_psnr"]
+                       - twins["incore_same_coords_psnr"]) <= OOC_PSNR_GAP):
+        raise AssertionError(f"out_of_core_training: {rec}")
+    return rec
+
+
+def phase_cli_data(torch, tmp, scene):
+    """The data CLI on the card, in-process, at full width (the default
+    ModelConfig()): vnr_cmd_train --scene in each sampling mode (gpu and
+    out-of-core on timestep 1, analytic on tubes), vnr_cmd_isosurface of
+    the grid and of a checkpoint, generate_shadow_map and vnr_cmd_render
+    --scene --timestep 1."""
+    from instantvnr_torch.apps import generate_shadow_map, vnr_cmd_isosurface
+    from instantvnr_torch.apps import vnr_cmd_render, vnr_cmd_train
+
+    out = {}
+    for mode in ("gpu", "out-of-core", "analytic"):
+        src = (["--synthetic", "vorts", "--dims", "128"] if mode == "analytic"
+               else ["--scene", scene, "--timestep", "1"])
+        npz = os.path.join(tmp, f"cli_{mode}.npz")
+        t0 = time.perf_counter()
+        nv = vnr_cmd_train.main(src + ["--sampling-mode", mode,
+                                       "--max-num-steps", "50", "--save",
+                                       npz, "--report-psnr"])
+        out[f"train_{mode}_s"] = time.perf_counter() - t0
+        out[f"train_{mode}_loss"] = nv.get_training_loss()
+    obj = os.path.join(tmp, "cli_grid.obj")
+    v, f = vnr_cmd_isosurface.main(["--scene", scene, "--isovalue", "0.3",
+                                    "--output", obj])
+    out["iso_grid"] = [int(len(v)), int(len(f))]
+    v2, f2 = vnr_cmd_isosurface.main(["--load", os.path.join(
+        tmp, "cli_gpu.npz"), "--isovalue", "0.3", "--output",
+        os.path.join(tmp, "cli_net.obj")])
+    out["iso_network"] = [int(len(v2)), int(len(f2))]
+    s = generate_shadow_map.main(["--scene", scene, "--output",
+                                  os.path.join(tmp, "shadow.raw")])
+    out["shadow_mean"] = float(s.mean())
+    frame = vnr_cmd_render.main(["--scene", scene, "--timestep", "1",
+                                 "--mode", "reference", "--size", "256",
+                                 "--num-frames", "2", "--warmup", "1",
+                                 "--output", os.path.join(tmp, "scene.png")])
+    out["render_alpha_max"] = float(frame[..., 3].max())
+    rec = {"phase": "cli_data", **out}
+    log(rec)
+    if (not all(math.isfinite(out[f"train_{m}_loss"])
+                for m in ("gpu", "out-of-core", "analytic"))
+            or len(f) == 0 or not np.isfinite(v).all()
+            or not np.isfinite(s).all() or out["render_alpha_max"] <= 0.05
+            or not np.isfinite(frame).all()):
+        raise AssertionError(f"cli_data: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2490,6 +3084,19 @@ def main() -> int:
     phase_train_breakdown(torch, nv19)
     phase_online_loop(torch, nv19)
 
+    # -- isosurfaces on the kernels; scenes, analytic and out-of-core -----
+    iso_k = phase_isosurface_kernel(torch, vol, nv)
+    iso_net = phase_isosurface_network(torch, nv, nv19)
+    del nv19
+    with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
+        vorts256, vols = vorts_u16_volumes((256, 256, 256))
+        scene = write_scene(tmp, vols)
+        phase_scene_load(torch, scene, vols)
+        phase_analytic_training(torch)
+        phase_out_of_core_training(torch, tmp, vorts256)
+        del vorts256, vols
+        phase_cli_data(torch, tmp, scene)
+
     # launches: totals over the main-path runs (the plain orbit with its
     # decode, then the four views; the wavefront modes; the path tracer's
     # modes and the brick wavefront; the 1000 steps of train_2e14)
@@ -2500,6 +3107,9 @@ def main() -> int:
         add_launches(total, d)
     for name in TRAIN_KERNELS:
         total[name] += train14["launches"][name]
+    # the extraction's runs: the network path and the grid path
+    add_launches(total, iso_net["launches"])
+    total["mt_count/mt_emit"] += iso_net["grid_path_launches"]
     csrc = "instantvnr_torch/csrc/"
     tpu = "instantvnr_tpu/ops/pallas/"
 
@@ -2542,6 +3152,10 @@ def main() -> int:
         row("brick_sample", "brick_sample.cu",
             "instantvnr_tpu/render/brickcache.py:762",
             bricks["f16,ss1,exact"]),
+        # XLA in JAX: the dense emission of marching tetrahedra and the
+        # host's compaction of its slots (one 33-plane slab of the grid)
+        row("mt_count/mt_emit", "isosurface.cu",
+            "instantvnr_tpu/ops/isosurface.py:87", iso_k),
     ]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -13,11 +13,12 @@ import zlib
 
 import numpy as np
 
-_BREADTH_ITEM = ("ROADMAP 'Next slices' item 5 (data and model breadth: "
-                 "scene files, raw and VDB volumes)")
-# the grid synthetics the port has (data/volume.py); the JAX package's
-# analytic fields are item 5
-SYNTHETIC_KINDS = ("vorts", "sphere", "noise")
+_VDB_ITEM = ("ROADMAP 'Next slices' item 5 (data and model breadth: VDB "
+             "volumes, fV-SRN and the paired hash)")
+# the grid synthetics and the analytic fields at the decode lattice
+# (data/volume.py::synthetic_array, data/procedural.py)
+SYNTHETIC_KINDS = ("vorts", "sphere", "noise", "tubes", "wavelet", "xyz",
+                   "marschner-lobb")
 
 
 def add_device_arg(p: argparse.ArgumentParser):
@@ -27,9 +28,11 @@ def add_device_arg(p: argparse.ArgumentParser):
 
 def add_volume_args(p: argparse.ArgumentParser):
     g = p.add_argument_group("volume")
-    g.add_argument("--scene", help="scene JSON (not ported yet)")
+    g.add_argument("--scene", help="scene JSON (diva or vidi dialect)")
     g.add_argument("--synthetic", choices=SYNTHETIC_KINDS,
-                   help="procedural volume")
+                   help="procedural volume instead of a scene file (with "
+                   "--sampling-mode analytic, the analytic field trained "
+                   "with no volume)")
     g.add_argument("--dims", type=int, nargs="+", default=[64],
                    help="synthetic volume dims (1 or 3 ints)")
     g.add_argument("--volume", help=".vdb volume file (not ported yet)")
@@ -52,15 +55,26 @@ def volume_dims(args) -> tuple:
     return tuple(d * 3) if len(d) == 1 else tuple(d)
 
 
+def check_volume_arg(args):
+    """--volume reads .vdb files, which are not ported yet (raw volumes
+    come through a scene JSON, which gives their dims and type)."""
+    vol = getattr(args, "volume", None)
+    if vol and not vol.endswith(".vdb"):
+        raise SystemExit(f"--volume {vol}: only .vdb files are read here "
+                         "(raw volumes need a scene JSON for dims and type)")
+    if vol or getattr(args, "vdb_grid", None):
+        raise NotImplementedError(".vdb volumes are not ported yet: "
+                                  + _VDB_ITEM)
+
+
 def load_simple_volume(args):
-    """The SimpleVolume the arguments name: --synthetic (default vorts)."""
+    """The SimpleVolume the arguments name: --scene, else --synthetic
+    (default vorts)."""
     from instantvnr_torch.api import SimpleVolume
 
-    for opt in ("scene", "volume", "vdb_grid"):
-        if getattr(args, opt, None):
-            raise NotImplementedError(
-                f"--{opt.replace('_', '-')} is not ported yet: "
-                + _BREADTH_ITEM)
+    check_volume_arg(args)
+    if args.scene:
+        return SimpleVolume(args.scene, device=args.device)
     return SimpleVolume.synthetic(dims=volume_dims(args),
                                   kind=args.synthetic or "vorts",
                                   device=args.device)

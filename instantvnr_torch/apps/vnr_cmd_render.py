@@ -9,8 +9,9 @@ The neural wavefront modes take `--streaming-cache` (default "auto", a
 brick pool; "none" is exact per-sample network evaluation); `pathtrace`,
 `pathtrace-neural` and `pathtrace-reference` run the path tracer on the
 decoded grid (the ground truth without a checkpoint), the network and the
-ground truth. `--profile` (an Xprof trace in the JAX package) is ROADMAP
-item 7.
+ground truth. `--scene s.json --timestep k` renders a scene's timestep,
+from the scene's camera unless `--camera` is given. `--profile` (an Xprof
+trace in the JAX package) is ROADMAP item 7.
 """
 from __future__ import annotations
 
@@ -90,6 +91,9 @@ def main(argv=None):
                    help="eye position (default: auto-framed)")
     p.add_argument("--isovalue", type=float, default=0.5,
                    help="isovalue of the isosurface modes")
+    p.add_argument("--timestep", type=int, default=0,
+                   help="time-series volumes: render this timestep "
+                   "(vnrSimpleVolumeSetCurrentTimeStep, api.h:118)")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="trace of the timed frames (not ported yet)")
     p.add_argument("--orbit", action="store_true",
@@ -116,6 +120,9 @@ def main(argv=None):
             raise SystemExit("--load or a volume source is required")
         subject, dims = simple, simple.dims
     mode = render_mode(args.mode, args.load is not None)
+    if args.timestep and simple is not None:
+        print(f"[vnr] timestep {args.timestep}/{simple.num_timesteps}")
+        simple.set_current_timestep(args.timestep)
 
     r = VNRenderer(subject, width=args.size, height=args.size, mode=mode,
                    streaming_cache=args.streaming_cache)
@@ -133,8 +140,14 @@ def main(argv=None):
             r.enable_shadows()
     center0, up0, fovy0 = (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 45.0
     d = max(dims)
-    eye0 = (tuple(args.camera) if args.camera
-            else (0.15 * d, 0.1 * d, -2.0 * d))
+    if args.camera:
+        eye0 = tuple(args.camera)
+    elif simple is None or simple.camera_cfg is None:
+        eye0 = (0.15 * d, 0.1 * d, -2.0 * d)
+    else:  # the scene's camera
+        c = simple.camera_cfg
+        eye0, center0, up0, fovy0 = (tuple(c.eye), tuple(c.center),
+                                     tuple(c.up), c.fovy)
     r.set_camera(Camera(eye=eye0, center=center0, up=up0, fovy=fovy0))
 
     def orbit_camera(i: int) -> Camera:

@@ -1,18 +1,22 @@
 """Typed configuration: the tcnn model schema, transfer-function and camera
 configs, and the reference's compile-time constants.
 
-Counterpart of `instantvnr_tpu/config.py`, restricted to what the decode +
-slab-render path needs. The JAX package's TPU dispatch knobs (`mlp_impl`,
+Counterpart of `instantvnr_tpu/config.py`, with the scene half (raw-volume
+descriptors, the vidi and diva scene dialects, time series). The JAX
+package's TPU dispatch knobs (`mlp_impl`,
 `grid_grad_impl`, `grid_fwd_impl`) have no counterpart: in this package the
 device of a tensor decides between a CUDA kernel and its plain version.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
 from dataclasses import dataclass, field
 from typing import Any
+
+import numpy as np
 
 MACROCELL_SIZE_MIP = 4  # cell = 2^4 = 16 voxels/side (reference CMakeLists.txt:61)
 NEARLY_ONE = 0.9999  # early-termination opacity (reference instantvnr_types.h:160)
@@ -21,6 +25,12 @@ NEARLY_ONE = 0.9999  # early-termination opacity (reference instantvnr_types.h:1
 def env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v else default
+
+
+def env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v else default
+
 
 _COMMENT_RE = re.compile(r'("(?:[^"\\]|\\.)*")|(//[^\n]*)|(/\*.*?\*/)', re.S)
 
@@ -182,6 +192,67 @@ def load_model_config(path_or_dict) -> ModelConfig:
         return model_config_from_dict(loads_relaxed_json(f.read()))
 
 
+# dtype names of the reference scene schema (serializer.cpp:25-34)
+VALUE_TYPES: dict[str, np.dtype] = {
+    "BYTE": np.dtype(np.int8),
+    "UNSIGNED_BYTE": np.dtype(np.uint8),
+    "SHORT": np.dtype(np.int16),
+    "UNSIGNED_SHORT": np.dtype(np.uint16),
+    "INT": np.dtype(np.int32),
+    "UNSIGNED_INT": np.dtype(np.uint32),
+    "FLOAT": np.dtype(np.float32),
+    "DOUBLE": np.dtype(np.float64),
+}
+VALUE_TYPE_NAMES = {v: k for k, v in VALUE_TYPES.items()}
+
+
+@dataclass(frozen=True)
+class VolumeDesc:
+    """A raw-file volume descriptor (reference serializer.cpp:19-24,138-170)."""
+
+    filename: str
+    dims: tuple[int, int, int]  # (x, y, z)
+    dtype: str = "FLOAT"  # key into VALUE_TYPES
+    offset: int = 0
+    bigendian: bool = False
+    # normalization range in data units (the diva dialect's "range" key,
+    # reference serializer.cpp:141-146). None: computed from the data
+    # (in-core normalize_array; out-of-core a streaming scan, the
+    # reference's StaticSampler fallback, neural_sampler.cpp:251-264)
+    value_range: tuple[float, float] | None = None
+    # time series: one file per timestep (reference MultiVolume::data,
+    # instantvnr_types.h:40-56; diva 'filename' and vidi 'dataSource'
+    # arrays, serializer.cpp:148-163, 330-344). Empty: one timestep at
+    # `filename`.
+    timestep_files: tuple = ()
+
+    @property
+    def n_timesteps(self) -> int:
+        return max(1, len(self.timestep_files))
+
+    def at_timestep(self, index: int) -> "VolumeDesc":
+        """Descriptor of one timestep (vnrSimpleVolumeSetCurrentTimeStep)."""
+        if not self.timestep_files:
+            if index != 0:
+                raise IndexError("single-timestep volume")
+            return self
+        return dataclasses.replace(
+            self, filename=self.timestep_files[index], timestep_files=())
+
+    @property
+    def np_dtype(self) -> np.dtype:
+        dt = VALUE_TYPES[self.dtype]
+        return dt.newbyteorder(">") if self.bigendian else dt
+
+    @property
+    def n_voxels(self) -> int:
+        return self.dims[0] * self.dims[1] * self.dims[2]
+
+    @property
+    def n_bytes(self) -> int:
+        return self.n_voxels * self.np_dtype.itemsize
+
+
 @dataclass(frozen=True)
 class CameraConfig:
     """Look-at camera (reference serializer.cpp:178-187)."""
@@ -202,3 +273,153 @@ class TransferFunctionConfig:
     # (position in [0,1], alpha) control points
     alphas: tuple = ((0.0, 0.0), (1.0, 1.0))
     range: tuple[float, float] = (0.0, 1.0)  # value range in DATA units
+
+
+@dataclass(frozen=True)
+class SceneConfig:
+    volume: VolumeDesc
+    camera: CameraConfig = field(default_factory=CameraConfig)
+    tfn: TransferFunctionConfig = field(default_factory=TransferFunctionConfig)
+
+
+def _pick_existing(filenames, base_dir: str) -> str:
+    """'fileName' may be a list: the first that exists, else the first,
+    each relative to the scene file (serializer.cpp:118-133)."""
+    if isinstance(filenames, str):
+        filenames = [filenames]
+    for fn in filenames:
+        cand = fn if os.path.isabs(fn) else os.path.join(base_dir, fn)
+        if os.path.exists(cand):
+            return cand
+    fn = filenames[0]
+    return fn if os.path.isabs(fn) else os.path.join(base_dir, fn)
+
+
+def _vec3(d: Any) -> tuple[float, float, float]:
+    if isinstance(d, dict):
+        return (float(d["x"]), float(d["y"]), float(d["z"]))
+    return (float(d[0]), float(d[1]), float(d[2]))
+
+
+def _scene_from_vidi(root: dict, base_dir: str) -> SceneConfig:
+    """The 'vidi' dialect: dataSource/view keys (serializer.cpp:253-300).
+    A 'dataSource' array is a time series, each entry a timestep sharing
+    the first entry's dims and type (serializer.cpp:330-344)."""
+    ds = root["dataSource"]
+    steps: tuple = ()
+    if isinstance(ds, list):
+        if len(ds) > 1:
+            steps = tuple(_pick_existing(d["fileName"], base_dir) for d in ds)
+        ds = ds[0]
+    dims = _vec3(ds["dimensions"])
+    vol = VolumeDesc(
+        filename=_pick_existing(ds["fileName"], base_dir),
+        dims=(int(dims[0]), int(dims[1]), int(dims[2])),
+        dtype=ds["type"],
+        offset=int(ds.get("offset", 0)),
+        bigendian=(ds.get("endian", "LITTLE_ENDIAN") == "BIG_ENDIAN"),
+        timestep_files=steps,
+    )
+    cam = CameraConfig()
+    tfn = TransferFunctionConfig()
+    view = root.get("view", {})
+    if "camera" in view:
+        jc = view["camera"]
+        cam = CameraConfig(eye=_vec3(jc["eye"]), center=_vec3(jc["center"]),
+                           up=_vec3(jc["up"]), fovy=float(jc.get("fovy", 60.0)))
+    if "volume" in view and "transferFunction" in view["volume"]:
+        tfn = _tfn_from_json(view["volume"]["transferFunction"],
+                             view["volume"], vol)
+    return SceneConfig(volume=vol, camera=cam, tfn=tfn)
+
+
+def _tfn_from_json(jt: dict, jsvolume: dict,
+                   vol: VolumeDesc) -> TransferFunctionConfig:
+    """A tfn-module transfer function: opacity and color control points
+    and the dtype-dependent range scaling (serializer.cpp:190-250)."""
+    colors = []
+    for c in jt.get("colorControls", jt.get("color", [])):
+        if isinstance(c, dict):
+            colors.append((float(c.get("position", c.get("p", 0.0))),
+                           float(c.get("r", c.get("red", 0.0))),
+                           float(c.get("g", c.get("green", 0.0))),
+                           float(c.get("b", c.get("blue", 0.0)))))
+    alphas = []
+    for a in jt.get("opacityControls", jt.get("opacity", [])):
+        if isinstance(a, dict):
+            alphas.append((float(a.get("position", a.get("x", 0.0))),
+                           float(a.get("value", a.get("y", 0.0)))))
+        else:
+            alphas.append((float(a[0]), float(a[1])))
+    # endpoint alphas under 0.01 become exactly 0 (serializer.cpp:209-210)
+    if alphas:
+        if alphas[0][1] < 0.01:
+            alphas[0] = (alphas[0][0], 0.0)
+        if alphas[-1][1] < 0.01:
+            alphas[-1] = (alphas[-1][0], 0.0)
+    lo, hi = 0.0, 1.0
+    if "scalarMappingRangeUnnormalized" in jsvolume:
+        r = jsvolume["scalarMappingRangeUnnormalized"]
+        lo, hi = float(r["minimum"]), float(r["maximum"])
+    elif "scalarMappingRange" in jsvolume:
+        r = jsvolume["scalarMappingRange"]
+        rx, ry = float(r["minimum"]), float(r["maximum"])
+        # dtype-dependent scaling (serializer.cpp:222-247)
+        scale = {
+            "UNSIGNED_BYTE": 255.0,
+            "BYTE": 127.0,
+            "UNSIGNED_SHORT": 65535.0,
+            "SHORT": 32767.0,
+            "UNSIGNED_INT": 4294967295.0,
+            "INT": 2147483647.0,
+        }.get(vol.dtype, 1.0)
+        lo, hi = rx * scale, ry * scale
+    return TransferFunctionConfig(
+        colors=tuple(colors) or TransferFunctionConfig.colors,
+        alphas=tuple(alphas) or TransferFunctionConfig.alphas,
+        range=(lo, hi),
+    )
+
+
+def _scene_from_diva(root: dict, base_dir: str) -> SceneConfig:
+    """The 'diva' dialect: a top-level 'volume' key
+    (serializer.cpp:138-170). A 'filename' array is a time series."""
+    config = root["volume"]
+    dims = _vec3(config["dims"])
+    fns = config["filename"]
+    steps: tuple = ()
+    if isinstance(fns, list) and len(fns) > 1:
+        steps = tuple(fn if os.path.isabs(fn) else os.path.join(base_dir, fn)
+                      for fn in fns)
+    # the reference requires "range" here (serializer.cpp:141); without
+    # it the range comes from the data
+    vr = None
+    if "range" in config:
+        r = config["range"]
+        rx, ry = ((r["x"], r["y"]) if isinstance(r, dict) else (r[0], r[1]))
+        vr = (float(rx), float(ry))
+    vol = VolumeDesc(
+        filename=steps[0] if steps else _pick_existing(fns, base_dir),
+        dims=(int(dims[0]), int(dims[1]), int(dims[2])),
+        dtype=config["type"],
+        offset=int(config.get("offset", 0)),
+        bigendian=bool(config.get("bigendian", False)),
+        timestep_files=steps,
+        value_range=vr,
+    )
+    return SceneConfig(volume=vol)
+
+
+def load_scene_config(path: str) -> SceneConfig:
+    base_dir = os.path.dirname(os.path.abspath(path))
+    with open(path) as f:
+        root = loads_relaxed_json(f.read())
+    if "dataSource" in root:
+        return _scene_from_vidi(root, base_dir)
+    if "volume" in root:
+        return _scene_from_diva(root, base_dir)
+    raise ValueError(f"unrecognized scene JSON dialect in {path}")
+
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

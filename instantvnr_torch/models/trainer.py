@@ -29,9 +29,6 @@ from instantvnr_torch.ops.trilinear import sample_volume_tex
 
 DEFAULT_TRAIN_BATCH = 1 << 16  # reference core/network.cu:183
 
-_BREADTH_ITEM = ("ROADMAP 'Next slices' item 5 (data and model breadth: "
-                 "analytic sources and out-of-core training)")
-
 
 class TrainState(NamedTuple):
     params: dict
@@ -165,11 +162,70 @@ def test_loss(field: NeuralField, volume: torch.Tensor, state: TrainState,
     return torch.mean(torch.abs(pred - targets))
 
 
-def train_steps_source(*args, **kwargs):
-    raise NotImplementedError("training from an analytic source is not "
-                              "ported yet: " + _BREADTH_ITEM)
+def train_steps_source(field: NeuralField, sampler, state: TrainState,
+                       n_steps: int, batch: int = DEFAULT_TRAIN_BATCH
+                       ) -> TrainState:
+    """n_steps from an analytic source (the reference's OpenVKL modes,
+    neural_sampler.cpp:714-958): each batch's values come from the
+    sampler's field (data/procedural.py::AnalyticSampler), evaluated on
+    the batch's device, in place of a volume's texture; no volume exists
+    anywhere."""
+    for _ in range(n_steps):
+        coords, targets = sampler.sample(state.generator, batch)
+        state = _apply(field, state, coords, targets)
+    return state
 
 
-def train_out_of_core(*args, **kwargs):
-    raise NotImplementedError("out-of-core training is not ported yet: "
-                              + _BREADTH_ITEM)
+def train_out_of_core(field: NeuralField, sampler, state: TrainState,
+                      n_steps: int, batch: int) -> TrainState:
+    """Training from a host-side sampler (data/outofcore.py::
+    OutOfCoreSampler): the reference's OutOfCoreSampler::sample →
+    cudaMemcpyAsync → training_step (neural_sampler.cpp:1066-1120).
+
+    On the card, two pinned host batches alternate. A worker thread fills
+    batch k + 1 through the sampler's `sample_into` (the native sampler
+    runs without the interpreter lock) while this thread issues step k,
+    and each batch's copy to the card is a non-blocking copy followed by
+    an event: the sampler writes into a buffer only after the event of
+    that buffer's last copy has passed, so no batch is overwritten while
+    its copy is in flight. On the CPU the batches come from `sample` and
+    are consumed in turn."""
+    dev = state.params["table"].device
+    if dev.type != "cuda":
+        for _ in range(n_steps):
+            coords, targets = sampler.sample(batch)
+            state = train_step_hostbatch(field, state,
+                                         torch.from_numpy(coords).to(dev),
+                                         torch.from_numpy(targets).to(dev))
+        return state
+    if n_steps <= 0:
+        return state
+    from concurrent.futures import ThreadPoolExecutor
+
+    bufs = [(torch.empty((batch, 3), dtype=torch.float32, pin_memory=True),
+             torch.empty((batch, 1), dtype=torch.float32, pin_memory=True))
+            for _ in range(2)]
+    copied = [None, None]  # the event after each buffer's last copy
+
+    def fill(slot: int):
+        if copied[slot] is not None:
+            copied[slot].synchronize()
+        c, v = bufs[slot]
+        sampler.sample_into(c.numpy(), v.numpy())
+
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(fill, 0)
+        for i in range(n_steps):
+            slot = i % 2
+            pending.result()
+            c, v = bufs[slot]
+            coords = c.to(dev, non_blocking=True)
+            targets = v.to(dev, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            copied[slot] = ev
+            # the prefetch after the last step would be read for nothing
+            if i + 1 < n_steps:
+                pending = pool.submit(fill, 1 - slot)
+            state = train_step_hostbatch(field, state, coords, targets)
+    return state

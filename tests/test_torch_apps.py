@@ -1,8 +1,11 @@
 """The port's CLI (instantvnr_torch/apps) and bench line, in-process on
 --device cpu at a small size: train → .npz and .bson → resume → render in
 each ported mode → view_model, and `instantvnr_torch.bench` printing one
-JSON line with the named keys. The PNG writer (zlib and struct only) is
-held to a decoder written here."""
+JSON line with the named keys; the data apps on a two-timestep scene:
+train in each --sampling-mode, vnr_cmd_isosurface of the grid and of a
+checkpoint (the OBJ byte for byte the JAX app's), generate_shadow_map (the
+raw file the JAX app's within 1e-5) and a render of the second timestep.
+The PNG writer (zlib and struct only) is held to a decoder written here."""
 import json
 import struct
 import zlib
@@ -10,8 +13,12 @@ import zlib
 import numpy as np
 import pytest
 
+from instantvnr_torch.api import SimpleVolume
+from instantvnr_torch.data.volume import synthetic_array
+
 from instantvnr_torch import bench
-from instantvnr_torch.apps import common, view_model, vnr_cmd_render
+from instantvnr_torch.apps import common, generate_shadow_map, view_model
+from instantvnr_torch.apps import vnr_cmd_isosurface, vnr_cmd_render
 from instantvnr_torch.apps import vnr_cmd_train
 
 MODEL = {"encoding": {"otype": "HashGrid", "n_levels": 2,
@@ -116,7 +123,12 @@ def test_unported_options_raise(trained):
         vnr_cmd_render.main(["--device", "cpu", "--load", bson,
                              "--profile", "trace"])
     with pytest.raises(NotImplementedError, match="item 5"):
-        vnr_cmd_train.main(["--device", "cpu", "--scene", "scene.json"])
+        vnr_cmd_train.main(["--device", "cpu", "--volume", "v.vdb"])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        vnr_cmd_train.main(["--device", "cpu", "--volume", "v.vdb",
+                            "--sampling-mode", "out-of-core"])
+    with pytest.raises(SystemExit):
+        vnr_cmd_train.main(["--device", "cpu", "--volume", "v.raw"])
 
 
 def test_view_model(trained):
@@ -147,3 +159,96 @@ def test_bench_prints_one_json_line(capsys):
                               "power_limit": None}
     assert bench.METRIC == ("neural decode+slab-render fps @ 512x512 "
                             "(hash 2^14)")
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    """A diva scene of two 16³ big-endian UNSIGNED_SHORT timesteps with a
+    32-byte header, and the small model JSON."""
+    tmp = tmp_path_factory.mktemp("scene")
+    names = []
+    for t, kind in enumerate(("vorts", "sphere")):
+        a, _ = synthetic_array((16, 16, 16), kind)
+        with open(tmp / f"t{t}.raw", "wb") as f:
+            f.write(b"\0" * 32)
+            f.write((a * 60000.0).astype(">u2").tobytes())
+        names.append(f"t{t}.raw")
+    path = tmp / "scene.json"
+    path.write_text(json.dumps({"volume": {
+        "filename": names, "dims": {"x": 16, "y": 16, "z": 16},
+        "type": "UNSIGNED_SHORT", "bigendian": True, "offset": 32}}))
+    model = tmp / "model.json"
+    model.write_text(json.dumps(MODEL))
+    return tmp, str(path), str(model)
+
+
+@pytest.mark.parametrize("mode", ["gpu", "out-of-core", "analytic"])
+def test_train_sampling_modes(scene, mode):
+    tmp, path, model = scene
+    src = (["--synthetic", "vorts", "--dims", "16"] if mode == "analytic"
+           else ["--scene", path, "--timestep", "1"])
+    out = str(tmp / f"{mode}.npz")
+    nv = vnr_cmd_train.main(src + ["--device", "cpu", "--model", model,
+                                   "--batch", "1024", "--max-num-steps",
+                                   "20", "--sampling-mode", mode, "--save",
+                                   out, "--report-psnr"])
+    assert nv.step == 20 and np.isfinite(nv.get_training_loss())
+    assert nv.dims == (16, 16, 16)
+    if mode == "gpu":
+        assert nv.simple.current_timestep == 1
+    back = vnr_cmd_render.main(["--device", "cpu", "--load", out,
+                                "--size", "16", "--num-frames", "1",
+                                "--warmup", "0", "--output", ""])
+    assert np.isfinite(back).all()
+
+
+def test_isosurface_app_matches_jax_obj(scene):
+    from instantvnr_tpu.ops import isosurface as jiso
+
+    tmp, path, model = scene
+    obj = str(tmp / "grid.obj")
+    v, f = vnr_cmd_isosurface.main(["--device", "cpu", "--scene", path,
+                                    "--isovalue", "0.3", "--output", obj])
+    assert len(f) > 100 and np.isfinite(v).all()
+    data = SimpleVolume(path, device="cpu").volume.data.numpy()
+    jv, jf = jiso.extract_isosurface(data, 0.3)
+    jiso.save_obj(jv, jf, str(tmp / "jax.obj"))
+    with open(obj, "rb") as a, open(tmp / "jax.obj", "rb") as b:
+        assert a.read() == b.read()
+    soup = vnr_cmd_isosurface.main(["--device", "cpu", "--scene", path,
+                                    "--isovalue", "0.3", "--no-weld",
+                                    "--output", str(tmp / "soup.obj")])
+    assert len(soup[0]) == 3 * len(f)
+    vnr_cmd_train.main(["--device", "cpu", "--scene", path, "--model", model,
+                        "--batch", "2048", "--max-num-steps", "30",
+                        "--save", str(tmp / "iso.npz")])
+    nv, nf = vnr_cmd_isosurface.main(["--device", "cpu", "--load",
+                                      str(tmp / "iso.npz"), "--isovalue",
+                                      "0.3", "--output",
+                                      str(tmp / "net.obj")])
+    assert len(nf) > 0 and np.isfinite(nv).all()
+
+
+def test_shadow_map_and_scene_render(scene):
+    from instantvnr_tpu.api import SimpleVolume as JSimpleVolume
+    from instantvnr_tpu.render.shadow import shadow_volume_for as j_shadow
+
+    tmp, path, _ = scene
+    out = str(tmp / "shadow.raw")
+    s = generate_shadow_map.main(["--device", "cpu", "--scene", path,
+                                  "--output", out])
+    assert s.shape == (16, 16, 16)
+    jsv = JSimpleVolume(path)
+    ref = np.asarray(j_shadow(jsv.volume.data, jsv.tf, (0.7, 0.9, 0.4), 1.0))
+    np.testing.assert_allclose(np.fromfile(out, np.float32).reshape(s.shape),
+                               ref, atol=1e-5)
+    frames = [vnr_cmd_render.main(["--device", "cpu", "--scene", path,
+                                   "--timestep", str(t), "--mode",
+                                   "isosurface-reference", "--size", "16",
+                                   "--num-frames", "1", "--warmup", "0",
+                                   "--isovalue", "0.3", "--output",
+                                   str(tmp / f"t{t}.png")])
+              for t in (0, 1)]
+    assert all(np.isfinite(f).all() and f[..., 3].max() > 0.05
+               for f in frames)
+    assert np.abs(frames[1] - frames[0]).max() > 0.1

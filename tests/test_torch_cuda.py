@@ -922,3 +922,122 @@ def test_pathtrace_frame_on_card_matches_cpu(cuda, mode):
     assert cpu[..., 3].max() > 0
     share = float((np.abs(card - cpu).max(-1) <= 1e-5).mean())
     assert share >= 0.99, share
+
+
+def _smooth_grid(shape, seed):
+    """A smooth random [sz, sy, sx] grid: noise averaged along each axis."""
+    g = torch.rand(shape, generator=torch.Generator().manual_seed(seed))
+    for axis in range(3):
+        g = 0.5 * g + 0.25 * (g.roll(1, axis) + g.roll(-1, axis))
+    return g
+
+
+@pytest.mark.parametrize("shape,z0", [((9, 13, 17), 0), ((2, 5, 3), 7),
+                                      ((33, 40, 31), 96), ((17, 64, 64), 16)])
+@pytest.mark.parametrize("where", ["median", "low", "outside"])
+def test_isosurface_kernels_match_plain(cuda, shape, z0, where):
+    """mt_count + mt_emit against the plain dense emission and its masked
+    gather, on the card and on the CPU: tris and ids bit for bit, in the
+    same order; one launch when the slab has no triangle, two otherwise."""
+    from instantvnr_torch.ops import isosurface as mt
+
+    grid = _smooth_grid(shape, sum(shape))
+    iso = {"median": float(grid.median()), "low": float(grid.min()) + 1e-3,
+           "outside": 2.0}[where]
+    g = grid.to(cuda)
+    before = mt.counter.launches
+    tris, ids = mt.extract_slab(g, iso, z0)
+    torch.cuda.synchronize()
+    k = tris.shape[0]
+    assert mt.counter.launches == before + (2 if k else 1)
+    assert (k == 0) == (where == "outside")
+    pt, pv, pi = mt._extract_slab_reference(g, iso, z0)
+    ct, ci = mt.extract_slab(grid, iso, z0)
+    for ref_t, ref_i in ((pt[pv], pi[pv]), (ct.to(cuda), ci.to(cuda))):
+        assert torch.equal(tris.view(torch.int32), ref_t.view(torch.int32))
+        assert torch.equal(ids, ref_i)
+
+
+def test_extract_isosurface_on_card_matches_cpu(cuda):
+    """The welded mesh of a grid and of a network (slabs decoded on the
+    card) equal the CPU's extraction of the same grid, the card's decode
+    of the network included."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.metrics import decode_volume
+    from instantvnr_torch.models.network import (NeuralField,
+                                                 params_from_numpy,
+                                                 render_params)
+    from instantvnr_torch.ops import isosurface as mt
+
+    grid = _smooth_grid((40, 36, 30), 3)
+    iso = float(grid.median())
+    cv, cf = mt.extract_isosurface(grid, iso, slab=16)
+    gv, gf = mt.extract_isosurface(grid.to(cuda), iso, slab=16)
+    assert len(cf) > 0
+    np.testing.assert_array_equal(gf, cf)
+    np.testing.assert_array_equal(gv.view(np.int32), cv.view(np.int32))
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=2,
+                                              n_features_per_level=4,
+                                              log2_hashmap_size=10),
+                      network=NetworkConfig(n_neurons=16, n_hidden_layers=2))
+    field = NeuralField.from_config(cfg)
+    rng = np.random.default_rng(4)
+    params = params_from_numpy({
+        "table": rng.uniform(-1, 1, (field.spec.n_entries, 4)).astype(
+            np.float32),
+        "mlp": [(rng.standard_normal(s) * np.sqrt(2.0 / s[0])).astype(
+            np.float32) for s in ((8, 16), (16, 16), (16, 1))]}, "cuda")
+    dims = (30, 36, 40)
+    dec = decode_volume(field, render_params(params, field), dims)
+    iso = float(dec.median())
+    nv_, nf = mt.extract_isosurface_network(field, params, dims, iso)
+    dv, df = mt.extract_isosurface(dec.cpu(), iso, slab=16)
+    assert len(nf) > 0
+    np.testing.assert_array_equal(nf, df)
+    np.testing.assert_array_equal(nv_.view(np.int32), dv.view(np.int32))
+
+
+def test_train_out_of_core_pinned_batches(cuda, monkeypatch):
+    """The card's double-buffered path hands each step the batch the
+    sampler wrote for it, in order, though the sampler fills the other
+    pinned buffer while the step's copy may be in flight."""
+    from instantvnr_torch.models import trainer
+
+    class Counting:
+        """A sampler writing batch i as coords = i + u and values = i."""
+
+        def __init__(self):
+            self.i = 0
+
+        def sample_into(self, coords, values):
+            coords[...] = self.i + np.random.default_rng(self.i).random(
+                coords.shape, np.float32)
+            values[...] = self.i
+            self.i += 1
+
+    seen = []
+
+    def record(field, state, coords, targets):
+        # a copy on the card, in stream order after the batch's own copy;
+        # the spin keeps the card behind the host
+        assert coords.device.type == "cuda"
+        seen.append((coords.clone(), targets.clone()))
+        torch.cuda._sleep(1_000_000)
+        return state
+
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField
+
+    monkeypatch.setattr(trainer, "train_step_hostbatch", record)
+    field = NeuralField.from_config(ModelConfig(encoding=EncodingConfig(
+        n_levels=2, n_features_per_level=2, log2_hashmap_size=8)))
+    state = trainer.create_train_state(field, 0, "cuda")
+    sampler = Counting()
+    trainer.train_out_of_core(field, sampler, state, 12, 4096)
+    torch.cuda.synchronize()
+    assert sampler.i == 12 and len(seen) == 12
+    for i, (c, v) in enumerate(seen):
+        np.testing.assert_array_equal(
+            c.cpu().numpy(),
+            i + np.random.default_rng(i).random((4096, 3), np.float32))
+        assert (v.cpu().numpy() == i).all()

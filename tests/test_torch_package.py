@@ -23,6 +23,7 @@ from instantvnr_torch.ops import cuda_lib
 from instantvnr_torch.ops import fused_mlp as fm
 from instantvnr_torch.ops import hash_encoding as he
 from instantvnr_torch.ops import iso_sweep as isw
+from instantvnr_torch.ops import isosurface as mt
 from instantvnr_torch.ops import pathtrace as opt
 from instantvnr_torch.ops import slab_composite as sc
 from instantvnr_torch.render import raymarch as rm
@@ -63,7 +64,10 @@ def test_port_never_imports_jax_or_the_reference():
             os.path.join("instantvnr_torch", "render", "pathtrace.py"),
             os.path.join("instantvnr_torch", "render", "brickcache.py"),
             os.path.join("instantvnr_torch", "ops", "pathtrace.py"),
-            os.path.join("instantvnr_torch", "ops", "brick_sample.py")
+            os.path.join("instantvnr_torch", "ops", "brick_sample.py"),
+            os.path.join("instantvnr_torch", "ops", "isosurface.py"),
+            os.path.join("instantvnr_torch", "data", "outofcore.py"),
+            os.path.join("instantvnr_torch", "data", "procedural.py")
             } <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
@@ -76,6 +80,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         api.NeuralVolume(ModelConfig(), dims=(32, 32, 32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.SimpleVolume.synthetic((16, 16, 16))
+    from instantvnr_torch.data.procedural import AnalyticSampler
+    from instantvnr_torch.data.volume import synthetic_volume
+
+    vol = synthetic_volume((8, 8, 8), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.SimpleVolume([vol, vol])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AnalyticSampler.create("tubes").lattice_grid((8, 8, 8))
     nv = api.NeuralVolume(ModelConfig(), dims=(16, 16, 16), device="cpu")
     from instantvnr_torch.render.decoded import DecodedRenderer
 
@@ -131,7 +143,7 @@ def test_cpu_wrappers_never_build(monkeypatch):
     counters = (fm.counter, fm.train_forward_counter, fm.backward_counter,
                 he.counter, he.backward_counter, sc.counter, sc.ext_counter,
                 isw.counter, rm.emit_counter, opt.track_counter,
-                opt.resolve_counter, bs.counter)
+                opt.resolve_counter, bs.counter, mt.counter)
     before = [c.launches for c in counters]
     y = fm.fused_mlp_apply(ws, x, NetworkConfig(n_neurons=16,
                                                 n_hidden_layers=1))
@@ -203,6 +215,10 @@ def test_cpu_wrappers_never_build(monkeypatch):
     vals = bs.brick_sample(lut, torch.rand((8000, 8)), torch.rand((r, 3)),
                            (32, 16, 16), (2, 1, 1))
     assert vals.shape == (r,)
+    # marching tetrahedra: the plain dense emission and its masked gather
+    tris, ids = mt.extract_slab(torch.rand((5, 6, 7)), 0.5, 3)
+    assert tris.shape[1:] == (3, 3) and ids.shape[1:] == (3, 4)
+    assert len(tris) > 0
     assert [c.launches for c in counters] == before
 
 
@@ -225,13 +241,13 @@ def test_loader_is_lazy():
     srcs = [os.path.basename(p) for p in cuda_lib._sources()]
     assert {"fused_mlp.cu", "hash_encode.cu", "slab_composite.cu",
             "iso_sweep.cu", "raymarch_emit.cu", "pathtrace.cu",
-            "brick_sample.cu"} <= set(srcs)
+            "brick_sample.cu", "isosurface.cu"} <= set(srcs)
     assert set(cuda_lib.SIGNATURES) == {
         "fused_mlp_forward", "fused_mlp_train_forward", "fused_mlp_backward",
         "hash_encode_forward", "hash_encode_backward",
         "slab_composite_forward", "slab_composite_ext_forward",
         "iso_sweep_forward", "raymarch_emit", "pt_track", "pt_resolve",
-        "brick_sample"}
+        "brick_sample", "mt_count", "mt_emit"}
 
 
 def test_ctypes_signatures_match_sources():
