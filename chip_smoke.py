@@ -2442,13 +2442,13 @@ def phase_isosurface_kernel(torch, vol, nv):
     g = vol[:33].contiguous()
     ms = device_ms(torch, lambda: mt.extract_slab(g, iso, 0),
                    ("mt_count", "mt_emit"))
-    # the two kernels apart, and the cumulative sum between them (CUB's
-    # scan kernels)
+    # the two kernels apart, and the zeroing of mt_count's workspace (a
+    # PyTorch fill) before them
     split = {name: device_ms(torch, lambda: mt.extract_slab(g, iso, 0),
                              pats)
              for name, pats in (("mt_count", ("mt_count",)),
                                 ("mt_emit", ("mt_emit",)),
-                                ("cumsum", ("Scan",)))}
+                                ("zero_workspace", ("FillFunctor",)))}
     call_ms = cuda_ms(torch, lambda: mt.extract_slab(g, iso, 0))
     plain_ms = cuda_ms(torch, lambda: mt_plain(g, iso, 0), iters=3,
                        warmup=1)

@@ -83,10 +83,10 @@ SIGNATURES = {
     # t_out, tfar_out, tau_out, thr_out, rad_out, si_out, shadow_out,
     # active_out, stream
     "pt_resolve": (_P,) * 16 + (_I, _P, _I, _P, _F, _F, _L) + (_P,) * 11,
-    # grid, iso, sz, sy, sx, counts, stream
-    "mt_count": (_P, _F, _I, _I, _I, _P, _P),
-    # grid, iso, z_offset, sz, sy, sx, ends, tris, ids, stream
-    "mt_emit": (_P, _F, _I, _I, _I, _I, _P, _P, _P, _P),
+    # grid, iso, sz, sy, sx, ws, cases, stream
+    "mt_count": (_P, _F, _I, _I, _I, _P, _P, _P),
+    # grid, iso, z_offset, sz, sy, sx, ws, cases, tris, ids, stream
+    "mt_emit": (_P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 

@@ -6,8 +6,9 @@ Each cell of a z-slab splits into the 6 Kuhn tetrahedra; a tetrahedron
 whose corners straddle the isovalue emits one or two triangles whose
 vertices lie on its edges. `extract_slab` returns the live triangles of a
 slab: for CUDA grids the two kernels of `csrc/isosurface.cu` (`mt_count`
-counts each cell's triangles, a cumulative sum gives each cell its offset,
-`mt_emit` writes them there), for CPU grids the plain version
+counts each cell's triangles and publishes each block's sum, `mt_emit`
+writes a block's triangles after those of the blocks before it), for CPU
+grids the plain version
 `_extract_slab_reference` (JAX's dense emission of every slot with a
 validity mask, line for line) followed by the masked gather. Both give
 the triangles in the same order: cell-major (z, y, x), then tetrahedron,
@@ -27,6 +28,7 @@ from torch.profiler import record_function
 from instantvnr_torch.ops.cuda_lib import LaunchCounter
 
 counter = LaunchCounter()  # one a launch: mt_count and mt_emit, per slab
+_CELLS_A_BLOCK = 256  # csrc/isosurface.cu kCells
 
 # Kuhn/Freudenthal 6-tetrahedron subdivision: each tet is a monotone path
 # 0 → 7 adding one axis bit at a time, so adjacent cubes share their face
@@ -150,8 +152,10 @@ def extract_slab(grid: torch.Tensor, isovalue: float, z_offset: int):
     """The live triangles of a slab: grid [sz, sy, sx] float32 →
     (tris [k, 3, 3] float32 voxel coords (x, y, z), ids [k, 3, 4] int32),
     in the plain version's order. CUDA grids launch `mt_count` and
-    `mt_emit` (one host read of the triangle count between them); CPU
-    grids take the plain version and its masked gather."""
+    `mt_emit` (one host read of the triangle count between them, from
+    `mt_count`'s workspace: the count and each block's; `mt_count` also
+    hands `mt_emit` each cell's packed cases); CPU grids take the plain
+    version and its masked gather."""
     if grid.device.type == "cpu":
         tris, valid, ids = _extract_slab_reference(grid, isovalue, z_offset)
         return tris[valid], ids[valid]
@@ -166,23 +170,31 @@ def extract_slab(grid: torch.Tensor, isovalue: float, z_offset: int):
     sz, sy, sx = grid.shape
     dev = grid.device
     n = max(sz - 1, 0) * max(sy - 1, 0) * max(sx - 1, 0)
+    if grid.numel() >= 1 << 31 or 12 * n >= 1 << 31:
+        raise ValueError(f"the kernels count a slab's voxels and triangles "
+                         f"(<= 12 a cell) in int32; {tuple(grid.shape)} is "
+                         f"too large: extract it in thinner slabs")
     if n == 0:
         return (torch.zeros((0, 3, 3), dtype=torch.float32, device=dev),
                 torch.zeros((0, 3, 4), dtype=torch.int32, device=dev))
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     iso = float(np.float32(isovalue))
-    counts = torch.empty((n,), dtype=torch.int32, device=dev)
-    lib.call("mt_count", grid.data_ptr(), iso, sz, sy, sx, counts.data_ptr(),
-             stream)
+    blocks = -(-n // _CELLS_A_BLOCK)
+    # [the slab's triangles, each block's], zero on entry
+    ws = torch.zeros((1 + blocks,), dtype=torch.int64, device=dev)
+    # each cell's packed cases and count, from mt_count to mt_emit
+    cases = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib.call("mt_count", grid.data_ptr(), iso, sz, sy, sx, ws.data_ptr(),
+             cases.data_ptr(), stream)
     counter.launches += 1
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)  # inclusive offsets
-    k = int(ends[-1])  # the one host read: the output's size
+    k = int(ws[0])  # the one host read: the output's size
     tris = torch.empty((k, 3, 3), dtype=torch.float32, device=dev)
     ids = torch.empty((k, 3, 4), dtype=torch.int32, device=dev)
     if k:
         lib.call("mt_emit", grid.data_ptr(), iso, int(z_offset), sz, sy, sx,
-                 ends.data_ptr(), tris.data_ptr(), ids.data_ptr(), stream)
+                 ws.data_ptr(), cases.data_ptr(), tris.data_ptr(),
+                 ids.data_ptr(), stream)
         counter.launches += 1
     return tris, ids
 

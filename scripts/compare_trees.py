@@ -35,7 +35,17 @@ checks as its phases). Per run, one JSON line:
   and the compositor of a plain and of a shaded + shadowed frame);
 - the online round (train(10), full decode, one frame; median of rounds
   2-6) and the training step at 2^19 (CUDA events over 100 steps, and its
-  device busy time from torch.profiler over 20).
+  device busy time from torch.profiler over 20);
+- the wavefront's emission kernel at `chip_smoke.phase_raymarch_emit`'s
+  shapes (R = 512², K = 8, 8 skips; device time) and the marching-
+  tetrahedra kernels on its 33-plane slab of vorts 128³ (the kernels'
+  device time, all the call's device work, the call by CUDA events);
+- NEURAL_WAVEFRONT at 512² on the 2^19 model with chip_smoke's seeded
+  weights (`chip_smoke.run_wavefront_mode`: 6 orbit frames by the host
+  clock, one profiled), and the network's isosurface at 128³ on the 2^19
+  model after this script's 220 training steps at `chip_smoke.TRAINED_ISO`
+  (`chip_smoke.network_extraction`, 3 times: the median ms, the last
+  call's stages).
 
 Then the card's name and power limit, as nvidia-smi prints them. Needs one
 card.
@@ -164,6 +174,7 @@ def measure():
     iso = float(vol.median())
     rec["iso_sweep_ms"] = cs.device_ms(
         torch, lambda: isw.iso_sweep(*iso_args, iso), ("iso_sweep_kernel",))
+    rec.update(emission_and_isosurface(torch, cs, sv))
     nv = api.NeuralVolume(ModelConfig(), sv, seed=0, device="cuda",
                           train_batch=cs.TRAIN_BATCH)
     r = api.VNRenderer(nv, cs.SIZE, cs.SIZE, api.RenderMode.DECODED_SLAB)
@@ -213,7 +224,62 @@ def measure():
     rec["step_ms"] = start.elapsed_time(end) / 100
     rec["step_device_busy_ms"] = cs.device_ms(
         torch, lambda: nv.train(20, fast_mode=True), ("",), iters=1) / 20
+    rec.update(wavefront_and_extraction(torch, cs, sv, nv))
     print(json.dumps(rec), flush=True)
+
+
+def emission_and_isosurface(torch, cs, sv):
+    """raymarch_emit and the marching-tetrahedra kernels at the smoke's
+    shapes, through the tree's own wrappers."""
+    from instantvnr_torch.ops import isosurface as mt
+    from instantvnr_torch.render import raymarch as rm
+
+    org, dirn, t0, t1, _ = cs.wavefront_rays(
+        torch, sv, cs.SIZE, cs.SIZE, cs.orbit(1, cs.N_FRAMES, max(cs.DIMS)))
+    mc, k, skips = sv.macrocell, 8, 8
+    state = rm.init_ray_state(t0, t1)
+    (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state, mc, 1.0, k,
+                                        skips)
+    state = state._replace(t=t, t_cell_end=tce, ss=ss)
+    out = {"raymarch_emit_ms": cs.device_ms(
+        torch, lambda: rm.raymarch_emit(org, dirn, t1, state, mc, 1.0, k,
+                                        skips), ("raymarch_emit_kernel",))}
+    vol = sv.volume.data
+    g, iso = vol[:33].contiguous(), float(vol.median())
+
+    def slab():
+        return mt.extract_slab(g, iso, 0)
+
+    out.update(isosurface_kernels_ms=cs.device_ms(torch, slab,
+                                                  ("mt_count", "mt_emit")),
+               isosurface_slab_device_ms=cs.device_ms(torch, slab, ("",)),
+               isosurface_slab_call_ms=cs.cuda_ms(torch, slab))
+    return out
+
+
+def wavefront_and_extraction(torch, cs, sv, nv):
+    """A NEURAL_WAVEFRONT orbit on the seeded 2^19 model, and the trained
+    nv's isosurface at 128³."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import params_from_numpy
+
+    nv_w = api.NeuralVolume(ModelConfig(), sv, device="cuda")
+    nv_w.params = params_from_numpy(cs.seeded_params(nv_w.field, cs.SEED),
+                                    "cuda")
+    cs.WAVEFRONT_FRAMES = 6
+    wf = cs.run_wavefront_mode(torch, nv_w, "NEURAL_WAVEFRONT")
+    del nv_w
+    ext = [cs.network_extraction(torch, nv, cs.TRAINED_ISO, "trained")
+           for _ in range(3)]
+    return {"neural_wavefront_frame_ms": wf["frame_ms"],
+            "neural_wavefront_ms_median": float(np.median(wf["frame_ms"])),
+            "neural_wavefront_supersteps": wf["supersteps"],
+            "neural_wavefront_profiled": wf["profiled_frame"],
+            "extraction_ms": [e["ms"] for e in ext],
+            "extraction_ms_median": float(np.median([e["ms"] for e in ext])),
+            "extraction_triangles": ext[-1]["triangles"],
+            "extraction_stages": ext[-1]["stages_profiled"]}
 
 
 def main():

@@ -651,6 +651,42 @@ def test_raymarch_emit_kernel_matches_plain(cuda, w, h, k, skips):
     assert emitted > 1000
 
 
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("w,h", [(64, 64), (300, 167)])
+@pytest.mark.parametrize("k", [1, 8, 16, 32, 40])
+def test_raymarch_emit_kernel_edges(cuda, k, w, h, dead):
+    """The edges of the staged design: K = 1 (a tile of one slot), 8, 16,
+    32 (the most slots staged at once) and 40 (two chunks, each stored a
+    row segment a ray); R a multiple of the block of
+    128 rays (64²) and not (300 × 167, a ragged last block); with `dead`,
+    whole blocks of rays whose range is empty (t_far at or before t) and
+    a dead stretch that ends inside a block. Three supersteps from the
+    carried state, all seven outputs bit for bit the plain version's."""
+    from instantvnr_torch.render import raymarch as rm
+
+    sv, org, dirn, t0, t1, _ = _wavefront_rays(cuda, w, h)
+    t_far = t1.clone()
+    if dead:
+        t_far[128:640] = t0[128:640]
+        t_far[1000:1100] = -1.0
+    state = rm.init_ray_state(t0, t_far)
+    emitted = 0
+    for _ in range(3):
+        got = rm.raymarch_emit(org, dirn, t_far, state, sv.macrocell, 1.0,
+                               k, 8)
+        torch.cuda.synchronize()
+        ref = rm._emit_samples(org, dirn, t_far, state, sv.macrocell, 1.0,
+                               k, 8)
+        for g, r in zip(got[0] + got[1:], ref[0] + ref[1:]):
+            assert torch.equal(g, r)
+        if dead:
+            assert not ref[3][128:640].any()
+        emitted += int(ref[3].sum())
+        state = state._replace(t=ref[0][0], t_cell_end=ref[0][1],
+                               ss=ref[0][2])
+    assert emitted > 100
+
+
 @pytest.mark.parametrize("shading,neural", [("none", True), ("ssh", False)])
 def test_wavefront_frame_on_card_matches_cpu(cuda, shading, neural):
     """A NEURAL_WAVEFRONT frame (a 2-level model, seeded weights) and a
@@ -953,6 +989,42 @@ def test_isosurface_kernels_match_plain(cuda, shape, z0, where):
     assert (k == 0) == (where == "outside")
     pt, pv, pi = mt._extract_slab_reference(g, iso, z0)
     ct, ci = mt.extract_slab(grid, iso, z0)
+    for ref_t, ref_i in ((pt[pv], pi[pv]), (ct.to(cuda), ci.to(cuda))):
+        assert torch.equal(tris.view(torch.int32), ref_t.view(torch.int32))
+        assert torch.equal(ids, ref_i)
+
+
+def _checkerboard(shape):
+    z, y, x = np.meshgrid(*(np.arange(n) for n in shape), indexing="ij")
+    return torch.from_numpy(((x + y + z) % 2).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["checkerboard", "ragged_tail"])
+def test_isosurface_kernels_dense_and_ragged(cuda, case):
+    """The edges of the one-thread-a-triangle design: a checkerboard grid,
+    where every cell emits 12 triangles (whole blocks of 256 cells write
+    3,072 triangles each, in 12 rounds), and a slab whose few live cells
+    all lie in its last, ragged block (4 × 16 × 18 cells: 4 whole blocks
+    and 128). tris and ids bit for bit and in order against the plain
+    version, on the card and on the CPU; two launches."""
+    from instantvnr_torch.ops import isosurface as mt
+
+    if case == "checkerboard":
+        grid, z0, want = _checkerboard((9, 40, 33)), 5, 8 * 39 * 32 * 12
+    else:
+        grid, z0 = torch.zeros((5, 17, 19)), 64
+        grid[4, 15:, 10:] = 1.0
+        want = None
+    g = grid.to(cuda)
+    before = mt.counter.launches
+    tris, ids = mt.extract_slab(g, 0.5, z0)
+    torch.cuda.synchronize()
+    assert mt.counter.launches == before + 2
+    if want is not None:
+        assert tris.shape[0] == want
+    pt, pv, pi = mt._extract_slab_reference(g, 0.5, z0)
+    ct, ci = mt.extract_slab(grid, 0.5, z0)
+    assert tris.shape[0] > 0
     for ref_t, ref_i in ((pt[pv], pi[pv]), (ct.to(cuda), ci.to(cuda))):
         assert torch.equal(tris.view(torch.int32), ref_t.view(torch.int32))
         assert torch.equal(ids, ref_i)

@@ -13,8 +13,8 @@ Tolerances:
   rounds near-iso values apart and moves their crossings);
 - save_obj: JAX's file byte for byte.
 The kernel (csrc/isosurface.cu) is held to the plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py); here its constant tables are
-held to the plain version's.
+(tests/test_torch_cuda.py, chip_smoke.py); here its tables are held to
+the plain version's.
 """
 import os
 import re
@@ -41,6 +41,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _grid(kind):
+    if kind == "checkerboard":  # every cell emits 12 triangles
+        z, y, x = np.meshgrid(*(np.arange(24),) * 3, indexing="ij")
+        return ((x + y + z) % 2).astype(np.float32)
     return np.array(j_synthetic((24, 24, 24), kind=kind).data)
 
 
@@ -52,7 +55,10 @@ def test_tables_match_jax():
 
 
 def test_kernel_tables_match_plain_version():
-    """The kernel's __constant__ tables are the plain version's."""
+    """The kernel's tables (kTets, kEdgePairs, kCaseTris, from which it
+    packs its shared-memory form) are the plain version's, and so is the
+    compile-time copy of the tets that keeps a cell's corners in registers
+    (kTetCorners)."""
     with open(os.path.join(ROOT, "instantvnr_torch", "csrc",
                            "isosurface.cu")) as f:
         src = f.read()
@@ -62,13 +68,14 @@ def test_kernel_tables_match_plain_version():
         return np.array([int(v) for v in re.findall(r"-?\d+", body)])
 
     np.testing.assert_array_equal(table("kTets"), iso._TETS.ravel())
+    np.testing.assert_array_equal(table("kTetCorners"), iso._TETS.ravel())
     np.testing.assert_array_equal(table("kEdgePairs"),
                                   iso._EDGE_PAIRS.ravel())
     np.testing.assert_array_equal(table("kCaseTris"),
                                   iso._CASE_TRIS_PER_TET.ravel())
 
 
-@pytest.mark.parametrize("kind", ["sphere", "vorts"])
+@pytest.mark.parametrize("kind", ["sphere", "vorts", "checkerboard"])
 def test_dense_slab_matches_jax(kind):
     grid = _grid(kind)[5:14]
     isov = float(np.median(grid))
@@ -76,6 +83,8 @@ def test_dense_slab_matches_jax(kind):
                                     jnp.float32(5))
     tt, tv, ti = iso._extract_slab_reference(torch.from_numpy(grid), isov, 5)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    if kind == "checkerboard":
+        assert tv.numpy().all()
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=0,
                                atol=VERT_ATOL)

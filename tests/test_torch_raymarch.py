@@ -88,7 +88,7 @@ def _rays(case):
 
 
 @pytest.mark.parametrize("case", TRANSFORMS)
-@pytest.mark.parametrize("k,skips", [(8, 8), (16, 1)])
+@pytest.mark.parametrize("k,skips", [(8, 8), (16, 1), (1, 8), (32, 8)])
 def test_emit_samples_equal_jax(scene, case, k, skips):
     _, _, _, _, jm, tm, _ = scene
     _, org, dirn, t0, t1, _, _, _ = _rays(case)
