@@ -49,7 +49,16 @@ points:
   analytic training on the tubes field and out-of-core training from a
   512³ uint8 file through the native loader (its rate, the idle share,
   the in-core step beside it), and the data CLI (each --sampling-mode,
-  vnr_cmd_isosurface, generate_shadow_map, a render of timestep 1).
+  vnr_cmd_isosurface, generate_shadow_map, a render of timestep 1);
+- the interactive path: the port's vnr_int_online for 30 frames at 2^14
+  (its default) and at 2^19 (each frame's launches held to the slice's:
+  10 training steps through K1 train, K2, K3, K4, 2 decode blobs through
+  K3 + K1, one composite_slabs), the web viewer in-process on 127.0.0.1
+  driven over HTTP through a camera drag, a TF edit, shading and three
+  modes with training on (its served frames a second, split into
+  training, render and PNG encode), the facade's setters small on the
+  card against the CPU with memory_query and free_temporary_memory, and
+  vnr_cmd_render --profile writing a Chrome trace that names the kernels.
 
 Launch counts, reset before each of these paths and read after it, prove
 which kernels each ran. Any failed phase raises, so the script exits
@@ -109,6 +118,10 @@ SEEDS_2E14 = (0, 1, 2, 3, 4)
 SEEDS_2E19 = (0, 1, 2)
 TAIL_CHUNKS = 10  # the PSNR after each of the last 10 chunks of 10 steps
 ONLINE_ROUNDS = 5
+# the online app (apps/vnr_int_online.py): frames, steps and blobs a frame
+ONLINE_FRAMES, ONLINE_STEPS, ONLINE_BLOBS = 30, 10, 2
+# the viewer: seconds of served frames timed in DECODED_SLAB with training
+VIEWER_WINDOW_S = 3.0
 # bars: SSIM (kernel runs' median) and the 2^19 median are asserted; the
 # 55 dB of one 2^14 run is reported against the measured spread (PERF.md);
 # the kernel path may not lose more than KERNEL_LOSS_MAX_DB against its
@@ -1004,6 +1017,424 @@ def phase_online_loop(torch, nv):
         prev = frame
     rec = {"phase": "online_loop", "layout": "2^19", "rounds": rounds,
            "ms_per_round": float(np.mean([x["ms"] for x in rounds[1:]]))}
+    log(rec)
+    return rec
+
+
+def model_json(tmp, log2):
+    """A model file of the reference schema with a 2^log2 hash table."""
+    path = os.path.join(tmp, f"model{log2}.json")
+    with open(path, "w") as f:
+        json.dump({"encoding": {"log2_hashmap_size": log2}}, f)
+    return path
+
+
+def phase_online_app(torch, tmp, log2):
+    """The port's vnr_int_online at full width, vorts 128³ at 512²:
+    ONLINE_FRAMES frames of train(ONLINE_STEPS), ONLINE_BLOBS decode blobs
+    and a DECODED_SLAB frame. 2^14 is the app's default (the JAX package's
+    cap); 2^19 the reference schema through --model. Each frame's
+    launches (read at the end of its render) must be the slice's, every
+    frame finite, the last one visible, the steps 10 a frame in the CSV,
+    and the final PSNR over DATA_PSNR_MIN."""
+    from instantvnr_torch.apps import vnr_int_online
+    from instantvnr_torch.render import decoded
+
+    name = f"online_app[2^{log2}]"
+    csv_path = os.path.join(tmp, f"online{log2}.csv")
+    argv = ["--synthetic", "vorts", "--dims", str(DIMS[0]), "--size",
+            str(SIZE), "--frames", str(ONLINE_FRAMES),
+            "--train-steps-per-frame", str(ONLINE_STEPS),
+            "--infer-blobs-per-frame", str(ONLINE_BLOBS), "--log", csv_path]
+    if log2 != 14:
+        argv += ["--model", model_json(tmp, log2)]
+    render = decoded.DecodedRenderer.render
+    frames, per_frame, seen = [], [], {}
+
+    def recording(self):
+        out = render(self)
+        now = {n: c.launches for n, c in counters().items()}
+        per_frame.append({n: now[n] - seen.get(n, 0) for n in now})
+        seen.update(now)
+        frames.append(out)
+        return out
+
+    for c in counters().values():
+        c.reset()
+    decoded.DecodedRenderer.render = recording
+    t0 = time.perf_counter()
+    try:
+        nv, dec = vnr_int_online.main(argv)
+    finally:
+        decoded.DecodedRenderer.render = render
+    wall_s = time.perf_counter() - t0
+    psnr = nv.get_psnr()
+    stages = online_stages(torch, nv, dec)
+    with open(csv_path) as f:
+        rows = [ln.strip().split(",") for ln in f]
+    header, rows = rows[0], rows[1:]
+    col = {k: [float(r[i]) for r in rows] for i, k in enumerate(header)}
+    stack = torch.stack([f.reshape(SIZE, SIZE, 4) for f in frames])
+    alpha = stack[..., 3].amax(dim=(1, 2)).cpu().numpy()
+    expect = {n: 0 for n in counters()}
+    expect.update({n: ONLINE_STEPS for n in TRAIN_KERNELS},
+                  fused_mlp=ONLINE_BLOBS, composite_slabs=1)
+    expect["hash_encode_forward"] += ONLINE_BLOBS
+    launches = {n: sum(f[n] for f in per_frame) for n in counters()}
+    rec = {"phase": name, "model": f"ModelConfig() at 2^{log2}",
+           "frames": len(rows), "wall_s": wall_s,
+           "train_ms_median": float(np.median(col["train_ms"][1:])),
+           "render_ms_median": float(np.median(col["render_ms"][1:])),
+           "fps_median": float(np.median(col["fps"][1:])),
+           "first_frame_ms": col["train_ms"][0] + col["render_ms"][0],
+           "steps": [int(v) for v in col["step"]],
+           "loss_last": col["loss"][-1],
+           "alpha_max_last": float(alpha[-1]),
+           "all_finite": bool(torch.isfinite(stack).all()),
+           "psnr": psnr, "psnr_min": DATA_PSNR_MIN, "stages": stages,
+           "launches_per_frame_expected": expect,
+           "frames_with_expected_launches": sum(f == expect
+                                                for f in per_frame),
+           "launches": launches}
+    log({k: v for k, v in rec.items() if k != "steps"})
+    if (header != ["frame", "step", "loss", "train_ms", "render_ms", "fps"]
+            or len(rows) != ONLINE_FRAMES or len(per_frame) != ONLINE_FRAMES
+            or rec["steps"] != [ONLINE_STEPS * (i + 1)
+                                for i in range(ONLINE_FRAMES)]
+            or rec["frames_with_expected_launches"] != ONLINE_FRAMES
+            or not rec["all_finite"] or not rec["alpha_max_last"] > 0.05
+            or not rec["psnr"] > DATA_PSNR_MIN):
+        bad = [f for f in per_frame if f != expect][:2]
+        raise AssertionError(f"{name} fails its checks: {rec}; frames "
+                             f"with other launches: {bad}")
+    return rec
+
+
+def online_stages(torch, nv, dec, n=5):
+    """Where an online frame's time goes, after the app's run: n more
+    frames with each stage ended by a wait for the card (train; the
+    progressive decode, which first rebinds the new params, the bf16
+    table's repack; the render), the medians in ms; then one frame under
+    torch.profiler, its device busy time and idle share."""
+    from instantvnr_torch.utils.profiling import sync
+
+    def frame():
+        nv.train(ONLINE_STEPS, fast_mode=False)
+        nv.decode_progressive(ONLINE_BLOBS)
+        dec.set_params(nv.params)
+        return dec.render()
+
+    parts = {"train": lambda: nv.train(ONLINE_STEPS, fast_mode=False),
+             "decode": lambda: nv.decode_progressive(ONLINE_BLOBS),
+             "render": dec.render}
+    times = {k: [] for k in parts}
+    for _ in range(n):
+        for k, fn in parts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync(fn())
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    out = {f"{k}_ms": float(np.median(v)) for k, v in times.items()}
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(kernel_us(e) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out.update(profiled_wall_ms=wall, profiled_device_busy_ms=busy,
+               profiled_device_idle_share=1.0 - busy / wall)
+    return out
+
+
+def http_get(base, path, data=None, timeout=60.0):
+    """GET (POST with data) of the viewer; → the body, or the HTTP status
+    of a refusal. Retries while no frame has been served (503)."""
+    import urllib.error
+    import urllib.request
+
+    deadline = time.perf_counter() + timeout
+    while True:
+        req = urllib.request.Request(
+            base + path, data=data,
+            method="POST" if data is not None else "GET")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.read()
+        except urllib.error.HTTPError as e:
+            if e.code != 503 or time.perf_counter() > deadline:
+                return e.code
+        time.sleep(0.05)
+
+
+def png_rgba(data):
+    """The viewer's PNG (8-bit RGBA, filter-0 scanlines) → [H, W, 4]."""
+    import struct
+    import zlib
+
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", data[pos + 8:pos + 8 + n])
+        elif tag == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h = hdr[:2]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 4 * w + 1)
+    return raw[:, 1:].reshape(h, w, 4)
+
+
+def phase_viewer(torch, tmp):
+    """The port's viewer in-process on 127.0.0.1, port 0, at full width
+    (the reference schema, vorts 128³, 512²) with training on, driven over
+    HTTP as the browser drives it: the page, a frame, a camera drag, a TF
+    edit, shading on, NEURAL_WAVEFRONT, PATHTRACE_NEURAL and back to
+    DECODED_SLAB. After each edit a frame rendered after it must differ
+    from the one before, the step must advance and no error may have been
+    caught; then the served frames a second over VIEWER_WINDOW_S, split
+    into the loop's training, render and PNG-encode time; /api/quit ends
+    the server and the render thread."""
+    import threading
+
+    from instantvnr_torch.apps import vnr_int_viewer as viewer
+
+    args = viewer.parse_args([
+        "--synthetic", "vorts", "--dims", str(DIMS[0]), "--size", str(SIZE),
+        "--model", model_json(tmp, 19), "--port", "0"])
+    for c in counters().values():
+        c.reset()
+    t0 = time.perf_counter()
+    app = viewer.build_app(args)
+    server, loop = viewer.serve(app, "127.0.0.1", 0)
+    http = threading.Thread(target=server.serve_forever, daemon=True)
+    http.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    steps, edits = [], []
+
+    def state():
+        return json.loads(http_get(base, "/api/state"))
+
+    def frame_after(f0, mode, what):
+        """The first PNG of a frame begun after the edit at frame f0."""
+        deadline = time.perf_counter() + 120
+        while True:
+            s = state()
+            if s["frame"] >= f0 + 2 and s["mode"] == mode:
+                return s, png_rgba(http_get(base, "/frame.png"))
+            if s["errors"] or time.perf_counter() > deadline:
+                raise AssertionError(f"viewer, {what}: {s}")
+            time.sleep(0.02)
+
+    try:
+        page = http_get(base, "/")
+        img = png_rgba(http_get(base, "/frame.png"))
+        first_s = time.perf_counter() - t0
+        if (b"instantvnr_torch viewer" not in page
+                or img.shape != (SIZE, SIZE, 4) or not img[..., 3].max() > 12):
+            raise AssertionError(f"viewer: first frame {img.shape}, alpha "
+                                 f"{img[..., 3].max()}")
+        prev = img
+        for what, path, data, mode in (
+                ("camera drag", "/api/camera?yaw=0.6&pitch=0.3", None,
+                 "DECODED_SLAB"),
+                ("TF edit", "/api/tf", json.dumps(
+                    {"colors": [[0.0, 0.9, 0.2, 0.1], [1.0, 0.2, 0.6, 1.0]],
+                     "alphas": [[0.0, 0.0], [0.5, 0.3], [1.0, 0.9]]}
+                ).encode(), "DECODED_SLAB"),
+                ("shading on", "/api/shading?on=1", None, "DECODED_SLAB"),
+                ("NEURAL_WAVEFRONT", "/api/mode?name=NEURAL_WAVEFRONT",
+                 None, "NEURAL_WAVEFRONT"),
+                ("PATHTRACE_NEURAL", "/api/mode?name=PATHTRACE_NEURAL",
+                 None, "PATHTRACE_NEURAL"),
+                ("DECODED_SLAB", "/api/mode?name=DECODED_SLAB", None,
+                 "DECODED_SLAB"),
+                ("shading off", "/api/shading?on=0", None, "DECODED_SLAB")):
+            f0 = state()["frame"]
+            n0 = len(app.timings)
+            if http_get(base, path, data) != b"ok":
+                raise AssertionError(f"viewer refused {path}")
+            s, img = frame_after(f0, mode, what)
+            change = int(np.abs(img.astype(np.int16) - prev).max())
+            steps.append(s["step"])
+            edits.append({"edit": what, "mode": s["mode"], "step": s["step"],
+                          "errors": s["errors"], "frame_change_u8": change,
+                          "alpha_max_u8": int(img[..., 3].max()),
+                          "loop_ms_median": float(np.median(
+                              [sum(t) for t in list(app.timings)[n0:]]
+                              or [0.0]))})
+            if (s["errors"] or change == 0 or len(steps) > 1
+                    and steps[-1] <= steps[-2]):
+                raise AssertionError(f"viewer after {what}: {edits[-1]}, "
+                                     f"{s['last_error']}")
+            prev = img
+        # served frames a second in DECODED_SLAB with training
+        f0, n0, w0 = state()["frame"], len(app.timings), time.perf_counter()
+        time.sleep(VIEWER_WINDOW_S)
+        s = state()
+        served_fps = (s["frame"] - f0) / (time.perf_counter() - w0)
+        window = list(app.timings)[n0:]
+        if http_get(base, "/api/quit") != b"bye":
+            raise AssertionError("viewer: /api/quit refused")
+        loop.join(timeout=120)
+        http.join(timeout=30)
+    finally:
+        app.stop_event.set()
+        server.shutdown()
+        server.server_close()
+        loop.join(timeout=120)
+    launches = {n: c.launches for n, c in counters().items()}
+    train, render, encode = (float(np.median([t[i] for t in window]))
+                             for i in range(3))
+    rec = {"phase": "viewer", "model": "ModelConfig() 2^19",
+           "frame": f"{SIZE}^2", "first_frame_s": first_s, "edits": edits,
+           "served_fps": served_fps, "window_frames": len(window),
+           "train_ms_median": train, "render_ms_median": render,
+           "encode_ms_median": encode,
+           "encode_share": encode / (train + render + encode),
+           "errors": s["errors"], "step": s["step"],
+           "render_thread_alive": loop.is_alive(),
+           "http_thread_alive": http.is_alive(), "launches": launches}
+    log(rec)
+    must = ("composite_slabs", "composite_slabs_ext", "raymarch_emit",
+            "brick_sample", "pt_track", "pt_resolve", "fused_mlp",
+            *TRAIN_KERNELS)
+    if (s["errors"] or loop.is_alive() or http.is_alive() or not window
+            or not all(launches[n] > 0 for n in must)):
+        raise AssertionError(f"viewer fails its checks: {rec}")
+    return rec
+
+
+def phase_facade_cuda_vs_cpu(torch):
+    """The facade's setters at phase_small_parity's size on the card
+    against the CPU: DECODED_SLAB after set_transfer_function (a config,
+    then a TransferFunctionObject) and set_framebuffer_size, every pixel
+    within 5e-3; PATHTRACE_DECODED after reset_accumulation, from one
+    uniform stream, PT_SHARE_MIN of the pixels within PT_PIXEL_TOL. Then
+    memory_query, and free_temporary_memory returning a freed block's
+    memory to the card."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import (EncodingConfig, ModelConfig,
+                                         NetworkConfig,
+                                         TransferFunctionConfig)
+    from instantvnr_torch.models.network import params_from_numpy
+
+    class Stream:
+        def __init__(self):
+            self.g = torch.Generator().manual_seed(SEED)
+
+        def tau(self, r, device):
+            return torch.rand(r, generator=self.g).to(device)
+
+        def event(self, r, device):
+            return torch.rand((6, r), generator=self.g).to(device)
+
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=4,
+                                              n_features_per_level=2,
+                                              log2_hashmap_size=12),
+                      network=NetworkConfig(n_neurons=16, n_hidden_layers=2))
+    tf1 = TransferFunctionConfig(
+        colors=((0.0, 1.0, 0.1, 0.0), (1.0, 0.9, 0.8, 0.1)),
+        alphas=((0.0, 0.0), (0.4, 0.5), (1.0, 0.9)))
+    tf2 = api.TransferFunctionObject()
+    tf2.set_color(((0.0, 0.1, 0.3, 1.0), (0.6, 0.9, 0.9, 0.2),
+                   (1.0, 1.0, 0.1, 0.1)))
+    tf2.set_alpha(((0.0, 0.1), (1.0, 0.7)))
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        sv = api.SimpleVolume.synthetic((32, 32, 32), "vorts", device=dev)
+        nv = api.NeuralVolume(cfg, sv, device=dev)
+        nv.params = params_from_numpy(seeded_params(nv.field, SEED + 3), dev)
+        r = api.VNRenderer(nv, 40, 37)
+        r.set_camera(orbit(2, N_FRAMES, 32))
+        for view, setter in (("tf_config", lambda: r.set_transfer_function(
+                tf1)), ("tf_handle", lambda: r.set_transfer_function(tf2)),
+                ("framebuffer_size", lambda: r.set_framebuffer_size(33, 50))):
+            setter()
+            r.render()
+            frames[dev, view] = r.mapframe()
+        r.set_mode(api.RenderMode.PATHTRACE_DECODED)
+        jitter = torch.rand((33 * 50, 2),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+        r._impl._next_jitter = lambda j=jitter.to(dev): j
+        r._impl._uniforms = Stream
+        for _ in range(2):
+            r.render()
+        r.reset_accumulation()
+        if r._impl.frame_index != 0:
+            raise AssertionError("reset_accumulation left frame_index "
+                                 f"{r._impl.frame_index}")
+        r.render()
+        frames[dev, "reset_accumulation"] = r.mapframe()
+    for view in ("tf_config", "tf_handle", "framebuffer_size",
+                 "reset_accumulation"):
+        pt = view == "reset_accumulation"
+        tol = PT_PIXEL_TOL if pt else 5e-3
+        diff = np.abs(frames["cuda", view] - frames["cpu", view]).max(-1)
+        rec = {"phase": f"facade_cuda_vs_cpu[{view}]",
+               "shape": list(frames["cuda", view].shape),
+               "max_abs_err": float(diff.max()), "tol": tol,
+               "share_within_tol": float((diff <= tol).mean()),
+               "share_min": PT_SHARE_MIN if pt else 1.0,
+               "alpha_max": float(frames["cpu", view][..., 3].max())}
+        log(rec)
+        if (rec["share_within_tol"] < rec["share_min"]
+                or not rec["alpha_max"] > 0.05
+                or rec["shape"] != [50, 33, 4]
+                and view in ("framebuffer_size", "reset_accumulation")):
+            raise AssertionError(f"facade setters disagree: {rec}")
+    query = api.memory_query()
+    torch.cuda.synchronize()
+    block = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    del block
+    reserved = torch.cuda.memory_reserved()
+    api.free_temporary_memory()
+    rec = {"phase": "facade_memory", "memory_query": query,
+           "reserved_before_free": reserved,
+           "reserved_after_free": torch.cuda.memory_reserved()}
+    log(rec)
+    stats = query.get("cuda:0", {})
+    if (set(stats) != {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+            or not 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"]
+            or not rec["reserved_after_free"] < reserved):
+        raise AssertionError(f"memory_query / free_temporary_memory: {rec}")
+
+
+def phase_profile_trace(torch, tmp, ckpt):
+    """vnr_cmd_render --profile DIR on the card from a checkpoint: the
+    Chrome trace of DECODED_SLAB frames must name the slab compositor's
+    kernel, that of exact NEURAL_WAVEFRONT frames the hash grid's and the
+    fused MLP's."""
+    from instantvnr_torch.apps import vnr_cmd_render
+
+    want = {"decoded": ("slab_composite_kernel",),
+            "neural": ("hash_encode_forward_kernel",
+                       "fused_mlp_forward_kernel")}
+    rec = {"phase": "profile_trace"}
+    for mode, kernels in want.items():
+        logdir = os.path.join(tmp, f"trace_{mode}")
+        t0 = time.perf_counter()
+        vnr_cmd_render.main(
+            ["--load", ckpt, "--mode", mode, "--size", "256", "--num-frames",
+             "2", "--warmup", "1", "--output", "", "--profile", logdir]
+            + (["--streaming-cache", "none"] if mode == "neural" else []))
+        path = os.path.join(logdir, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        found = {k: sum(k in n for n in names) > 0 for k in kernels}
+        rec[mode] = {"seconds": time.perf_counter() - t0,
+                     "trace_bytes": os.path.getsize(path),
+                     "events": len(events), "kernels_named": found}
+        if not all(found.values()):
+            log(rec)
+            raise AssertionError(f"profile_trace: {mode} trace lacks "
+                                 f"{[k for k, v in found.items() if not v]}")
     log(rec)
     return rec
 
@@ -3015,6 +3446,7 @@ def main() -> int:
     emit = phase_raymarch_emit(torch, sv)
     pt = phase_pt_kernels(torch, sv)
     phase_small_parity(torch)
+    phase_facade_cuda_vs_cpu(torch)
     phase_one_voxel(torch)
     phase_wavefront_cuda_vs_cpu(torch)
     phase_pathtrace_cuda_vs_cpu(torch)
@@ -3069,6 +3501,7 @@ def main() -> int:
              "bytes": ckpt_bytes})
         phase_npz_roundtrip(torch, sv, tmp)
         phase_cli(torch, tmp)
+        phase_profile_trace(torch, tmp, os.path.join(tmp, "cli.npz"))
 
     # -- the wavefront modes and the degenerate cameras' fallbacks ---------
     wavefront = phase_wavefront_views(torch, nv)
@@ -3083,6 +3516,12 @@ def main() -> int:
     train14, nv19 = phase_training(torch, sv)
     phase_train_breakdown(torch, nv19)
     phase_online_loop(torch, nv19)
+
+    # -- the interactive apps: the online trainer and the viewer ----------
+    with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
+        online = {log2: phase_online_app(torch, tmp, log2)
+                  for log2 in (14, 19)}
+        viewer_rec = phase_viewer(torch, tmp)
 
     # -- isosurfaces on the kernels; scenes, analytic and out-of-core -----
     iso_k = phase_isosurface_kernel(torch, vol, nv)
@@ -3099,8 +3538,10 @@ def main() -> int:
 
     # launches: totals over the main-path runs (the plain orbit with its
     # decode, then the four views; the wavefront modes; the path tracer's
-    # modes and the brick wavefront; the 1000 steps of train_2e14)
-    runs = [plain] + views + wavefront + pathtrace + brick_wavefront
+    # modes and the brick wavefront; the 1000 steps of train_2e14; the
+    # online app at 2^19 and the viewer)
+    runs = ([plain] + views + wavefront + pathtrace + brick_wavefront
+            + [online[19], viewer_rec])
     total = {name: sum(v["launches"][name] for v in runs)
              for name in counters()}
     for d in (decode, views[-1]["decode_launches"]):

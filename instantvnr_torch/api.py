@@ -12,7 +12,15 @@ reference C API, `api.h:91-188`):
   vnrNeuralVolumeDecodeProgressive → NeuralVolume.decode_progressive()
   vnrNeuralVolumeSerializeParams → NeuralVolume.save_params(path)  (BSON;
                                    .npz: the native exact-resume format)
+  vnrNeuralVolumeSerializeVolume → NeuralVolume.save_inference_volume(path)
   vnrCreateRenderer/vnrRender/vnrRendererMapFrame → VNRenderer.render()/mapframe()
+  vnrRendererSetTransferFunction / SetFramebufferSize
+                                 → VNRenderer.set_transfer_function /
+                                   set_framebuffer_size
+  vnrCreateTransferFunction      → TransferFunctionObject
+  vnrCreateJson* / vnrLoadJson* / vnrSaveJson* → load_json / save_json
+  vnrFreeTemporaryGPUMemory / vnrMemoryQuery → free_temporary_memory /
+                                   memory_query
 
 Every RenderMode renders: DECODED_SLAB (with `set_slab_shading("gradient")`
 and `enable_shadows()`), FULL_SHADOW_DECODED, ISOSURFACE_DECODED and
@@ -78,6 +86,14 @@ class RenderMode(enum.IntEnum):
     FULL_SHADOW_DECODED = 12
     FULL_SHADOW_REFERENCE = 13
 
+    @property
+    def requires_decoding(self) -> bool:
+        """vnrRequireDecoding (api.h:62-88): does the mode render from the
+        decoded grid (and so need a decode before frames)?"""
+        return self in (RenderMode.DECODED_SLAB, RenderMode.PATHTRACE_DECODED,
+                        RenderMode.ISOSURFACE_DECODED,
+                        RenderMode.FULL_SHADOW_DECODED)
+
 
 _NEURAL_WAVEFRONT = {RenderMode.NEURAL_WAVEFRONT: "none",
                      RenderMode.NEURAL_WAVEFRONT_GRADIENT: "gradient",
@@ -89,6 +105,81 @@ _REFERENCE_WAVEFRONT = {RenderMode.REFERENCE_RAYMARCH: "none",
 _PATHTRACE = (RenderMode.PATHTRACE_REFERENCE, RenderMode.PATHTRACE_DECODED,
               RenderMode.PATHTRACE_NEURAL)
 _STREAMING_CACHES = ("auto", "brick", "hq", "lazy", "none")
+_VDB_ITEM = ("ROADMAP 'Next slices' item 5 (data and model breadth: VDB "
+             "volumes, fV-SRN and the paired hash)")
+
+
+class TransferFunctionObject:
+    """Mutable transfer-function handle (vnrCreateTransferFunction and
+    vnrTransferFunctionSet/Get{Color,Alpha,ValueRange}, api.h:127-137).
+    Wraps the immutable TransferFunctionConfig; pass the handle straight
+    to SimpleVolume/VNRenderer.set_transfer_function."""
+
+    def __init__(self, cfg: TransferFunctionConfig | None = None):
+        self.cfg = cfg or TransferFunctionConfig()
+
+    def set_color(self, points):
+        """points: iterable of (position, r, g, b), positions in [0, 1]."""
+        self.cfg = dataclasses.replace(
+            self.cfg, colors=tuple(tuple(float(v) for v in p) for p in points))
+
+    def set_alpha(self, points):
+        """points: iterable of (position, alpha)."""
+        self.cfg = dataclasses.replace(
+            self.cfg, alphas=tuple(tuple(float(v) for v in p) for p in points))
+
+    def set_value_range(self, lo: float, hi: float):
+        self.cfg = dataclasses.replace(self.cfg, range=(float(lo), float(hi)))
+
+    def get_color(self):
+        return self.cfg.colors
+
+    def get_alpha(self):
+        return self.cfg.alphas
+
+    def get_value_range(self):
+        return self.cfg.range
+
+
+def _tf_config(tfn_cfg):
+    """Accept a TransferFunctionConfig or a TransferFunctionObject handle."""
+    if isinstance(tfn_cfg, TransferFunctionObject):
+        return tfn_cfg.cfg
+    return tfn_cfg
+
+
+def load_json(path: str):
+    """vnrCreateJsonText/Binary + vnrLoadJsonText/Binary (api.cpp:17-61):
+    one loader for both encodings, sniffing BSON (a leading int32 length
+    equal to the file's, a trailing NUL) against relaxed JSON text (//
+    comments allowed)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if (len(raw) >= 5 and int.from_bytes(raw[:4], "little") == len(raw)
+            and raw[-1] == 0):
+        from instantvnr_torch.utils import bson
+
+        return bson.decode(raw)
+    from instantvnr_torch.config import loads_relaxed_json
+
+    return loads_relaxed_json(raw.decode("utf-8"))
+
+
+def save_json(doc: dict, path: str, binary: bool | None = None):
+    """vnrSaveJsonText (api.cpp:34-39, an indent-4 dump) / vnrSaveJsonBinary
+    (api.cpp:41-48, BSON); binary=None infers it from the extension."""
+    if binary is None:
+        binary = path.endswith((".bson", ".bin", ".params"))
+    if binary:
+        from instantvnr_torch.utils import bson
+
+        with open(path, "wb") as f:
+            f.write(bson.encode(doc))
+    else:
+        import json
+
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=4)
 
 
 class SimpleVolume:
@@ -148,6 +239,13 @@ class SimpleVolume:
     def value_range(self):
         """vnrVolumeGetValueRange (api.h): (min, max) in data units."""
         return self.volume.original_range
+
+    def set_transfer_function(self, tfn_cfg):
+        """A new transfer function (a config or a TransferFunctionObject):
+        rebaked, and the macrocell's max opacity re-derived from it."""
+        self.tfn_cfg = _tf_config(tfn_cfg)
+        self.tf = bake_transfer_function(self.tfn_cfg, device=self.device)
+        self.macrocell = mcmod.update_max_opacity(self.macrocell, self.tf)
 
     # -- time series (vnrSimpleVolumeSetCurrentTimeStep /
     #    vnrSimpleVolumeGetNumberOfTimeSteps, api.h:118-119) ---------------
@@ -511,6 +609,27 @@ class NeuralVolume:
 
     # -- serialization ----------------------------------------------------
 
+    def save_inference_volume(self, path: str):
+        """Decode the network over the full grid and write it as raw
+        float32 (vnrNeuralVolumeSerializeVolume → save_inference_volume,
+        network.cu:328-408). A `.vdb` path waits for the VDB writer."""
+        if path.endswith(".vdb"):
+            raise NotImplementedError(".vdb volumes are not ported yet: "
+                                      + _VDB_ITEM)
+        from instantvnr_torch.data.volume import save_raw
+
+        save_raw(self.decode_volume(), path)
+
+    def save_reference_volume(self, path: str):
+        """Write the normalized ground-truth volume as raw float32
+        (save_reference_volume)."""
+        from instantvnr_torch.data.volume import save_raw
+
+        if self.simple is None:
+            raise ValueError("save_reference_volume needs a reference "
+                             "volume (simple=...)")
+        save_raw(self.simple.volume.data, path)
+
     def save_params(self, path: str):
         """vnrNeuralVolumeSerializeParams: the reference BSON format, with
         the training step and loss; a `.npz` path writes the native
@@ -592,6 +711,9 @@ class VNRenderer:
         self.denoise = False
         self.isovalue = 0.5  # for the ISOSURFACE_* modes
         self._shadow_light_used = None  # the FULL_SHADOW_* modes' light
+        # a renderer-level TF of a renderer without a ground truth
+        # (vnrRendererSetTransferFunction); with one, the SimpleVolume's
+        self._tf_override = None
         if isinstance(volume, NeuralVolume):
             self.neural = volume
             self.simple = volume.simple
@@ -614,16 +736,24 @@ class VNRenderer:
 
     def _tf(self, device):
         """The scene's transfer function: the SimpleVolume's, else the
-        default one (JAX VNRenderer._scene_parts)."""
+        renderer-level one, else the default one (JAX
+        VNRenderer._scene_parts)."""
         if self.simple is not None:
             return self.simple.tf
+        if self._tf_override is not None:
+            return self._tf_override
         return bake_transfer_function(TransferFunctionConfig(), device=device)
 
     def _scene_mc(self):
         """The ground truth's macrocell when there is one, else the neural
-        volume's (JAX VNRenderer._scene_parts)."""
+        volume's, its max opacity re-derived under a renderer-level TF (the
+        JAX package keeps the default TF's there, so its wavefront and path
+        tracer would skip cells the new TF makes visible)."""
         if self.simple is not None:
             return self.simple.macrocell
+        if self._tf_override is not None:
+            return mcmod.update_max_opacity(self.neural.macrocell,
+                                            self._tf_override)
         return self.neural.macrocell
 
     def _transform(self):
@@ -637,7 +767,10 @@ class VNRenderer:
         self.mode = mode
         self._lazy = None  # re-established by _build_streaming_ctx("lazy")
         if mode in (RenderMode.DECODED_SLAB, RenderMode.FULL_SHADOW_DECODED):
-            tf = self.simple.tf if self.simple is not None else None
+            # None keeps the decoder's TF (the default, or an earlier
+            # renderer's)
+            tf = (self.simple.tf if self.simple is not None
+                  else self._tf_override)
             impl = self.neural.ensure_decoded(self.width, self.height, tf=tf)
             impl.settings = dataclasses.replace(
                 impl.settings, sampling_rate=self.sampling_rate,
@@ -927,6 +1060,31 @@ class VNRenderer:
         filter at mapframe time (the renderer.cpp:117-121 hook)."""
         self.denoise = bool(enabled)
 
+    def set_framebuffer_size(self, width: int, height: int):
+        """vnrRendererSetFramebufferSize (batch_renderer.cpp:199): set_mode
+        rebuilds the render path at the new size (the slab decoder carries
+        its decode over; the wavefront's ray buffers and the path tracer's
+        accumulation start anew)."""
+        self.width, self.height = int(width), int(height)
+        self.set_mode(self.mode)
+
+    def set_transfer_function(self, tfn_cfg):
+        """vnrRendererSetTransferFunction (batch_renderer.cpp:197): a
+        config or a TransferFunctionObject. With a ground truth it goes to
+        the SimpleVolume (rebaked, the macrocell's max opacity re-derived),
+        else it is the renderer's own; set_mode then rebinds the render
+        path (the cached slab decoder's TF and macrocell, the wavefront's
+        and the path tracer's macrocell, which restarts its
+        accumulation)."""
+        cfg = _tf_config(tfn_cfg)
+        if self.simple is not None:
+            self.simple.set_transfer_function(cfg)
+            self._tf_override = None
+        else:
+            self._tf_override = bake_transfer_function(
+                cfg, device=self.neural.device)
+        self.set_mode(self.mode)
+
     def _require_decoded_slab(self, what: str):
         if self.mode != RenderMode.DECODED_SLAB:
             raise ValueError(f"{what} applies to DECODED_SLAB, not "
@@ -1069,3 +1227,29 @@ class VNRenderer:
             frame = atrous_denoise(torch.from_numpy(frame).to(dev)
                                    ).cpu().numpy()
         return frame
+
+
+def free_temporary_memory():
+    """vnrFreeTemporaryGPUMemory (api.h): return the caching allocator's
+    unused blocks to the card (torch.cuda.empty_cache); nothing to free
+    without CUDA."""
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def memory_query() -> dict:
+    """vnrMemoryQuery (api.cpp:532-552): each device's memory statistics
+    under the JAX package's keys (bytes_in_use, peak_bytes_in_use,
+    bytes_limit); the CPU, which has no statistics, maps to {} as in the
+    JAX package."""
+    if not torch.cuda.is_available():
+        return {"cpu": {}}
+    stats = {}
+    for i in range(torch.cuda.device_count()):
+        m = torch.cuda.memory_stats(i)
+        stats[f"cuda:{i}"] = {
+            "bytes_in_use": m.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": m.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+        }
+    return stats

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import argparse
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -85,6 +86,32 @@ def load_model_config(args):
     from instantvnr_torch.config import load_model_config as load
 
     return load(args.model) if args.model else ModelConfig()
+
+
+def interactive_model_config(args):
+    """The interactive apps' model: the --model file, else the reference
+    schema with its hash table capped at 2^14, the JAX package's
+    interactive default (apps/vnr_int_online.py:51-61), so that the two
+    packages' apps train the same model."""
+    import dataclasses
+
+    cfg = load_model_config(args)
+    if not args.model:
+        cfg = dataclasses.replace(cfg, encoding=dataclasses.replace(
+            cfg.encoding, log2_hashmap_size=14))
+        # on stderr: the viewer's first line of stdout names its address
+        print("[vnr] interactive default: hash table capped at 2^14, the "
+              "JAX package's default (pass --model for the exact "
+              "reference schema)", file=sys.stderr)
+    return cfg
+
+
+def device_name(device) -> str:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return torch.cuda.get_device_name(torch.device(device))
+    return "cpu"
 
 
 def framebuffer_to_u8(rgba) -> np.ndarray:

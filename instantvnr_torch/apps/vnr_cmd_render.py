@@ -10,12 +10,14 @@ brick pool; "none" is exact per-sample network evaluation); `pathtrace`,
 `pathtrace-neural` and `pathtrace-reference` run the path tracer on the
 decoded grid (the ground truth without a checkpoint), the network and the
 ground truth. `--scene s.json --timestep k` renders a scene's timestep,
-from the scene's camera unless `--camera` is given. `--profile` (an Xprof
-trace in the JAX package) is ROADMAP item 7.
+from the scene's camera unless `--camera` is given. `--profile DIR` traces
+the timed frames with torch.profiler into `DIR/trace.json` (a Chrome
+trace; utils/profiling.py::trace).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import time
 
@@ -23,6 +25,7 @@ from instantvnr_torch.apps.common import (
     CsvLogger,
     add_device_arg,
     add_volume_args,
+    device_name,
     load_simple_volume,
     save_png,
     sync,
@@ -31,7 +34,6 @@ from instantvnr_torch.apps.common import (
 _MODES = ("decoded", "neural", "reference", "gradient", "ssh", "pathtrace",
           "pathtrace-neural", "pathtrace-reference", "isosurface",
           "isosurface-reference")
-_ITEM_7 = "ROADMAP 'Next slices' item 7 (the rest of the apps: profiling)"
 
 
 def render_mode(name: str, neural: bool):
@@ -95,18 +97,16 @@ def main(argv=None):
                    help="time-series volumes: render this timestep "
                    "(vnrSimpleVolumeSetCurrentTimeStep, api.h:118)")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="trace of the timed frames (not ported yet)")
+                   help="trace the timed frames into DIR/trace.json (a "
+                   "Chrome trace of torch.profiler, utils/profiling.trace)")
     p.add_argument("--orbit", action="store_true",
                    help="rotate the camera one full orbit over the timed "
                    "frames (a camera rebind a frame)")
     args = p.parse_args(argv)
-    if args.profile:
-        raise NotImplementedError("--profile is not ported yet: " + _ITEM_7)
-
-    import torch
 
     from instantvnr_torch.api import NeuralVolume, RenderMode, VNRenderer
     from instantvnr_torch.render.camera import Camera
+    from instantvnr_torch.utils.profiling import trace
 
     simple = None
     if args.scene or args.synthetic or args.volume:
@@ -160,25 +160,27 @@ def main(argv=None):
                center0[2] - x * math.sin(a) + z * math.cos(a))
         return Camera(eye=eye, center=center0, up=up0, fovy=fovy0)
 
-    name = (torch.cuda.get_device_name(0) if args.device == "cuda"
-            else "cpu")
     print(f"[vnr] mode {args.mode} ({mode.name}), {args.size}x{args.size}, "
-          f"device {name}")
+          f"device {device_name(args.device)}")
     for _ in range(args.warmup):
         r.render()
     sync(args.device)
     logger = CsvLogger(args.fps_log, ["frame", "fps", "supersteps"])
     t_total = 0.0
-    for i in range(args.num_frames):
-        t0 = time.time()
-        if args.orbit:
-            r.set_camera(orbit_camera(i))
-        r.render()
-        sync(args.device)
-        dt = time.time() - t0
-        t_total += dt
-        logger.log(i, 1.0 / dt, r.last_stats.get("supersteps", ""))
+    prof = trace(args.profile) if args.profile else contextlib.nullcontext()
+    with prof as trace_path:
+        for i in range(args.num_frames):
+            t0 = time.time()
+            if args.orbit:
+                r.set_camera(orbit_camera(i))
+            r.render()
+            sync(args.device)
+            dt = time.time() - t0
+            t_total += dt
+            logger.log(i, 1.0 / dt, r.last_stats.get("supersteps", ""))
     logger.close()
+    if args.profile:
+        print(f"[vnr] trace written to {trace_path}")
     if args.num_frames:
         print(f"[vnr] {args.num_frames / t_total:.2f} fps average over "
               f"{args.num_frames} frames")

@@ -3,7 +3,7 @@
 of floats, turned into tensors by the renderer each frame."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -30,6 +30,40 @@ class Camera:
         d = max(dims)
         return cls(eye=(0.0, 0.0, -2.2 * d), center=(0.0, 0.0, 0.0),
                    up=(0.0, 1.0, 0.0), fovy=45.0)
+
+    @classmethod
+    def from_scene(cls, path: str) -> "Camera":
+        """vnrCreateCamera(scene json) (api.cpp:66-86): the camera section
+        of a scene file (either dialect)."""
+        from instantvnr_torch.config import load_scene_config
+
+        return cls.from_config(load_scene_config(path).camera)
+
+    # vnrCameraSet / vnrCameraGet{Position,Focus,UpVec} (api.h:120-125).
+    # The dataclass is frozen, so set() returns the updated handle.
+    def set(self, eye=None, center=None, up=None, fovy=None) -> "Camera":
+        kw = {}
+        if eye is not None:
+            kw["eye"] = tuple(float(v) for v in eye)
+        if center is not None:
+            kw["center"] = tuple(float(v) for v in center)
+        if up is not None:
+            kw["up"] = tuple(float(v) for v in up)
+        if fovy is not None:
+            kw["fovy"] = float(fovy)
+        return replace(self, **kw)
+
+    @property
+    def position(self):
+        return self.eye
+
+    @property
+    def focus(self):
+        return self.center
+
+    @property
+    def up_vec(self):
+        return self.up
 
 
 def camera_rays(cam: Camera, width: int, height: int,

@@ -1113,3 +1113,58 @@ def test_train_out_of_core_pinned_batches(cuda, monkeypatch):
             c.cpu().numpy(),
             i + np.random.default_rng(i).random((4096, 3), np.float32))
         assert (v.cpu().numpy() == i).all()
+
+
+# -- the facade's setters ----------------------------------------------------
+
+
+@pytest.mark.parametrize("setter", ["tf_config", "tf_handle",
+                                    "framebuffer_size"])
+def test_facade_setters_on_card_match_cpu(cuda, setter):
+    """A DECODED_SLAB frame after set_transfer_function (a config and a
+    TransferFunctionObject) or set_framebuffer_size, on the card against
+    the CPU: a 4-level 2^12 model with seeded weights on vorts 32³, every
+    pixel within 5e-3 (the decode's bf16 MLP rounds in other places; the
+    compositor sums in another order), as chip_smoke.py's small slice."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig, TransferFunctionConfig
+    from instantvnr_torch.models.network import params_from_numpy
+    from instantvnr_torch.render.camera import Camera
+
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=4,
+                                              n_features_per_level=2,
+                                              log2_hashmap_size=12),
+                      network=NetworkConfig(n_neurons=16, n_hidden_layers=2))
+    rng = np.random.default_rng(11)
+    tf = TransferFunctionConfig(
+        colors=((0.0, 1.0, 0.1, 0.0), (1.0, 0.9, 0.8, 0.1)),
+        alphas=((0.0, 0.0), (0.4, 0.5), (1.0, 0.9)))
+    frames = []
+    for dev in ("cpu", cuda):
+        sv = api.SimpleVolume.synthetic((32, 32, 32), "vorts", device=dev)
+        nv = api.NeuralVolume(cfg, sv, device=dev)
+        if not frames:
+            spec = nv.field.spec
+            params_np = {
+                "table": rng.uniform(-1, 1, (spec.n_entries, spec.n_features)
+                                     ).astype(np.float32),
+                "mlp": [(rng.standard_normal(s) * np.sqrt(2.0 / s[0])
+                         ).astype(np.float32)
+                        for s in ((8, 16), (16, 16), (16, 1))]}
+        nv.params = params_from_numpy(params_np, dev)
+        r = api.VNRenderer(nv, 40, 37)
+        r.set_camera(Camera(eye=(6.0, 5.0, -70.0), center=(0, 0, 0),
+                            up=(0, 1, 0), fovy=45.0))
+        if setter == "tf_config":
+            r.set_transfer_function(tf)
+        elif setter == "tf_handle":
+            r.set_transfer_function(api.TransferFunctionObject(tf))
+        else:
+            r.set_framebuffer_size(33, 50)
+        r.render()
+        frames.append(r.mapframe())
+    cpu, card = frames
+    assert card.shape == cpu.shape == ((50, 33, 4) if setter ==
+                                       "framebuffer_size" else (37, 40, 4))
+    assert cpu[..., 3].max() > 0.05
+    np.testing.assert_allclose(card, cpu, atol=5e-3, rtol=0)
