@@ -58,7 +58,19 @@ points:
   modes with training on (its served frames a second, split into
   training, render and PNG encode), the facade's setters small on the
   card against the CPU with memory_query and free_temporary_memory, and
-  vnr_cmd_render --profile writing a Chrome trace that names the kernels.
+  vnr_cmd_render --profile writing a Chrome trace that names the kernels;
+- the twelfth slice: the 10 × 7 DECODED_SLAB frame whose edge pixel sees
+  a ray graze the volume (card against CPU, the pixel 0); K3 and K4 in the
+  paired hash layout against their plain versions at the 2^19 schema,
+  B = 2^16 and 2^19, timed beside the tcnn layout's; a 2^19 training step
+  in each layout and the paired model's decode and frame; the
+  differentiable march (RaymarchSettings.fixed_steps) on the 2^19 model at
+  128², forward and backward timed, its launches exact, its gradients on
+  the card against the CPU; fV-SRN trained, decoded, rendered (and against
+  the CPU), through a native .npz and, imported from a torch state dict,
+  through view_model; VDB files in OpenVDB's layout (a byte-built fixture,
+  vorts 128³ written and read, trained on and rendered, a decode saved as
+  .vdb).
 
 Launch counts, reset before each of these paths and read after it, prove
 which kernels each ran. Any failed phase raises, so the script exits
@@ -1927,6 +1939,8 @@ def counters():
             "fused_mlp_backward": fm.backward_counter,
             "hash_encode_forward": he.counter,
             "hash_encode_backward": he.backward_counter,
+            "hash_encode_forward_paired": he.paired_counter,
+            "hash_encode_backward_paired": he.paired_backward_counter,
             "composite_slabs": sc.counter,
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter,
             "raymarch_emit": rm.emit_counter, "pt_track": opt.track_counter,
@@ -3374,6 +3388,669 @@ def phase_cli_data(torch, tmp, scene):
     return rec
 
 
+# -- the twelfth slice: the edge pixel, the paired hash, the differentiable
+#    march, fV-SRN and VDB files -----------------------------------------------
+
+EDGE_SIZE = (10, 7)
+EDGE_PIXEL = (5, 6)  # (row, column): the ray that grazes the volume's top
+EDGE_ATOL = 1e-5  # the slab path on one grid, the card against the CPU
+PAIRED_BATCHES = (1 << 16, 1 << 19)
+PAIRED_STEPS = 100
+FIXED_SIZE = 128
+FIXED_CMP_SIZE = 64  # the card against the CPU
+FIXED_ITERS, FIXED_SUPERSTEPS = 4, 24
+# each gradient's relative L2 error, the card against the CPU: the fused
+# MLP's bf16 forward parts from its plain version on 0.3% of rows (PERF.md
+# §6, PR 4) and a ray's gradient flows through every sample after it
+# (measured 0.2-2.6% on the 2^19 model, PR 12); the volume's: sums in
+# another order
+FIXED_GRAD_TOL = {"network": 5e-2, "volume": 1e-4}
+FVSRN_STEPS = 100
+FVSRN_FRAMES = 6
+FVSRN_CMP_DIMS = (32, 32, 32)
+VDB_STEPS = 100
+
+
+def phase_edge_pixel(torch):
+    """The 10 × 7 DECODED_SLAB frame whose pixel (6, 5) sees a ray graze
+    the volume's top face in slab 8 (vorts 16³, a two-level model, eye
+    (3, 2.5, −38)): on the card and the CPU from the CPU's decoded grid,
+    so that the slab path alone is held (EDGE_ATOL); the pixel is 0 on
+    both, as exact arithmetic says (render/slabmarch.py::_exact_src)."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import (EncodingConfig, ModelConfig,
+                                         NetworkConfig)
+    from instantvnr_torch.models.network import params_from_numpy
+    from instantvnr_torch.render.camera import Camera
+
+    cfg = ModelConfig(encoding=EncodingConfig(n_levels=2,
+                                              n_features_per_level=4,
+                                              log2_hashmap_size=10),
+                      network=NetworkConfig(n_neurons=16, n_hidden_layers=2))
+    cam = Camera(eye=(3.0, 2.5, -38.0), center=(0.0, 0.0, 0.0),
+                 up=(0.0, 1.0, 0.0), fovy=45.0)
+    # tests/test_torch_facade.py's weights: there the grazing slab is the
+    # only one that would cover the pixel, so the pixel is 0 exactly
+    rng = np.random.default_rng(4)
+    p_np = None
+    frames, grid, launches = {}, None, None
+    for dev in ("cpu", "cuda"):
+        sv = api.SimpleVolume.synthetic((16,) * 3, "vorts", device=dev)
+        nv = api.NeuralVolume(cfg, sv, device=dev)
+        if p_np is None:
+            spec = nv.field.spec
+            p_np = {"table": rng.uniform(-0.5, 0.5, (
+                spec.n_entries, spec.n_features)).astype(np.float32),
+                "mlp": [(rng.standard_normal(sh) * np.sqrt(2.0 / sh[0])
+                         ).astype(np.float32)
+                        for sh in ((8, 16), (16, 16), (16, 1))]}
+        nv.params = params_from_numpy(p_np, dev)
+        r = api.VNRenderer(nv, *EDGE_SIZE)
+        r.set_camera(cam)
+        r.render()
+        if grid is None:
+            grid = r._impl.decoded.clone()
+        else:
+            r._impl.decoded = grid.to(dev)
+        for c in counters().values():
+            c.reset()
+        r.render()
+        frames[dev] = r.mapframe()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {n: c.launches for n, c in counters().items()
+                        if c.launches}
+    # slab 8's coverage of intermediate row 6, on the card
+    from instantvnr_torch.render import slabmarch as sm
+
+    dims_w = torch.tensor((16.0,) * 3, device="cuda")
+    geo = sm.frame_geometry(dims_w, 16, 16, 16, sm.camera_arrays(cam, "cuda"),
+                            r._impl.transform, (0, 1, 2), False, 1.0,
+                            *EDGE_SIZE)
+    z_ks = torch.arange(16, dtype=torch.float32, device="cuda") + 0.5
+    covy, _ = sm._coverage_masks(geo, z_ks, 16, 16, torch.ones(
+        16, dtype=torch.bool, device="cuda"))
+    err = float(np.abs(frames["cuda"] - frames["cpu"]).max())
+    rec = {"phase": "edge_pixel_cuda_vs_cpu", "size": list(EDGE_SIZE),
+           "covy_slab8_row6": float(covy[8, 6]),
+           "covy_slab7_row6": float(covy[7, 6]),
+           "max_abs_err": err, "tol": EDGE_ATOL,
+           "pixel_cpu": frames["cpu"][EDGE_PIXEL].tolist(),
+           "pixel_cuda": frames["cuda"][EDGE_PIXEL].tolist(),
+           "alpha_max": float(frames["cpu"][..., 3].max()),
+           "launches": launches}
+    log(rec)
+    if (not err <= EDGE_ATOL or rec["alpha_max"] <= 0.05
+            or any(rec["pixel_cpu"]) or any(rec["pixel_cuda"])
+            or rec["covy_slab8_row6"] != 0.0 or rec["covy_slab7_row6"] != 1.0
+            or launches != {"composite_slabs": 1}):
+        raise AssertionError(f"the 10 x 7 frame: {rec}")
+
+
+def _paired_times(torch, spec, table, coords, g, b, plain_iters):
+    """K3 and K4 of one layout against their plain versions, with the
+    library yardsticks and the bounds → (forward, backward) records."""
+    from instantvnr_torch.ops import hash_encoding as he
+
+    bf16, n = torch.bfloat16, spec.n_entries
+    out = he._kernel_forward(table, coords, spec, bf16)
+    ref = he.hash_encode_reference(table, coords, spec, bf16)
+    grad = he._kernel_backward(n, coords, spec, g, bf16)
+    grad_ref = he._plain_backward(n, coords, spec, g, bf16)
+    torch.cuda.synchronize()
+    fwd_err = float((out.float() - ref.float()).abs().max())
+    bwd_err = float((grad - grad_ref).abs().max())
+    bwd_ok = bool((grad - grad_ref).abs().le(
+        HASH_BWD_ATOL + HASH_BWD_RTOL * grad_ref.abs()).all())
+    del ref, grad_ref
+    idx, w = he._corners(spec, coords)
+    rows = int(torch.unique(idx).numel())
+    row_bytes = spec.n_features * 4
+
+    def fwd():
+        return he._kernel_forward(table, coords, spec, bf16)
+
+    def bwd():
+        return he._kernel_backward(n, coords, spec, g, bf16)
+
+    rec_f = {"max_abs_err": fwd_err, "tol": HASH_FWD_ATOL,
+             "ms": device_ms(torch, fwd, ("hash_encode_forward_kernel",)),
+             "call_ms": cuda_ms(torch, fwd),
+             "plain_ms": cuda_ms(torch, lambda: he.hash_encode_reference(
+                 table, coords, spec, bf16), iters=plain_iters, warmup=1)}
+    rec_b = {"max_abs_err": bwd_err,
+             "tol": f"atol={HASH_BWD_ATOL}, rtol={HASH_BWD_RTOL}",
+             "within_tol": bwd_ok, "ms": device_ms(torch, bwd, K4_KERNELS),
+             "call_ms": cuda_ms(torch, bwd),
+             "plain_ms": cuda_ms(torch, lambda: he._plain_backward(
+                 n, coords, spec, g, bf16), iters=plain_iters, warmup=1)}
+    bags, bag_w = idx.reshape(-1, 8), w.reshape(-1, 8)
+    rec_f["library_ms"], rec_f["library_call_ms"] = library_times(
+        torch, lambda: torch.nn.functional.embedding_bag(
+            bags, table, per_sample_weights=bag_w, mode="sum"))
+    contrib = (g.float().reshape(b, spec.n_levels, 1, spec.n_features)
+               * w.reshape(b, spec.n_levels, 8, 1)).reshape(-1,
+                                                            spec.n_features)
+    flat = idx.reshape(-1)
+    rec_b["library_ms"], rec_b["library_call_ms"] = library_times(
+        torch, lambda: torch.zeros_like(table).index_add_(0, flat, contrib))
+    del contrib, bags, bag_w, idx, w, flat
+    lanes = b * spec.n_levels
+    fwd_bytes = rows * row_bytes + nbytes(coords, out)
+    bwd_bytes = nbytes(coords, g, grad) + rows * row_bytes
+    rec_f["bound_ms"], rec_f["bound_by"] = bound_ms(
+        fwd_bytes, lanes * (12 + 8 * (5 + 3 * spec.n_features)),
+        H100_FP32_FLOPS)
+    rec_b["bound_ms"], rec_b["bound_by"] = bound_ms(
+        bwd_bytes, lanes * 8 * (5 + 2 * spec.n_features), H100_FP32_FLOPS)
+    for rec, mb in ((rec_f, fwd_bytes), (rec_b, bwd_bytes)):
+        rec.update(distinct_rows=rows, mbytes=mb / 1e6)
+    return rec_f, rec_b
+
+
+def phase_hash_paired(torch):
+    """K3 and K4 in the paired layout (hash_variant="paired") on the 2^19
+    reference schema at B = 2^16 and 2^19, in bf16 compute from the f32
+    master table as a training step runs them, against their plain
+    versions; the tcnn layout's kernels timed in the same call on the same
+    table, coords and cotangent → {batch: (paired fwd, paired bwd)}."""
+    from instantvnr_torch.config import EncodingConfig
+    from instantvnr_torch.ops import hash_encoding as he
+
+    out = {}
+    for b in PAIRED_BATCHES:
+        specs = {v: he.HashGridSpec.from_config(EncodingConfig(
+            hash_variant=v)) for v in ("tcnn", "paired")}
+        spec = specs["paired"]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 19 + b)
+        table = torch.rand((spec.n_entries, spec.n_features), generator=gen,
+                           device="cuda") * 2.0 - 1.0
+        coords = torch.rand((b, 3), generator=gen, device="cuda")
+        g = torch.randn((b, spec.n_output_dims), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        recs = {v: _paired_times(torch, s, table, coords, g, b,
+                                 20 if b == 1 << 16 else 3)
+                for v, s in specs.items()}
+        for k, kind in enumerate(("forward", "backward")):
+            rec = {"phase": f"hash_encode_{kind}_paired[2^19,B={b}]",
+                   "layout": "2^19", "batch": b, "levels": spec.n_levels,
+                   "features": spec.n_features, **recs["paired"][k],
+                   "tcnn": recs["tcnn"][k],
+                   "paired_over_tcnn": recs["paired"][k]["ms"]
+                   / recs["tcnn"][k]["ms"]}
+            log(rec)
+            bad = (not rec["max_abs_err"] <= HASH_FWD_ATOL if k == 0
+                   else not rec["within_tol"])
+            if bad:
+                raise AssertionError(f"paired hash-grid kernel disagrees: "
+                                     f"{rec}")
+            out.setdefault(b, []).append(rec)
+        del table, coords, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_paired_training(torch, sv):
+    """A 2^19 training step (B = 2^16) in the paired layout beside the
+    tcnn one, through NeuralVolume.train: PAIRED_STEPS steps on the host
+    clock a run, the two layouts in turns (tcnn, paired, paired, tcnn,
+    tcnn, paired) after a warm-up of each, every step launching its
+    layout's K3 and K4, K1's training form and K2 once; then the paired
+    model's decode (K3 on its bf16 table, K1) and one 512² DECODED_SLAB
+    frame. The paired runs' launches, counted from 0 before each run,
+    and its decode's and frame's are its main path's."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+
+    nvs, ms, total = {}, {"tcnn": [], "paired": []}, {}
+    for variant in ms:
+        cfg = ModelConfig(encoding=dataclasses.replace(
+            ModelConfig().encoding, hash_variant=variant))
+        nvs[variant] = api.NeuralVolume(cfg, sv, device="cuda", seed=SEED)
+        nvs[variant].train(20, fast_mode=True)
+    for variant in ("tcnn", "paired", "paired", "tcnn", "tcnn", "paired"):
+        nv = nvs[variant]
+        step_ms, launches = step_ms_host(torch, lambda n: nv.train(
+            n, fast_mode=True), PAIRED_STEPS)
+        k3, k4 = (("hash_encode_forward", "hash_encode_backward")
+                  if variant == "tcnn" else ("hash_encode_forward_paired",
+                                             "hash_encode_backward_paired"))
+        want = {k3: PAIRED_STEPS, k4: PAIRED_STEPS,
+                "fused_mlp_train_forward": PAIRED_STEPS,
+                "fused_mlp_backward": PAIRED_STEPS}
+        if launches != want:
+            raise AssertionError(f"{variant} training launches {launches} "
+                                 f"!= {want}")
+        ms[variant].append(step_ms)
+        if variant == "paired":
+            add_launches(total, launches)
+    # where a step's time goes in each layout: the device's busy time over
+    # 10 profiled steps, and the PyTorch operations one step dispatches
+    profiled = {}
+    for variant, v_nv in nvs.items():
+        busy, idle = idle_share(torch, lambda n, v_nv=v_nv: v_nv.train(
+            n, fast_mode=True), 10, float(np.median(ms[variant])))
+        ops = dispatched_ops(torch, lambda v_nv=v_nv: v_nv.train(
+            1, fast_mode=True))
+        profiled[variant] = {"device_busy_ms": busy, "idle_share": idle,
+                             "ops_a_step": ops}
+    nv = nvs["paired"]
+    _, dec = launches_during(lambda: nv.ensure_decoded(SIZE, SIZE))
+    r = api.VNRenderer(nv, SIZE, SIZE)
+    r.set_camera(orbit(0, N_FRAMES, max(DIMS)))
+    _, frame_l = launches_during(r.render)
+    frame = r.mapframe()
+    add_launches(total, dec)
+    add_launches(total, frame_l)
+    rec = {"phase": "paired_training", "steps_a_run": PAIRED_STEPS,
+           "order": "tcnn, paired, paired, tcnn, tcnn, paired",
+           "ms_per_step": ms,
+           "median_ms_per_step": {v: float(np.median(m))
+                                  for v, m in ms.items()},
+           "profiled": profiled,
+           "decode_launches": {k: v for k, v in dec.items() if v},
+           "frame_launches": {k: v for k, v in frame_l.items() if v},
+           "alpha_max": float(frame[..., 3].max()),
+           "psnr_after_steps": {v: n.get_psnr() for v, n in nvs.items()},
+           "steps": 20 + 3 * PAIRED_STEPS + 11,
+           "launches": {k: total.get(k, 0) for k in counters()}}
+    log(rec)
+    if (dec.get("hash_encode_forward_paired") != nv.n_blobs
+            or dec.get("fused_mlp") != nv.n_blobs
+            or dec.get("hash_encode_forward")
+            or frame_l.get("composite_slabs") != 1
+            or not np.isfinite(frame).all() or not rec["alpha_max"] > 0.05
+            or not rec["psnr_after_steps"]["paired"] > DATA_PSNR_MIN):
+        raise AssertionError(f"the paired model's path: {rec}")
+    return rec
+
+
+def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None):
+    """One fixed_steps frame of the 2^19 model (or, with `volume`, of the
+    sampled volume) on `dev`, camera 0 of the orbit over vorts 128³, and
+    its loss sum(frame²) backward → (leaves with their grads, forward ms,
+    backward ms, the samples' count: the supersteps that sampled)."""
+    from instantvnr_torch.accel import macrocell as mcmod
+    from instantvnr_torch.config import TransferFunctionConfig
+    from instantvnr_torch.models.network import params_from_numpy
+    from instantvnr_torch.render.raymarch import RaymarchSettings
+    from instantvnr_torch.render.renderer import (_render_frame,
+                                                  make_neural_sample_fn,
+                                                  reference_sample_fn)
+    from instantvnr_torch.render.slabmarch import camera_arrays
+    from instantvnr_torch.utils.tfn import bake_transfer_function
+
+    tf = bake_transfer_function(TransferFunctionConfig(), device=dev)
+    vol = (volume if volume is not None else
+           torch.from_numpy(_VORTS[0])).to(dev)
+    mc = mcmod.build(vol, DIMS, tf)
+    settings = RaymarchSettings(n_iters=FIXED_ITERS,
+                                max_supersteps=FIXED_SUPERSTEPS,
+                                fixed_steps=True)
+    cam = camera_arrays(orbit(0, N_FRAMES, max(DIMS)), dev)
+    jitter = torch.rand(size * size, generator=torch.Generator().manual_seed(
+        SEED + 21)).to(dev)
+    calls = [0]
+    if volume is None:
+        params = params_from_numpy(params_np, dev)
+        leaves = [params["table"], *params["mlp"]]
+        fn = make_neural_sample_fn(field)
+    else:
+        leaves = [vol.clone()]
+        params, fn = leaves[0], reference_sample_fn
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def counted(ctx, p):
+        calls[0] += 1
+        return fn(ctx, p)
+
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    _, frame = _render_frame(counted, size, size, settings, params, cam, mc,
+                             tf, jitter, None, 1)
+    loss = (frame ** 2).sum()
+    sync()
+    t1 = time.perf_counter()
+    loss.backward()
+    sync()
+    t2 = time.perf_counter()
+    return (leaves, (t1 - t0) * 1e3, (t2 - t1) * 1e3, calls[0],
+            float(frame[:, 3].detach().max()))
+
+
+_VORTS = []  # vorts 128³ as numpy, made once
+
+
+def phase_differentiable_march(torch, sv):
+    """RaymarchSettings(fixed_steps=True) on the 2^19 model: a 128² frame
+    (n_iters 4, 24 supersteps) and its loss's backward on the card, timed
+    three times with its peak memory; the launches of one run exact (a
+    raymarch_emit a superstep; K3, K1's training form, K2 and K4 once a
+    superstep that samples; never the inference K1); the gradients at 64²
+    on the card against the CPU's plain forms (FIXED_GRAD_TOL, each
+    leaf's relative L2 error; the largest entry's error is reported), for
+    the network's params and for the sampled volume. The peak memory is
+    the frame's own: the peak over what was allocated before it."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField
+
+    _VORTS.append(sv.volume.data.cpu().numpy())
+    field = NeuralField.from_config(ModelConfig())
+    p_np = seeded_params(field, SEED + 20)
+    runs = []
+    for i in range(3):
+        for c in counters().values():
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, fwd_ms, bwd_ms, sampled, alpha = _fixed_steps_frame(
+            torch, "cuda", field, p_np, FIXED_SIZE)
+        runs.append({"forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                     "sampled_supersteps": sampled, "alpha_max": alpha,
+                     "peak_memory_over_baseline":
+                         torch.cuda.max_memory_allocated() - base,
+                     "launches": {n: c.launches
+                                  for n, c in counters().items()}})
+    launches = runs[-1]["launches"]
+    k = runs[-1]["sampled_supersteps"]
+    want = {n: 0 for n in counters()}
+    want.update({"raymarch_emit": FIXED_SUPERSTEPS, "hash_encode_forward": k,
+                 "fused_mlp_train_forward": k, "fused_mlp_backward": k,
+                 "hash_encode_backward": k})
+    cmp = {}
+    for name in ("network", "volume"):
+        grads = []
+        for dev in ("cpu", "cuda"):
+            vol = (None if name == "network"
+                   else torch.from_numpy(_VORTS[0]))
+            leaves, *_ = _fixed_steps_frame(torch, dev, field, p_np,
+                                            FIXED_CMP_SIZE, volume=vol)
+            grads.append([t.grad.double().cpu() for t in leaves])
+        cmp[name] = [{"l2_rel": float((b - a).norm() / a.norm()),
+                      "max_rel": float((b - a).abs().max() / a.abs().max())}
+                     for a, b in zip(*grads)]
+    rec = {"phase": "differentiable_march",
+           "model": "ModelConfig() 2^19", "frame": f"{FIXED_SIZE}^2",
+           "n_iters": FIXED_ITERS, "max_supersteps": FIXED_SUPERSTEPS,
+           "forward_ms": [r["forward_ms"] for r in runs],
+           "backward_ms": [r["backward_ms"] for r in runs],
+           "forward_backward_ms_median": float(np.median(
+               [r["forward_ms"] + r["backward_ms"] for r in runs])),
+           "peak_memory_over_baseline": max(
+               r["peak_memory_over_baseline"] for r in runs),
+           "sampled_supersteps": k, "alpha_max": runs[-1]["alpha_max"],
+           "launches": launches,
+           "grad_rel_err_cuda_vs_cpu": cmp, "tol": FIXED_GRAD_TOL}
+    log(rec)
+    if launches != want or not k > 0 or rec["alpha_max"] <= 0.05:
+        raise AssertionError(f"differentiable march launches {launches} != "
+                             f"{want}: {rec}")
+    if any(not e["l2_rel"] <= FIXED_GRAD_TOL[n] for n in cmp
+           for e in cmp[n]):
+        raise AssertionError(f"fixed_steps gradients, card against CPU: "
+                             f"{rec}")
+    return rec
+
+
+def fvsrn_state_dict(torch, c=16, res=(32, 32, 32), m=42, width=64,
+                     hidden=4):
+    """An fV-SRN torch state dict as fV-SRN training leaves it: a latent
+    grid [1, C, Z, Y, X], a Fourier matrix [M, 3] and an nn.Linear stack
+    (random, from a seed; the layout models/fvsrn_import.py reads)."""
+    g = torch.Generator().manual_seed(SEED + 30)
+    rx, ry, rz = res
+    sd = {"latent_grid": torch.randn(1, c, rz, ry, rx, generator=g) * 0.3,
+          "fourier_matrix": torch.randn(m, 3, generator=g)}
+    dims = [c + 2 * m] + [width] * hidden + [1]
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        sd[f"layers.{i}.weight"] = torch.randn(b, a, generator=g) \
+            * math.sqrt(2.0 / a)
+        sd[f"layers.{i}.bias"] = torch.randn(b, generator=g) * 0.05
+    return sd
+
+
+def phase_fvsrn(torch, sv, tmp):
+    """fV-SRN (the default FvsrnConfig: a 32³ × 16 latent grid, 14 Fourier
+    bands, a 64 × 4 SnakeAlt MLP) through the facade on vorts 128³:
+    FVSRN_STEPS training steps at B = 2^16 on the host clock (plain
+    PyTorch on the card: no kernel in either package), the 128³ decode and
+    512² DECODED_SLAB frames (composite_slabs only); the same params
+    decoded and rendered small on the card against the CPU; a native .npz
+    round trip; view_model on an imported torch state dict."""
+    from instantvnr_torch import api
+    from instantvnr_torch.apps import view_model
+    from instantvnr_torch.models.fvsrn import FvsrnConfig
+    from instantvnr_torch.models.fvsrn_import import load_fvsrn_torch
+    from instantvnr_torch.models.network import network_apply
+
+    nv = api.NeuralVolume(FvsrnConfig(), sv, device="cuda", seed=SEED)
+    psnr0 = nv.get_psnr()
+    nv.train(10, fast_mode=True)
+    ms, launches = step_ms_host(torch, lambda n: nv.train(n, fast_mode=True),
+                                FVSRN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psnr = nv.get_psnr()  # one 128³ decode
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    r = api.VNRenderer(nv, SIZE, SIZE)
+    r.set_camera(orbit(0, N_FRAMES, max(DIMS)))
+    r.render()
+    for c in counters().values():
+        c.reset()
+    frame_ms = []
+    for i in range(FVSRN_FRAMES):
+        t0 = time.perf_counter()
+        r.set_camera(orbit(i, N_FRAMES, max(DIMS)))
+        r.render()
+        frame = r.mapframe()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    frame_launches = {n: c.launches for n, c in counters().items()
+                      if c.launches}
+    # the same params on the CPU and the card, small
+    frames, grids = {}, {}
+    for dev in ("cpu", "cuda"):
+        small = api.SimpleVolume.synthetic(FVSRN_CMP_DIMS, "vorts",
+                                           device=dev)
+        nv_s = api.NeuralVolume(FvsrnConfig(), small, device=dev)
+        nv_s.params = {"table": nv.params["table"].detach().to(dev),
+                       "mlp": [w.detach().to(dev) for w in nv.params["mlp"]]}
+        grids[dev] = nv_s.decode_volume().cpu().numpy()
+        rs = api.VNRenderer(nv_s, 48, 48)
+        rs.set_camera(orbit(1, N_FRAMES, 32))
+        rs.render()
+        frames[dev] = rs.mapframe()
+    grid_err = float(np.abs(grids["cuda"] - grids["cpu"]).max())
+    grid_mean = float(np.abs(grids["cuda"] - grids["cpu"]).mean())
+    frame_err = float(np.abs(frames["cuda"] - frames["cpu"]).max())
+    # native .npz
+    path = os.path.join(tmp, "fvsrn.npz")
+    nv.save_params(path)
+    back = api.NeuralVolume.from_checkpoint(path, simple=sv, device="cuda")
+    npz_equal = bool(torch.equal(back.decode_volume(), nv.decode_volume()))
+    # an imported state dict through view_model, on the card
+    pt = os.path.join(tmp, "fvsrn.pt")
+    torch.save(fvsrn_state_dict(torch), pt)
+    info = view_model.main([pt, "--synthetic", "vorts", "--dims", "64",
+                            "--device", "cuda", "--evaluate"])
+    field, params = load_fvsrn_torch(pt, device="cuda")
+    pts = torch.rand((1 << 16, 3), generator=torch.Generator().manual_seed(
+        SEED + 31))
+    imp_err = float((network_apply(params, pts.to("cuda"), field).cpu()
+                     - network_apply({k: ([t.cpu() for t in v]
+                                          if isinstance(v, list)
+                                          else v.cpu())
+                                      for k, v in params.items()},
+                                     pts, field)).abs().max())
+    rec = {"phase": "fvsrn", "config": "FvsrnConfig() 32^3 x 16 latent, "
+           "14 bands, 64x4 SnakeAlt", "volume": f"vorts {DIMS}",
+           "batch": TRAIN_BATCH, "ms_per_step": ms,
+           "train_launches": launches, "psnr_untrained": psnr0,
+           "psnr_after_steps": psnr, "steps": FVSRN_STEPS + 10,
+           "decode_ms": decode_ms, "frame_ms": frame_ms,
+           "ms_per_frame_median": float(np.median(frame_ms[1:])),
+           "frame_launches": frame_launches,
+           "alpha_max": float(frame[..., 3].max()),
+           "cuda_vs_cpu": {"grid_max_abs_err": grid_err,
+                           "grid_mean_abs_err": grid_mean,
+                           "frame_max_abs_err": frame_err,
+                           "tol": f"atol={MLP_ATOL}, mean={MLP_MEAN_TOL}"},
+           "npz_roundtrip_equal": npz_equal,
+           "view_model": {k: info[k] for k in ("n_params", "psnr", "ssim")},
+           "import_cuda_vs_cpu_max_abs_err": imp_err}
+    log(rec)
+    if (launches or frame_launches != {"composite_slabs": FVSRN_FRAMES}
+            or not psnr > psnr0 + DATA_PSNR_GAIN or not npz_equal
+            or not grid_err <= MLP_ATOL or not grid_mean <= MLP_MEAN_TOL
+            or not frame_err <= MLP_ATOL or not imp_err <= MLP_ATOL
+            or not np.isfinite([info["psnr"], info["ssim"]]).all()
+            or not rec["alpha_max"] > 0.05):
+        raise AssertionError(f"fV-SRN: {rec}")
+    return rec
+
+
+def vdb_fixture():
+    """A FloatGrid file built byte by byte from OpenVDB's layout (version
+    224, active-value compression, no ZIP), as tests/test_torch_vdb.py
+    builds it: three leaves at (8, 0, 0), (8, 0, 8) and (16, 0, 0), the
+    last half active, an active tile of 0.5 at (8, 8, 0), background 0 →
+    (the file's bytes, its oracle [z, y, x] at index origin (8, 0, 0))."""
+    import struct
+
+    rng = np.random.default_rng(SEED + 40)
+    d = np.zeros((16, 16, 16), np.float32)
+    d[:8, :8, :8] = rng.uniform(0.1, 1.0, (8, 8, 8))
+    half = rng.uniform(0.1, 1.0, (8, 8, 8)).astype(np.float32)
+    half[rng.random((8, 8, 8)) < 0.5] = 0.0
+    half[7, 7, 7] = 0.9
+    d[:8, :8, 8:] = half
+    d[:8, 8:, :8] = 0.5
+    d[8:, :8, :8] = rng.uniform(0.1, 1.0, (8, 8, 8))
+
+    def s(b):
+        return struct.pack("<I", len(b)) + b
+
+    def mask(bits):
+        return np.packbits(np.asarray(bits, np.uint8),
+                           bitorder="little").tobytes()
+
+    def leaf(x0, y0, z0):
+        blk = d[z0:z0 + 8, y0:y0 + 8, x0 - 8:x0]
+        v = blk.transpose(2, 1, 0).reshape(-1).astype("<f4")
+        return v, v > 0
+
+    az, ay, ax = np.nonzero(d > 0)
+    meta = [(b"class", b"string", b"fog volume"),
+            (b"file_bbox_max", b"vec3i", struct.pack(
+                "<3i", 8 + ax.max(), ay.max(), az.max())),
+            (b"file_bbox_min", b"vec3i", struct.pack(
+                "<3i", 8 + ax.min(), ay.min(), az.min())),
+            (b"file_compression", b"string", b"active values"),
+            (b"file_voxel_count", b"int64",
+             struct.pack("<q", int((d > 0).sum()))),
+            (b"is_saved_as_half_float", b"bool", b"\x00"),
+            (b"name", b"string", b"density")]
+    grid = struct.pack("<I", 2) + struct.pack("<I", len(meta)) + b"".join(
+        s(n) + s(t) + struct.pack("<I", len(v)) + v for n, t, v in meta)
+    grid += s(b"UniformScaleMap") + b"".join(
+        struct.pack("<3d", v, v, v) for v in (1.0, 1.0, 1.0, 1.0, 0.5))
+    grid += struct.pack("<ifII", 1, 0.0, 0, 1) + struct.pack("<3i", 0, 0, 0)
+    l1 = np.zeros(32 ** 3, bool)
+    l1[0] = True
+    grid += mask(l1) + mask(np.zeros(32 ** 3, bool)) + b"\x00"
+    leaves = {256: (8, 0, 0), 257: (8, 0, 8), 512: (16, 0, 0)}
+    l2c = np.zeros(16 ** 3, bool)
+    l2c[list(leaves)] = True
+    l2v = np.zeros(16 ** 3, bool)
+    l2v[272] = True
+    grid += mask(l2c) + mask(l2v) + b"\x00" + struct.pack("<f", 0.5)
+    grid += b"".join(mask(leaf(*leaves[o])[1]) for o in sorted(leaves))
+    bufs = b""
+    for o in sorted(leaves):
+        v, m = leaf(*leaves[o])
+        bufs += mask(m) + b"\x00" + v[m].tobytes()
+    head = struct.pack("<qIII", 0x56444220, 224, 11, 0) + b"\x01"
+    head += b"0f8fad5b-d9cb-469f-a165-70867728950e"
+    head += struct.pack("<Ii", 0, 1) + s(b"density") + s(
+        b"Tree_float_5_4_3") + s(b"")
+    gpos = len(head) + 24
+    raw = head + struct.pack("<3q", gpos, gpos + len(grid),
+                             gpos + len(grid) + len(bufs)) + grid + bufs
+    return raw, d
+
+
+def phase_vdb(torch, sv, tmp):
+    """VDB files in real OpenVDB's layout: the byte-built fixture read to
+    its array; vorts 128³ written with write_vdb (zip + active values, the
+    zeros inactive) and read back and densified (timed, exact); a
+    SimpleVolume of it on the card, VDB_STEPS training steps of the 2^14
+    model and a 512² DECODED_SLAB frame; save_inference_volume to .vdb read
+    back to the decode."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import EncodingConfig, ModelConfig
+    from instantvnr_torch.data import vdb
+
+    raw, oracle = vdb_fixture()
+    fixture = os.path.join(tmp, "fixture.vdb")
+    with open(fixture, "wb") as f:
+        f.write(raw)
+    dense, info = vdb.read_vdb(fixture)
+    fixture_ok = (np.array_equal(dense, oracle)
+                  and info.bbox_min == (8, 0, 0))
+    src = sv.volume.data.cpu().numpy()
+    path = os.path.join(tmp, "vorts.vdb")
+    t0 = time.perf_counter()
+    vdb.write_vdb(path, src, compression="zip+mask", active_threshold=0.0)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    read_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dense, info = vdb.read_vdb(path)
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    # the read covers the active voxels' bounding box
+    az, ay, ax = np.nonzero(src > 0.0)
+    read_ok = bool(np.array_equal(dense, src[az.min():az.max() + 1,
+                                             ay.min():ay.max() + 1,
+                                             ax.min():ax.max() + 1]))
+    simple = api.SimpleVolume(vdb.vdb_to_volume(path, device="cuda"),
+                              device="cuda")
+    nv = api.NeuralVolume(ModelConfig(encoding=EncodingConfig(
+        log2_hashmap_size=14)), simple, device="cuda", seed=SEED)
+    psnr0 = nv.get_psnr()
+    ms, launches = step_ms_host(torch, lambda n: nv.train(n), VDB_STEPS)
+    psnr = nv.get_psnr()
+    r = api.VNRenderer(nv, SIZE, SIZE)
+    r.set_camera(orbit(0, N_FRAMES, max(DIMS)))
+    _, frame_l = launches_during(r.render)
+    frame = r.mapframe()
+    out = os.path.join(tmp, "decoded.vdb")
+    nv.save_inference_volume(out)
+    back, _ = vdb.read_vdb(out)
+    decoded = nv.decode_volume().cpu().numpy()
+    inference_ok = bool(back.shape == decoded.shape
+                        and np.array_equal(back, decoded))
+    rec = {"phase": "vdb", "fixture_equal": bool(fixture_ok),
+           "volume": f"vorts {DIMS}", "active_bbox_dims": list(dense.shape),
+           "active_share": float((src > 0.0).mean()),
+           "file_bytes": os.path.getsize(path),
+           "write_ms": write_ms, "read_densify_ms": read_ms,
+           "read_equal": read_ok, "ms_per_step": ms,
+           "train_launches": launches, "psnr_untrained": psnr0,
+           "psnr_after_steps": psnr,
+           "frame_launches": {k: v for k, v in frame_l.items() if v},
+           "alpha_max": float(frame[..., 3].max()),
+           "inference_vdb_equal": inference_ok}
+    log(rec)
+    if (not fixture_ok or not read_ok or not inference_ok
+            or not psnr > psnr0 + DATA_PSNR_GAIN
+            or frame_l.get("composite_slabs") != 1
+            or not rec["alpha_max"] > 0.05):
+        raise AssertionError(f"vdb: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -3427,6 +4104,7 @@ def main() -> int:
     mlp_train = phase_fused_mlp_train(torch)
     hashes = {log2: phase_hash_encode(torch, f"2^{log2}", log2)
               for log2 in (14, 19)}
+    paired = phase_hash_paired(torch)
     knots = np.linspace(0.0, 1.0, 70)
     alphas = np.random.default_rng(SEED + 4).uniform(0.0, 0.9, 70)
     tf70 = bake_transfer_function(TransferFunctionConfig(
@@ -3450,6 +4128,7 @@ def main() -> int:
     phase_one_voxel(torch)
     phase_wavefront_cuda_vs_cpu(torch)
     phase_pathtrace_cuda_vs_cpu(torch)
+    phase_edge_pixel(torch)
 
     # -- main path: counts from 0, then decode + an orbit of frames --------
     nv = api.NeuralVolume(ModelConfig(), sv, device="cuda")
@@ -3517,6 +4196,13 @@ def main() -> int:
     phase_train_breakdown(torch, nv19)
     phase_online_loop(torch, nv19)
 
+    # -- the paired layout's path, the differentiable march, fV-SRN, VDB --
+    paired_path = phase_paired_training(torch, sv)
+    diff = phase_differentiable_march(torch, sv)
+    with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
+        phase_fvsrn(torch, sv, tmp)
+        phase_vdb(torch, sv, tmp)
+
     # -- the interactive apps: the online trainer and the viewer ----------
     with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
         online = {log2: phase_online_app(torch, tmp, log2)
@@ -3548,6 +4234,10 @@ def main() -> int:
         add_launches(total, d)
     for name in TRAIN_KERNELS:
         total[name] += train14["launches"][name]
+    # the paired layout's path (its training, decode and frame) and the
+    # differentiable march's frame
+    add_launches(total, paired_path["launches"])
+    add_launches(total, diff["launches"])
     # the extraction's runs: the network path and the grid path
     add_launches(total, iso_net["launches"])
     total["mt_count/mt_emit"] += iso_net["grid_path_launches"]
@@ -3574,6 +4264,14 @@ def main() -> int:
             "instantvnr_tpu/ops/hash_encoding.py:332", hashes[19][0]),
         row("hash_encode_backward", "hash_encode.cu",
             "instantvnr_tpu/ops/hash_encoding.py:332", hashes[19][1]),
+        # their paired-layout forms (hash_variant="paired"): the gather of
+        # hash_encode_paired and the pair-row scatter of its custom_vjp
+        row("hash_encode_forward_paired", "hash_encode.cu",
+            "instantvnr_tpu/ops/hash_encoding.py:497",
+            paired[PAIRED_BATCHES[0]][0]),
+        row("hash_encode_backward_paired", "hash_encode.cu",
+            "instantvnr_tpu/ops/hash_encoding.py:853",
+            paired[PAIRED_BATCHES[0]][1]),
         row("composite_slabs", "slab_composite.cu",
             tpu + "slab_composite.py:242", comp),
         row("composite_slabs_ext", "slab_composite.cu",

@@ -8,9 +8,8 @@ under `csrc/`, built with nvcc at first use (`ops/cuda_lib.py`), beside a
 plain PyTorch version of the same function. A CUDA tensor takes the
 kernel; a CPU tensor takes the plain version.
 
-Ported so far: the serving path — decode of a hash-grid + MLP field and
-DECODED_SLAB rendering (`api.py`), with the fused-MLP and slab-compositor
-kernels.
+What is ported and what is left: ROADMAP.md ("Where the port stands");
+the JAX package's parallel/ (sharding over devices) is the module left.
 """
 
 __version__ = "0.1.0"

@@ -14,8 +14,6 @@ import zlib
 
 import numpy as np
 
-_VDB_ITEM = ("ROADMAP 'Next slices' item 5 (data and model breadth: VDB "
-             "volumes, fV-SRN and the paired hash)")
 # the grid synthetics and the analytic fields at the decode lattice
 # (data/volume.py::synthetic_array, data/procedural.py)
 SYNTHETIC_KINDS = ("vorts", "sphere", "noise", "tubes", "wavelet", "xyz",
@@ -36,9 +34,12 @@ def add_volume_args(p: argparse.ArgumentParser):
                    "with no volume)")
     g.add_argument("--dims", type=int, nargs="+", default=[64],
                    help="synthetic volume dims (1 or 3 ints)")
-    g.add_argument("--volume", help=".vdb volume file (not ported yet)")
+    g.add_argument("--volume",
+                   help=".vdb volume file (an OpenVDB FloatGrid, the "
+                   "reference's OpenVKL VDB source; data/vdb.py)")
     g.add_argument("--vdb-grid", default=None,
-                   help="grid name inside the .vdb (not ported yet)")
+                   help="grid name inside the .vdb (default: the only grid, "
+                   "or 'density')")
 
 
 def add_model_args(p: argparse.ArgumentParser):
@@ -57,23 +58,26 @@ def volume_dims(args) -> tuple:
 
 
 def check_volume_arg(args):
-    """--volume reads .vdb files, which are not ported yet (raw volumes
-    come through a scene JSON, which gives their dims and type)."""
+    """--volume reads .vdb files only (raw volumes come through a scene
+    JSON, which gives their dims and type)."""
     vol = getattr(args, "volume", None)
     if vol and not vol.endswith(".vdb"):
         raise SystemExit(f"--volume {vol}: only .vdb files are read here "
                          "(raw volumes need a scene JSON for dims and type)")
-    if vol or getattr(args, "vdb_grid", None):
-        raise NotImplementedError(".vdb volumes are not ported yet: "
-                                  + _VDB_ITEM)
 
 
 def load_simple_volume(args):
-    """The SimpleVolume the arguments name: --scene, else --synthetic
-    (default vorts)."""
+    """The SimpleVolume the arguments name: --volume x.vdb, else --scene,
+    else --synthetic (default vorts)."""
     from instantvnr_torch.api import SimpleVolume
 
     check_volume_arg(args)
+    if getattr(args, "volume", None):
+        from instantvnr_torch.data.vdb import vdb_to_volume
+
+        return SimpleVolume(vdb_to_volume(args.volume, args.vdb_grid,
+                                          device=args.device),
+                            device=args.device)
     if args.scene:
         return SimpleVolume(args.scene, device=args.device)
     return SimpleVolume.synthetic(dims=volume_dims(args),

@@ -12,7 +12,9 @@ package's included. `--scene s.json` trains on a raw volume (`--timestep
 k` of a time series); `--sampling-mode out-of-core` streams the scene's
 file through the native block loader instead of loading it, and
 `--sampling-mode analytic` trains on the `--synthetic` field itself (vorts
-means its analytic twin, tubes) with no volume anywhere.
+means its analytic twin, tubes) with no volume anywhere. `--volume x.vdb`
+(`--vdb-grid name`) trains on an OpenVDB grid, in core or, out of core,
+from a raw sidecar densified once next to the file.
 """
 from __future__ import annotations
 
@@ -31,6 +33,34 @@ from instantvnr_torch.apps.common import (
     sync,
     volume_dims,
 )
+
+
+def vdb_sidecar(path: str, grid: str | None):
+    """The raw float32 sidecar of a .vdb grid that the native loader
+    streams (it reads contiguous rows, which a sparse tree has not),
+    densified once next to the file, and its VolumeDesc. The sidecar's
+    name holds the grid's name and the .vdb's size and mtime, so a rewrite
+    of the .vdb, or another grid of it, never reuses a stale sidecar (the
+    JAX package keys it on the size alone, ROADMAP Queue 3)."""
+    import os
+
+    import numpy as np
+
+    from instantvnr_torch.config import VolumeDesc
+    from instantvnr_torch.data.vdb import read_vdb
+
+    st = os.stat(path)
+    dense, info = read_vdb(path, grid)
+    sidecar = f"{path}.{info.name}.{st.st_size}.{st.st_mtime_ns}.raw"
+    dz, dy, dx = dense.shape
+    if not (os.path.exists(sidecar)
+            and os.path.getsize(sidecar) == dense.nbytes):
+        with open(sidecar + ".tmp", "wb") as f:
+            dense.astype(np.float32).tofile(f)
+        os.replace(sidecar + ".tmp", sidecar)
+        print(f"[vnr] densified {path} -> {sidecar}")
+    return VolumeDesc(filename=sidecar, dims=(dx, dy, dz), dtype="FLOAT",
+                      value_range=(float(dense.min()), float(dense.max())))
 
 
 def main(argv=None):
@@ -79,11 +109,14 @@ def main(argv=None):
         from instantvnr_torch.data.outofcore import OutOfCoreSampler
 
         check_volume_arg(args)
-        if not args.scene:
+        if args.volume:
+            desc = vdb_sidecar(args.volume, args.vdb_grid)
+        elif args.scene:
+            desc = load_scene_config(args.scene).volume.at_timestep(
+                args.timestep)
+        else:
             raise SystemExit("out-of-core training reads a scene's raw file "
-                             "(--scene)")
-        desc = load_scene_config(args.scene).volume.at_timestep(
-            args.timestep)
+                             "(--scene) or a .vdb (--volume)")
         dims = desc.dims
         print(f"[vnr] volume {dims} (out-of-core, {desc.n_bytes / 1e9:.3f} "
               f"GB), device {name}")
@@ -113,7 +146,8 @@ def main(argv=None):
                           device=args.device, train_batch=args.batch)
     spec = nv.field.spec
     print(f"[vnr] model: {nv.field.n_params} params ({spec.n_levels} levels "
-          f"× {spec.n_features} features)")
+          f"× {spec.n_features} features"
+          f"{', paired hash' if spec.paired else ''})")
 
     from instantvnr_torch.models.trainer import (train_out_of_core,
                                                  train_steps_source)

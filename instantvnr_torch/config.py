@@ -55,7 +55,8 @@ class EncodingConfig:
     base_resolution: int = 16
     per_level_scale: float = 2.0
     interpolation: str = "Linear"
-    # only the tcnn spatial hash is ported; "paired" is a later item
+    # "tcnn" (the reference's spatial hash) or "paired" (hashed levels
+    # keyed by cell pairs, ops/hash_encoding.py; native .npz checkpoints)
     hash_variant: str = "tcnn"
 
     def __post_init__(self):

@@ -16,6 +16,15 @@
 // is a power of two (every hashed level), else a compare and a % only for
 // an index past the end (a dense level's corner on the upper face).
 //
+// The paired layout (EncodingConfig.hash_variant = "paired"; plain version
+// ops/hash_encoding.py::paired_corner_indices_and_weights) changes only a
+// hashed level's corner address and weight (`paired_corner`): corner 2·j +
+// half is entry offset + 2·row_j + half, its two halves adjacent, weight
+// w12·(1 − f_a or f_a). Both kernels take it as the template flag kPaired
+// beside kBf16; dense levels keep tcnn's stride addressing. The backward's
+// two corners of a pair-row then land in the same 64 bytes: half the rows a
+// hashed level touches, the same number of atomics.
+//
 // Forward (K3): one lane per (sample, level), lanes numbered sample · L +
 // level in 32-bit arithmetic, so a warp covers 32 consecutive output rows of
 // F features. Each lane gathers its 8 rows of F features with vector loads
@@ -184,9 +193,49 @@ __device__ __forceinline__ float corner_weight(const Cell& c, int corner) {
   return wx * wy * wz;
 }
 
+// The paired layout's hashed-level corner (ops/hash_encoding.py::
+// _paired_level_rows): corner = 2·j + half, j the pair-row of the other two
+// axes' corner (p1, p2) = (j & 1, j >> 1) and half the corner along the
+// level's pairing axis a = l mod 3. The row hashes the CELL's coordinate
+// along a, row = (cell_a ⊻ p1·2654435761 ⊻ p2·805459861) mod (size/2), and
+// the entry is offset + 2·row + half, weight (w_p1·w_p2)·(1 − f_a or f_a).
+__device__ __forceinline__ void paired_corner(const Cell& c, int corner,
+                                              const Levels& lv, int l,
+                                              uint32_t* idx, float* w) {
+  const int a = l % 3;
+  const int o1 = a == 2 ? 0 : a + 1;
+  const int o2 = a == 0 ? 2 : a - 1;
+  const int j = corner >> 1;
+  const int half = corner & 1;
+  const uint32_t p1 = c.pos[o1] + (j & 1);
+  const uint32_t p2 = c.pos[o2] + (j >> 1);
+  const uint32_t h = c.pos[a] ^ (p1 * 2654435761u) ^ (p2 * 805459861u);
+  const uint32_t rows = lv.size[l] >> 1;
+  const uint32_t row = ((lv.pow2_mask >> l) & 1u) ? (h & (rows - 1u))
+                                                  : h % rows;
+  *idx = lv.offset[l] + 2u * row + static_cast<uint32_t>(half);
+  const float w1 = (j & 1) ? c.frac[o1] : 1.0f - c.frac[o1];
+  const float w2 = (j >> 1) ? c.frac[o2] : 1.0f - c.frac[o2];
+  *w = (w1 * w2) * (half ? c.frac[a] : 1.0f - c.frac[a]);
+}
+
+// A corner's entry and weight: tcnn's layout, or with kPaired the paired
+// layout on hashed levels (dense levels address alike in both)
+template <bool kPaired>
+__device__ __forceinline__ void level_corner(const Cell& c, int corner,
+                                             const Levels& lv, int l,
+                                             uint32_t* idx, float* w) {
+  if (kPaired && !((lv.dense_mask >> l) & 1u)) {
+    paired_corner(c, corner, lv, l, idx, w);
+  } else {
+    *idx = corner_index(c, corner, lv, l);
+    *w = corner_weight(c, corner);
+  }
+}
+
 // One (sample, level)'s F features: the 8 corners' rows gathered, each
 // row·w rounded to the compute type and summed in float32 in corner order
-template <typename T, int F, bool kBf16>
+template <typename T, int F, bool kBf16, bool kPaired = false>
 __device__ __forceinline__ void encode_level(const T* __restrict__ table,
                                              const float* p, const Levels& lv,
                                              int l, float (&acc)[F]) {
@@ -195,8 +244,10 @@ __device__ __forceinline__ void encode_level(const T* __restrict__ table,
   for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
-    const uint32_t idx = corner_index(c, corner, lv, l);
-    const float w = to_compute<kBf16>(corner_weight(c, corner));
+    uint32_t idx;
+    float w;
+    level_corner<kPaired>(c, corner, lv, l, &idx, &w);
+    w = to_compute<kBf16>(w);
     float row[F];
     load_row<F>(table + static_cast<size_t>(idx) * F, row);
 #pragma unroll
@@ -251,7 +302,7 @@ __device__ __forceinline__ void store_row(uint16_t* dst,
 }
 
 // Out: float, or uint16_t holding bf16 bits (the bf16 compute type)
-template <typename T, typename Out, int F, bool kBf16>
+template <typename T, typename Out, int F, bool kBf16, bool kPaired = false>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_forward_kernel(const T* __restrict__ table,
                            const float* __restrict__ coords,
@@ -262,8 +313,8 @@ hash_encode_forward_kernel(const T* __restrict__ table,
   const uint32_t b = t / static_cast<uint32_t>(n_levels);
   const int l = static_cast<int>(t - b * static_cast<uint32_t>(n_levels));
   float acc[F];
-  encode_level<T, F, kBf16>(table, coords + 3 * static_cast<size_t>(b), lv, l,
-                            acc);
+  encode_level<T, F, kBf16, kPaired>(table, coords + 3 * static_cast<size_t>(b),
+                                     lv, l, acc);
   // output row t of [B·L, F] == features [b, l·F .. l·F+F)
   store_row<F>(out + static_cast<size_t>(t) * F, acc);
 }
@@ -283,7 +334,7 @@ __device__ __forceinline__ void red_add(float* dst, const float (&v)[V]) {
   }
 }
 
-template <typename G, int F, bool kBf16>
+template <typename G, int F, bool kBf16, bool kPaired = false>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_backward_kernel(const float* __restrict__ coords,
                             const G* __restrict__ g, float* __restrict__ grad,
@@ -305,8 +356,8 @@ hash_encode_backward_kernel(const float* __restrict__ coords,
     const Cell c = level_cell(coords + 3 * b, lv.scale[l]);
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
-      idx[corner] = corner_index(c, corner, lv, l);
-      w[corner] = to_compute<kBf16>(corner_weight(c, corner));
+      level_corner<kPaired>(c, corner, lv, l, &idx[corner], &w[corner]);
+      w[corner] = to_compute<kBf16>(w[corner]);
     }
   } else {
 #pragma unroll
@@ -374,52 +425,74 @@ unsigned blocks_for(long long n, int n_levels) {
   return static_cast<unsigned>((n * n_levels + kThreads - 1) / kThreads);
 }
 
-template <typename T, typename Out, int F, bool kBf16>
+template <typename T, typename Out, int F, bool kBf16, bool kPaired>
 cudaError_t forward_launch(const void* table, const float* coords, void* out,
                            long long n, int n_levels, const Levels& lv,
                            cudaStream_t s) {
-  hash_encode_forward_kernel<T, Out, F, kBf16>
+  hash_encode_forward_kernel<T, Out, F, kBf16, kPaired>
       <<<blocks_for(n, n_levels), kThreads, 0, s>>>(
           static_cast<const T*>(table), coords, static_cast<Out*>(out),
           static_cast<uint32_t>(n * n_levels), n_levels, lv);
   return cudaGetLastError();
 }
 
-template <typename T, int F>
+template <typename T, int F, bool kPaired>
 cudaError_t forward_typed(const void* table, const float* coords, void* out,
                           long long n, int n_levels, const Levels& lv,
                           int out_bf16, cudaStream_t s) {
-  return out_bf16 ? forward_launch<T, uint16_t, F, true>(table, coords, out,
-                                                         n, n_levels, lv, s)
-                  : forward_launch<T, float, F, false>(table, coords, out, n,
-                                                       n_levels, lv, s);
+  return out_bf16
+             ? forward_launch<T, uint16_t, F, true, kPaired>(
+                   table, coords, out, n, n_levels, lv, s)
+             : forward_launch<T, float, F, false, kPaired>(
+                   table, coords, out, n, n_levels, lv, s);
+}
+
+template <int F, bool kPaired>
+cudaError_t forward_p(const void* table, const float* coords, void* out,
+                      long long n, int n_levels, const Levels& lv,
+                      int table_bf16, int out_bf16, cudaStream_t s) {
+  return table_bf16
+             ? forward_typed<uint16_t, F, kPaired>(table, coords, out, n,
+                                                   n_levels, lv, out_bf16, s)
+             : forward_typed<float, F, kPaired>(table, coords, out, n,
+                                                n_levels, lv, out_bf16, s);
 }
 
 template <int F>
 cudaError_t forward_f(const void* table, const float* coords, void* out,
                       long long n, int n_levels, const Levels& lv,
-                      int table_bf16, int out_bf16, cudaStream_t s) {
-  return table_bf16
-             ? forward_typed<uint16_t, F>(table, coords, out, n, n_levels, lv,
-                                          out_bf16, s)
-             : forward_typed<float, F>(table, coords, out, n, n_levels, lv,
-                                       out_bf16, s);
+                      int table_bf16, int out_bf16, int paired,
+                      cudaStream_t s) {
+  return paired ? forward_p<F, true>(table, coords, out, n, n_levels, lv,
+                                     table_bf16, out_bf16, s)
+                : forward_p<F, false>(table, coords, out, n, n_levels, lv,
+                                      table_bf16, out_bf16, s);
+}
+
+template <int F, bool kPaired>
+cudaError_t backward_p(const float* coords, const void* g, float* grad,
+                       long long n, int n_levels, const Levels& lv,
+                       int g_bf16, cudaStream_t s) {
+  if (g_bf16) {
+    hash_encode_backward_kernel<uint16_t, F, true, kPaired>
+        <<<blocks_for(n, n_levels), kThreads, 0, s>>>(
+            coords, static_cast<const uint16_t*>(g), grad, n, n_levels, lv);
+  } else {
+    hash_encode_backward_kernel<float, F, false, kPaired>
+        <<<blocks_for(n, n_levels), kThreads, 0, s>>>(
+            coords, static_cast<const float*>(g), grad, n, n_levels, lv);
+  }
+  return cudaGetLastError();
 }
 
 template <int F>
 cudaError_t backward_f(const float* coords, const void* g, float* grad,
                        long long n, int n_levels, const Levels& lv,
-                       int g_bf16, cudaStream_t s) {
-  if (g_bf16) {
-    hash_encode_backward_kernel<uint16_t, F, true>
-        <<<blocks_for(n, n_levels), kThreads, 0, s>>>(
-            coords, static_cast<const uint16_t*>(g), grad, n, n_levels, lv);
-  } else {
-    hash_encode_backward_kernel<float, F, false>
-        <<<blocks_for(n, n_levels), kThreads, 0, s>>>(
-            coords, static_cast<const float*>(g), grad, n, n_levels, lv);
-  }
-  return cudaGetLastError();
+                       int g_bf16, int paired, cudaStream_t s) {
+  return paired ? backward_p<F, true>(coords, g, grad, n, n_levels, lv,
+                                      g_bf16, s)
+                : backward_p<F, false>(coords, g, grad, n, n_levels, lv,
+                                       g_bf16, s);
 }
 
 }  // namespace
@@ -427,12 +500,13 @@ cudaError_t backward_f(const float* coords, const void* g, float* grad,
 // table [T, F] (f32, or bf16 if table_bf16), 16-byte aligned; coords [n, 3]
 // f32; out [n, L·F] in the compute type (bf16 if out_bf16, else f32).
 // scales: host float [L]; levels: host int [L][4] = (res, size, offset,
-// dense). F is 1, 2, 4 or 8; L ≤ 32; n·L < 2^31.
+// dense). F is 1, 2, 4 or 8; L ≤ 32; n·L < 2^31. paired: the paired
+// layout's hashed levels (each hashed level's size even).
 extern "C" int hash_encode_forward(const void* table, const void* coords,
                                    void* out, long long n, int n_levels,
                                    int n_features, const void* scales,
                                    const void* levels, int table_bf16,
-                                   int out_bf16, void* stream) {
+                                   int out_bf16, int paired, void* stream) {
   Levels lv;
   if (!make_levels(n_levels, scales, levels, &lv)) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
@@ -443,16 +517,16 @@ extern "C" int hash_encode_forward(const void* table, const void* coords,
   switch (n_features) {
     case 1:
       return forward_f<1>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          s);
+                          paired, s);
     case 2:
       return forward_f<2>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          s);
+                          paired, s);
     case 4:
       return forward_f<4>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          s);
+                          paired, s);
     case 8:
       return forward_f<8>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          s);
+                          paired, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -465,7 +539,7 @@ extern "C" int hash_encode_backward(const void* coords, const void* g,
                                     void* grad, long long n, int n_levels,
                                     int n_features, const void* scales,
                                     const void* levels, int g_bf16,
-                                    void* stream) {
+                                    int paired, void* stream) {
   Levels lv;
   if (!make_levels(n_levels, scales, levels, &lv)) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
@@ -474,13 +548,13 @@ extern "C" int hash_encode_backward(const void* coords, const void* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_features) {
     case 1:
-      return backward_f<1>(c, g, gr, n, n_levels, lv, g_bf16, s);
+      return backward_f<1>(c, g, gr, n, n_levels, lv, g_bf16, paired, s);
     case 2:
-      return backward_f<2>(c, g, gr, n, n_levels, lv, g_bf16, s);
+      return backward_f<2>(c, g, gr, n, n_levels, lv, g_bf16, paired, s);
     case 4:
-      return backward_f<4>(c, g, gr, n, n_levels, lv, g_bf16, s);
+      return backward_f<4>(c, g, gr, n, n_levels, lv, g_bf16, paired, s);
     case 8:
-      return backward_f<8>(c, g, gr, n, n_levels, lv, g_bf16, s);
+      return backward_f<8>(c, g, gr, n, n_levels, lv, g_bf16, paired, s);
     default:
       return cudaErrorInvalidValue;
   }

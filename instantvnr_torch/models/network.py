@@ -64,7 +64,11 @@ class NeuralField:
 
 def init_params(generator: torch.Generator, field: NeuralField,
                 device="cuda") -> Params:
-    """tcnn-style init: table uniform ±1e-4, He-normal MLP."""
+    """tcnn-style init: table uniform ±1e-4, He-normal MLP; another
+    family (models/fvsrn.py) initializes through its own `init`."""
+    custom = getattr(field, "init", None)
+    if custom is not None:
+        return custom(generator, device)
     table = init_hash_table(generator, field.spec, device=device)
     mlp = init_mlp_params(generator, n_input=field.spec.n_output_dims,
                           cfg=field.cfg.network, n_output=field.n_output_dims,
@@ -98,7 +102,15 @@ def network_apply(params: Params, coords: torch.Tensor,
     In bf16 compute the MLP runs through the fused MLP: its training form
     when a weight or the features require grad, its inference form
     otherwise (the kernels on CUDA tensors, their plain versions on CPU
-    tensors). Other compute types run the plain MLP under autograd."""
+    tensors). Other compute types run the plain MLP under autograd.
+
+    A field with its own `apply_params` (models/fvsrn.py) runs that
+    instead, as the reference's AbstractNetwork dispatch does
+    (tcnn_network.h:70-95), so the trainer, the metrics and the renderers
+    stay family-agnostic."""
+    custom = getattr(field, "apply_params", None)
+    if custom is not None:
+        return custom(params, coords)
     compute_dtype = field.compute_dtype
     if "packed" in params:
         feats = hash_encode_packed(params["table"], params["packed"], coords,
@@ -142,7 +154,20 @@ def render_params(params: Params, field: NeuralField) -> Params:
     `hash_encode_forward` kernel, so an update there does not pay for the
     packed copies. Call once per parameter update, not per frame."""
     mlp = [w.detach().clone() for w in params["mlp"]]
-    if field.spec.n_params < _BIG_SCHEMA_PARAMS:
+    spec = getattr(field, "spec", None)
+    if spec is None:
+        # another family (fV-SRN): a bf16 latent grid, as the JAX package
+        # casts it (models/network.py:160-162); an import's Fourier matrix
+        # and biases are kept (the JAX package drops them, ROADMAP Queue 3)
+        out = {"table": params["table"].detach().to(torch.bfloat16).clone(),
+               "mlp": mlp}
+        for k in ("fourier", "bias"):
+            if k in params:
+                v = params[k]
+                out[k] = ([b.detach().clone() for b in v]
+                          if isinstance(v, list) else v.detach().clone())
+        return out
+    if spec.n_params < _BIG_SCHEMA_PARAMS:
         return {"table": params["table"].detach().clone(), "mlp": mlp}
     table = params["table"].detach().to(torch.bfloat16)
     if table.data_ptr() == params["table"].data_ptr():
@@ -150,7 +175,7 @@ def render_params(params: Params, field: NeuralField) -> Params:
     out = {"table": table, "mlp": mlp}
     if table.device.type != "cpu":
         return out
-    packed = packed_dense_tables(table, field.spec)
+    packed = packed_dense_tables(table, spec)
     if packed:
         out["packed"] = packed
     return out

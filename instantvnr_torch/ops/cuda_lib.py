@@ -48,9 +48,9 @@ SIGNATURES = {
                            _I, _I, _I, _I, _P),
     # table, coords, out, B, L, F, scales, levels, table_bf16, out_bf16,
     # stream
-    "hash_encode_forward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _P),
+    "hash_encode_forward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _I, _P),
     # coords, g, grad, B, L, F, scales, levels, g_bf16, stream
-    "hash_encode_backward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _P),
+    "hash_encode_backward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _P),
     # vol, jy, wy, jx, wx, covy, covx, corr, ctrl, kc, lut, n_lut, out,
     # D, ay, ax, hi, wi, term_thresh, stream
     "slab_composite_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,

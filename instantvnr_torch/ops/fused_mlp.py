@@ -67,20 +67,26 @@ def act_grad(z: torch.Tensor, name: str) -> torch.Tensor:
         return torch.cos(z)
     if name == "squareplus":
         return 0.5 * (1.0 + z * torch.rsqrt(z * z + 4.0))
-    return torch.ones_like(z)
+    if name == "none":
+        return torch.ones_like(z)
+    raise ValueError(f"the fused MLP has no {name} activation")
 
 
-def _shape(params: list[torch.Tensor], x: torch.Tensor):
+def _shape(params: list[torch.Tensor], x: torch.Tensor, cfg: NetworkConfig):
     """(n_hidden, width, n_in, n_out) the kernels take; raises otherwise."""
     n_hidden = len(params) - 1
     n_in = x.shape[1]
     n_out = params[-1].shape[1]
     width = params[0].shape[1] if n_hidden > 0 else _WIDTHS[0]
     if width not in _WIDTHS or n_in > 128 or any(
-            w.device != x.device for w in params):
+            w.device != x.device for w in params) or any(
+            activation_name(a) not in _ACT_CODES
+            for a in (cfg.activation, cfg.output_activation)):
         raise ValueError(
-            f"fused_mlp kernels take hidden widths {_WIDTHS} and n_in ≤ 128 "
-            f"on the input's device (got width {width}, n_in {n_in})")
+            f"fused_mlp kernels take hidden widths {_WIDTHS}, n_in ≤ 128 on "
+            f"the input's device and activations {tuple(_ACT_CODES)} (got "
+            f"width {width}, n_in {n_in}, {cfg.activation}, "
+            f"{cfg.output_activation})")
     for w in params[1:-1]:
         if tuple(w.shape) != (width, width):
             raise ValueError("hidden weight matrices must be [width, width]")
@@ -132,7 +138,7 @@ def _plain_backward(params, x, zs, z_out, g, cfg):
 
 
 def _kernel_train_forward(params, x, cfg):
-    n_hidden, width, n_in, n_out = _shape(params, x)
+    n_hidden, width, n_in, n_out = _shape(params, x, cfg)
     b = x.shape[0]
     lib = cuda_lib.load_library()
     xb = x.to(_BF16).contiguous()
@@ -148,7 +154,7 @@ def _kernel_train_forward(params, x, cfg):
 
 
 def _kernel_backward(params, x, zs, z_out, g, cfg):
-    n_hidden, width, n_in, n_out = _shape(params, x)
+    n_hidden, width, n_in, n_out = _shape(params, x, cfg)
     b = x.shape[0]
     lib = cuda_lib.load_library()
     xb = x.to(_BF16).contiguous()
@@ -218,7 +224,7 @@ def fused_mlp_apply(params: list[torch.Tensor], x: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
     if train:
         return _TrainForm.apply(x, cfg, True, *params)
-    n_hidden, width, n_in, n_out = _shape(params, x)
+    n_hidden, width, n_in, n_out = _shape(params, x, cfg)
     b = x.shape[0]
     lib = cuda_lib.load_library()
     xb = x.to(_BF16).contiguous()

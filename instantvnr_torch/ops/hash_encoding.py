@@ -24,9 +24,15 @@ backward. Both accumulate the table gradient in float32 whatever the
 compute type. (The JAX package differentiates its gather with XLA, which
 scatters into the gathered rows' type, bf16 once a table of ≥ 32 MB is
 pre-cast: ROADMAP Queue 3.) The gradient with respect to the coordinates
-is not ported. `hash_encode_packed`, the gather of corner-packed dense
+is not ported: nothing needs it, the differentiable march
+(RaymarchSettings.fixed_steps) included, whose sample positions depend on
+the camera alone, gradient shading's probes too. `hash_encode_packed`, the gather of corner-packed dense
 levels, is plain PyTorch: only CPU decodes take it (`network_apply`); the
 card's decode gathers through `hash_encode_forward`.
+
+`HashGridSpec.paired` (EncodingConfig.hash_variant="paired") selects the
+JAX package's paired layout of the hashed levels (the section below);
+every form here, the kernels' too, takes it.
 """
 from __future__ import annotations
 
@@ -123,9 +129,8 @@ _PRECAST_MIN_BYTES = 1 << 25
 
 def _check_tcnn(spec: HashGridSpec):
     if spec.paired:
-        raise NotImplementedError(
-            "hash_variant='paired' is not ported yet (ROADMAP 'Next "
-            "slices' item 5, data and model breadth)")
+        raise ValueError("tcnn corner addressing is invalid for a paired "
+                         "spec: use paired_corner_indices_and_weights")
 
 
 def init_hash_table(generator: torch.Generator, spec: HashGridSpec,
@@ -174,13 +179,160 @@ def corner_indices_and_weights(spec: HashGridSpec, coords: torch.Tensor):
     return torch.cat(idx_parts, dim=1), torch.cat(w_parts, dim=1)
 
 
+# -- the paired layout ------------------------------------------------------
+#
+# EncodingConfig.hash_variant="paired" (the JAX package's
+# ops/hash_encoding.py:350-530): a hashed level's [S, F] entries are viewed
+# as [S/2, 2F] pair-rows. The row of a cell's two corners along the level's
+# pairing axis a = level mod 3 (x, y, z, x, ...) at the other two axes'
+# corner (p1, p2) is
+#
+#     row = (cell_a·1 ⊻ p1·2654435761 ⊻ p2·805459861) mod (S/2)
+#
+# (the hash of the CELL's coordinate along a), its two corners in the row's
+# two F-wide halves: entry offset + 2·row + half, weight w12·(1 − f_a) or
+# w12·f_a. Dense levels keep tcnn's stride addressing. The same parameter
+# count; not tcnn-BSON-interoperable, so native .npz checkpoints carry it.
+
+# the (p1, p2) corner offsets of a pair-row, [4, 2]
+_PAIR_CORNERS = ((0, 0), (1, 0), (0, 1), (1, 1))
+
+
+def _level_cell_frac(spec: HashGridSpec, lvl: int, coords: torch.Tensor):
+    """(cell [B, 3] int64, frac [B, 3] float32) at one level: tcnn's
+    x = p·scale + 0.5, cell = floor(x), frac = x − cell."""
+    x = coords.to(torch.float32) * float(np.float32(spec.scales[lvl])) + 0.5
+    cell = torch.floor(x)
+    return cell.to(torch.int64), x - cell
+
+
+def _dense_level_corners(spec: HashGridSpec, lvl: int, coords: torch.Tensor):
+    """One dense level's LOCAL entry indices [B, 8] (tcnn stride
+    addressing, the same in both variants) and trilinear weights [B, 8]."""
+    res, size = spec.resolutions[lvl], spec.level_sizes[lvl]
+    corners = device_constant(_CORNER_TUPLES, torch.int64, coords.device)
+    cell, frac = _level_cell_frac(spec, lvl, coords)
+    pos = cell[:, None, :] + corners[None]
+    idx = pos[..., 0] + pos[..., 1] * res + pos[..., 2] * (res * res)
+    idx = (idx & _U32) % size
+    cw = torch.where(corners[None] == 0, 1.0 - frac[:, None, :],
+                     frac[:, None, :])
+    return idx, cw[..., 0] * cw[..., 1] * cw[..., 2]
+
+
+def _paired_level_rows(spec: HashGridSpec, lvl: int, coords: torch.Tensor):
+    """One hashed level's LOCAL pair-rows [B, 4] (into its [S/2, 2F] view)
+    and the weights of each row's two halves [B, 4, 2]. The pairing axis
+    alternates x, y, z by level, so a difference between a point's two
+    copies shows only across that axis's cell faces."""
+    size = spec.level_sizes[lvl]
+    if size % 2:
+        raise ValueError(f"paired level {lvl} has an odd size {size}")
+    a = lvl % 3
+    o1, o2 = (a + 1) % 3, (a + 2) % 3
+    yz = device_constant(_PAIR_CORNERS, torch.int64, coords.device)
+    cell, frac = _level_cell_frac(spec, lvl, coords)
+    p1 = cell[:, o1:o1 + 1] + yz[None, :, 0]
+    p2 = cell[:, o2:o2 + 1] + yz[None, :, 1]
+    h = (((cell[:, a:a + 1] * _PRIMES[0]) & _U32)
+         ^ ((p1 * _PRIMES[1]) & _U32) ^ ((p2 * _PRIMES[2]) & _U32))
+    rows = (h & _U32) % (size // 2)
+    fa, f1, f2 = frac[:, a:a + 1], frac[:, o1:o1 + 1], frac[:, o2:o2 + 1]
+    w12 = (torch.where(yz[None, :, 0] == 0, 1.0 - f1, f1)
+           * torch.where(yz[None, :, 1] == 0, 1.0 - f2, f2))  # [B, 4]
+    return rows, torch.stack([w12 * (1.0 - fa), w12 * fa], dim=-1)
+
+
+def paired_rows_and_weights(spec: HashGridSpec, coords: torch.Tensor,
+                            levels=None):
+    """Pair-row addressing over the [T/2, 2F] view of the table: dense
+    levels give their 8 corner entries as rows entry >> 1 with the weight on
+    half entry & 1, hashed levels 4 pair-rows with both halves weighted.
+    → (rows [B, R] int64 global pair-rows, w2 [B, R, 2] float32, counts:
+    the rows of each level)."""
+    rows_parts, w_parts, counts = [], [], []
+    for lvl in (range(spec.n_levels) if levels is None else levels):
+        offset = spec.level_offsets[lvl]
+        if spec.level_is_dense[lvl]:
+            idx, w = _dense_level_corners(spec, lvl, coords)
+            e = idx + offset
+            rows_parts.append(e >> 1)
+            half = (e & 1).to(torch.float32)
+            w_parts.append(torch.stack([w * (1.0 - half), w * half], dim=-1))
+            counts.append(8)
+        else:
+            rows, w2 = _paired_level_rows(spec, lvl, coords)
+            rows_parts.append(rows + (offset >> 1))
+            w_parts.append(w2)
+            counts.append(4)
+    return (torch.cat(rows_parts, dim=1), torch.cat(w_parts, dim=1),
+            tuple(counts))
+
+
+def paired_corner_indices_and_weights(spec: HashGridSpec,
+                                      coords: torch.Tensor):
+    """The paired layout per corner: flat entry indices [B, L·8] (int64)
+    and weights [B, L·8]. A hashed level's corner (pair-row j, half) is
+    entry offset + 2·row_j + half at position 2j + half; dense levels are
+    tcnn's stride entries."""
+    b = coords.shape[0]
+    idx_parts, w_parts = [], []
+    for lvl in range(spec.n_levels):
+        offset = spec.level_offsets[lvl]
+        if spec.level_is_dense[lvl]:
+            idx, w = _dense_level_corners(spec, lvl, coords)
+            idx_parts.append(idx + offset)
+            w_parts.append(w)
+        else:
+            rows, w2 = _paired_level_rows(spec, lvl, coords)
+            e = offset + 2 * rows
+            idx_parts.append(torch.stack([e, e + 1], dim=-1).reshape(b, 8))
+            w_parts.append(w2.reshape(b, 8))
+    return torch.cat(idx_parts, dim=1), torch.cat(w_parts, dim=1)
+
+
+def _corners(spec: HashGridSpec, coords: torch.Tensor):
+    """The spec's per-corner (indices, weights), in either layout."""
+    if spec.paired:
+        return paired_corner_indices_and_weights(spec, coords)
+    return corner_indices_and_weights(spec, coords)
+
+
+def hash_encode_paired(table: torch.Tensor, coords: torch.Tensor,
+                       spec: HashGridSpec,
+                       compute_dtype=torch.float32) -> torch.Tensor:
+    """Plain paired-layout forward: one [B, L·8] gather of F-wide rows,
+    the products rounded to the compute type and summed as `hash_encode`
+    sums (`_gather_encode`)."""
+    return _gather_encode(table, coords, spec, compute_dtype,
+                          paired_corner_indices_and_weights(spec, coords))
+
+
+def hash_encode_paired_wide(table: torch.Tensor, coords: torch.Tensor,
+                            spec: HashGridSpec,
+                            compute_dtype=torch.float32) -> torch.Tensor:
+    """The same function from one gather of 2F-wide pair-rows
+    (`paired_rows_and_weights`): the semantic cross-check of the narrow
+    form, equal to it up to the order of the sums."""
+    b, nf = coords.shape[0], spec.n_features
+    rows, w2, counts = paired_rows_and_weights(spec, coords)
+    g = table.reshape(-1, 2 * nf)[rows].to(compute_dtype)  # [B, R, 2F]
+    g = g.reshape(b, -1, 2, nf) * w2.to(compute_dtype)[..., None]
+    per_row = g.sum(dim=2)  # [B, R, F]
+    feats, start = [], 0
+    for c in counts:
+        feats.append(per_row[:, start:start + c].sum(dim=1))
+        start += c
+    return torch.cat(feats, dim=1)
+
+
 def _gather_encode(table, coords, spec, compute_dtype, corners=None):
     """The plain forward: the gathered row times the weight is rounded to
     the compute type, then the 8 corners are summed (PyTorch accumulates a
     16-bit sum in float32 and rounds it once). `corners`: the coords'
     (indices, weights), if already computed."""
     b = coords.shape[0]
-    indices, weights = corners or corner_indices_and_weights(spec, coords)
+    indices, weights = corners or _corners(spec, coords)
     feats = _precast_for_gather(table, compute_dtype)[indices]
     feats = feats.to(compute_dtype) * weights.to(compute_dtype)[..., None]
     feats = feats.reshape(b, spec.n_levels, 8, spec.n_features).sum(dim=2)
@@ -192,7 +344,7 @@ def _plain_backward(n_entries, coords, spec, g, compute_dtype, corners=None):
     rounded to the compute type (the transpose of the forward's product),
     index_add_-ed into a float32 table → [T, F] float32."""
     b, nf = coords.shape[0], spec.n_features
-    indices, weights = corners or corner_indices_and_weights(spec, coords)
+    indices, weights = corners or _corners(spec, coords)
     gc = g.to(compute_dtype).reshape(b, spec.n_levels, 1, nf)
     wc = weights.to(compute_dtype).reshape(b, spec.n_levels, 8, 1)
     contrib = (gc * wc).to(torch.float32).reshape(-1, nf)
@@ -200,8 +352,10 @@ def _plain_backward(n_entries, coords, spec, g, compute_dtype, corners=None):
     return grad.index_add_(0, indices.reshape(-1), contrib)
 
 
-counter = cuda_lib.LaunchCounter()  # hash_encode_forward
-backward_counter = cuda_lib.LaunchCounter()  # hash_encode_backward
+counter = cuda_lib.LaunchCounter()  # hash_encode_forward, tcnn layout
+backward_counter = cuda_lib.LaunchCounter()  # hash_encode_backward, tcnn
+paired_counter = cuda_lib.LaunchCounter()  # hash_encode_forward, paired
+paired_backward_counter = cuda_lib.LaunchCounter()  # backward, paired
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_FEATURES = (1, 2, 4, 8)
@@ -220,7 +374,6 @@ def _level_arrays(spec: HashGridSpec):
 
 def _kernel_args(table_or_none, coords, spec, compute_dtype):
     """Validate what the kernels take; → (coords, scales, levels)."""
-    _check_tcnn(spec)
     if (compute_dtype not in _KERNEL_DTYPES
             or spec.n_features not in _KERNEL_FEATURES
             or spec.n_levels > _MAX_LEVELS or coords.dtype != torch.float32
@@ -248,9 +401,9 @@ def _kernel_forward(table, coords, spec, compute_dtype):
         "hash_encode_forward", table.data_ptr(), coords.data_ptr(),
         out.data_ptr(), b, spec.n_levels, spec.n_features, scales.ctypes.data,
         levels.ctypes.data, int(table.dtype == torch.bfloat16),
-        int(compute_dtype == torch.bfloat16),
+        int(compute_dtype == torch.bfloat16), int(spec.paired),
         torch.cuda.current_stream(coords.device).cuda_stream)
-    counter.launches += 1
+    (paired_counter if spec.paired else counter).launches += 1
     return out
 
 
@@ -265,9 +418,10 @@ def _kernel_backward(n_entries, coords, spec, g, compute_dtype):
         "hash_encode_backward", coords.data_ptr(), g.data_ptr(),
         grad.data_ptr(), coords.shape[0], spec.n_levels, spec.n_features,
         scales.ctypes.data, levels.ctypes.data,
-        int(compute_dtype == torch.bfloat16),
+        int(compute_dtype == torch.bfloat16), int(spec.paired),
         torch.cuda.current_stream(coords.device).cuda_stream)
-    backward_counter.launches += 1
+    (paired_backward_counter if spec.paired
+     else backward_counter).launches += 1
     return grad
 
 
@@ -281,7 +435,7 @@ class _Encode(torch.autograd.Function):
             ctx.save_for_backward(coords)
             return _kernel_forward(table, coords, spec, compute_dtype)
         # the plain backward reuses the forward's corners
-        corners = corner_indices_and_weights(spec, coords)
+        corners = _corners(spec, coords)
         ctx.save_for_backward(coords, *corners)
         return _gather_encode(table, coords, spec, compute_dtype, corners)
 
@@ -334,8 +488,7 @@ def packed_dense_tables(table: torch.Tensor, spec: HashGridSpec) -> dict:
     """[size, 8F] corner-packed companion tables of the dense levels, keyed
     by str(level): row i holds the 8 corner rows of the cell whose min
     corner is entry i. torch.roll reproduces tcnn's `% size` wrap of the +1
-    corners exactly."""
-    _check_tcnn(spec)
+    corners exactly. Dense levels address alike in both hash variants."""
     packed = {}
     for l in range(spec.n_levels):
         if not spec.level_is_dense[l]:
@@ -355,6 +508,9 @@ def hash_encode_packed(table: torch.Tensor, packed: dict,
     """`hash_encode` with corner-packed dense levels: one [size, 8F]-row
     gather per packed level, one gather of all hashed levels' corners.
     Equal to `hash_encode` up to summation order."""
+    if spec.paired:
+        return _hash_encode_packed_paired(table, packed, coords, spec,
+                                          compute_dtype)
     b = coords.shape[0]
     nf = spec.n_features
     indices, weights = corner_indices_and_weights(spec, coords)
@@ -376,5 +532,44 @@ def hash_encode_packed(table: torch.Tensor, packed: dict,
         f = table[hi].to(compute_dtype) * hw[..., None]
         f = f.reshape(b, len(hashed), 8, nf).sum(dim=2)
         for j, l in enumerate(hashed):
+            feats[l] = f[:, j]
+    return torch.cat(feats, dim=1)
+
+
+def _hash_encode_packed_paired(table, packed: dict, coords, spec,
+                               compute_dtype):
+    """`hash_encode_packed` of a paired spec: a packed dense level gathers
+    one [size, 8F] row; the other levels share one gather of their paired
+    per-corner entries (`paired_corner_indices_and_weights`)."""
+    b, nf = coords.shape[0], spec.n_features
+    feats = [None] * spec.n_levels
+    rest = []
+    for l in range(spec.n_levels):
+        if str(l) in packed:
+            idx, w = _dense_level_corners(spec, l, coords)
+            # the min corner needs no wrap (see hash_encode_packed)
+            f = packed[str(l)][idx[:, 0]].reshape(b, 8, nf).to(compute_dtype)
+            feats[l] = (f * w.to(compute_dtype)[..., None]).sum(dim=1)
+        else:
+            rest.append(l)
+    if rest:
+        idx_parts, w_parts = [], []
+        for l in rest:
+            offset = spec.level_offsets[l]
+            if spec.level_is_dense[l]:
+                idx, w = _dense_level_corners(spec, l, coords)
+                idx_parts.append(idx + offset)
+                w_parts.append(w)
+            else:
+                rows, w2 = _paired_level_rows(spec, l, coords)
+                e = offset + 2 * rows
+                idx_parts.append(torch.stack([e, e + 1], dim=-1).reshape(b,
+                                                                         8))
+                w_parts.append(w2.reshape(b, 8))
+        hi = torch.cat(idx_parts, dim=1)
+        hw = torch.cat(w_parts, dim=1).to(compute_dtype)
+        f = table[hi].to(compute_dtype) * hw[..., None]
+        f = f.reshape(b, len(rest), 8, nf).sum(dim=2)
+        for j, l in enumerate(rest):
             feats[l] = f[:, j]
     return torch.cat(feats, dim=1)

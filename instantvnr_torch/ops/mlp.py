@@ -41,7 +41,7 @@ def init_mlp_params(generator: torch.Generator, n_input: int,
     return params
 
 
-_ACTIVATIONS = ("relu", "sine", "squareplus", "none")
+_ACTIVATIONS = ("relu", "sine", "squareplus", "snakealt", "none")
 
 
 def activation_name(name: str) -> str:
@@ -62,6 +62,9 @@ def apply_activation(h: torch.Tensor, name: str) -> torch.Tensor:
         return torch.sin(h)
     if name == "squareplus":
         return 0.5 * (h + torch.sqrt(h * h + 4.0))
+    if name == "snakealt":
+        # fV-SRN's periodic activation, (x + 1 − cos 2x)/2
+        return 0.5 * (h + 1.0 - torch.cos(2.0 * h))
     return h
 
 

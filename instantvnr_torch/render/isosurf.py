@@ -103,12 +103,11 @@ def slab_iso_args(volume: torch.Tensor, grad_volumes: torch.Tensor,
     (x_lo, x_hi, y_lo, y_hi), xs, ys, _ = geo[6:]
     wi, hi = xs.shape[0], ys.shape[0]
 
-    z_ks, y_pairs, x_pairs, x_src, y_src = _per_slab_state(
+    z_ks, y_pairs, x_pairs, _, _ = _per_slab_state(
         e, z_ref, xs, ys, d_slab, ax_n, ay_n, banded=True)
     # no occupancy: an empty-looking slab may still hold the isovalue
     keep = in_front & (z_ks >= clo[2]) & (z_ks <= chi[2])
-    covy, covx = _coverage_masks(y_pairs[1], x_pairs[1], x_src, y_src, clo,
-                                 chi, keep)
+    covy, covx = _coverage_masks(geo, z_ks, ax_n, ay_n, keep)
     frame = (perm, flipped, e, eye_w, size_z, z_ref, x_lo, x_hi, y_lo, y_hi,
              xs, ys, wi, hi, xform)
     return (fields, y_pairs, x_pairs, covy, covx), frame

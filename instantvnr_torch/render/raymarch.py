@@ -30,6 +30,7 @@ ignored).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable, NamedTuple
@@ -41,7 +42,8 @@ from instantvnr_torch.config import NEARLY_ONE, env_int
 from instantvnr_torch.ops.cuda_lib import LaunchCounter
 from instantvnr_torch.utils.device import device_constant
 from instantvnr_torch.utils.math import normalize, ray_box_intersect
-from instantvnr_torch.utils.tfn import TransferFunction, classify_controls
+from instantvnr_torch.utils.tfn import (TransferFunction, classify_controls,
+                                        clip_ties)
 
 _EPS = 1e-6
 # step past a cell boundary when probing the next cell, in t units
@@ -76,6 +78,10 @@ class RaymarchSettings:
     # the SSH shadow pass marches at sampling_rate/scale but corrects with
     # the primary rate (method_raymarching.cu:365-399); None → sampling_rate
     correction_sampling_rate: float | None = None
+    # exactly max_supersteps supersteps with autograd on (the JAX package's
+    # lax.scan, instantvnr_tpu/render/raymarch.py:544-549): the frame is
+    # differentiable with respect to what sample_fn reads
+    fixed_steps: bool = False
     # the JAX package's compacted driver; its frames are bit-identical to
     # the masked wavefront's (instantvnr_tpu/render/raymarch.py:111-128),
     # so the port accepts it and marches masked
@@ -270,7 +276,7 @@ def _compose(values, t_x, t_y, valid, state_alpha, state_color,
     rgb = rgb_tf if rgb_override is None else rgb_override
     dt = t_y - t_x
     # opacity correction (raytracing.h:166-170) and density scale
-    alpha_s = 1.0 - torch.pow(torch.clamp(1.0 - alpha_s, min=0.0),
+    alpha_s = 1.0 - torch.pow(clip_ties(1.0 - alpha_s, 0.0, math.inf),
                               sampling_rate * dt * density_scale)
     alpha_s = torch.where(valid, alpha_s, 0.0)
     r = values.shape[0]
@@ -399,7 +405,6 @@ def _superstep(sample_fn, org, dirn, t_far, jitter, mc: MacroCell,
                      best_pos=best[1], best_rgb=best[2])
 
 
-@torch.no_grad()
 def raymarch(sample_fn: Callable[[torch.Tensor], torch.Tensor],
              org: torch.Tensor, dirn: torch.Tensor, t_near: torch.Tensor,
              t_far: torch.Tensor, mc: MacroCell, tf: TransferFunction,
@@ -417,7 +422,26 @@ def raymarch(sample_fn: Callable[[torch.Tensor], torch.Tensor],
     settings.light_dir. scale/clip_lower/clip_upper: the volume transform;
     the caller clips the primary rays' t range, here they shape only the
     deferred SSH shadow rays. stats: an optional dict whose "supersteps"
-    this march (and its SSH shadow march) adds to."""
+    this march (and its SSH shadow march) adds to.
+
+    Without settings.fixed_steps the march runs under no_grad and stops
+    once no ray is active. With it, it runs exactly max_supersteps
+    supersteps under the caller's grad mode, so the rgba is differentiable
+    with respect to what sample_fn reads (a sampled volume, a network's
+    params): a ray that has finished samples nothing and blends opacity 0,
+    so the extra supersteps leave the frame as it was. The positions depend
+    only on the camera and the macrocell, so `raymarch_emit` needs no
+    backward; gradient shading needs only the sampled values' gradient.
+    The SSH shadow march follows the same rule."""
+    with torch.set_grad_enabled(settings.fixed_steps
+                                and torch.is_grad_enabled()):
+        return _raymarch(sample_fn, org, dirn, t_near, t_far, mc, tf, jitter,
+                         settings, light_dir, scale, clip_lower, clip_upper,
+                         shadow_vol, stats)
+
+
+def _raymarch(sample_fn, org, dirn, t_near, t_far, mc, tf, jitter, settings,
+              light_dir, scale, clip_lower, clip_upper, shadow_vol, stats):
     dims = device_constant(tuple(float(d) for d in mc.volume_dims),
                            torch.float32, org.device)
     if light_dir is None:
@@ -430,7 +454,8 @@ def raymarch(sample_fn: Callable[[torch.Tensor], torch.Tensor],
                         shadow_vol=shadow_vol)
     n = 0
     # the while_loop's condition: one host sync a superstep
-    while n < settings.max_supersteps and bool(state.active.any()):
+    while n < settings.max_supersteps and (settings.fixed_steps
+                                           or bool(state.active.any())):
         state = superstep(state)
         n += 1
     if stats is not None:

@@ -62,14 +62,15 @@ def _accumulate(rgba, accum, frame_index: int):
     return accum, accum / float(frame_index)
 
 
-@torch.no_grad()
 def _render_frame(sample_fn, width: int, height: int,
                   settings: RaymarchSettings, sample_ctx, cam_arrays,
                   mc: MacroCell, tf: TransferFunction, jitter: torch.Tensor,
                   accum, frame_index: int, xform=None, shadow_vol=None,
                   stats: dict | None = None):
     """One wavefront frame blended into `accum` → (accum, frame), each
-    [H·W, 4]. jitter [H·W] in [0,1): the per-ray sample offset."""
+    [H·W, 4]. jitter [H·W] in [0,1): the per-ray sample offset. Under
+    settings.fixed_steps the frame is differentiable with respect to
+    `sample_ctx` (render/raymarch.py::raymarch)."""
     from instantvnr_torch.render.transform import default_transform
 
     dev = cam_arrays[0].device
@@ -206,11 +207,31 @@ def make_neural_sample_fn(field, chunk: int = 1 << 18):
     sample-streaming mode (`NeuralVolume::inference`, network.cu:1043); ctx
     = the params of models.network.render_params (on the card each chunk is
     one hash_encode_forward launch on the table and one fused_mlp launch).
-    Evaluated `chunk` samples at a time (network_apply_chunked)."""
+    Evaluated `chunk` samples at a time (network_apply_chunked).
+
+    Under autograd, which only a `fixed_steps` march turns on, ctx must be
+    the f32 training params with a tensor that requires grad: the sample
+    then runs through the training forms (on the card K3 and K4 of
+    hash_encode, the fused MLP's training forward and backward), as the
+    JAX package's differentiable frame samples `nv.state.params`. The
+    inference K1 and a bf16 decode table have no backward, so such a ctx
+    raises there."""
     from instantvnr_torch.models.network import network_apply_chunked
 
-    @torch.no_grad()
     def fn(params, p):
+        if torch.is_grad_enabled():
+            _check_differentiable(params)
         return network_apply_chunked(params, p, field, chunk=chunk)[:, 0]
 
     return fn
+
+
+def _check_differentiable(params):
+    table = params["table"]
+    if "packed" in params or table.dtype != torch.float32 or not any(
+            t.requires_grad for t in [table, *params["mlp"]]):
+        raise NotImplementedError(
+            "a fixed_steps frame samples the network through its training "
+            "forms (ROADMAP Queue 1 item 9): pass the f32 training params "
+            "with a tensor that requires grad, not render_params, whose bf16 "
+            "table and inference MLP have no backward")

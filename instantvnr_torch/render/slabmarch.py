@@ -186,14 +186,41 @@ def _per_slab_state(e, z_ref, xs, ys, d_slab: int, ax_n: int, ay_n: int,
     return z_k, my_all, mx_all, x_src, y_src
 
 
-def _coverage_masks(my_all, mx_all, x_src, y_src, clo, chi, keep):
+def _exact_src(e_c, e_z, z_ref, z_ks, lo, hi, n_out: int) -> torch.Tensor:
+    """[D, n_out] source coordinates along one in-slab axis (voxel j's
+    center at j + 0.5), each the float32 rounding of its exact value: the
+    ray from the eye through intermediate pixel i's center
+    X_i = lo + (i + 0.5)·(hi − lo)/n_out on the reference plane meets slab
+    k at e_c + (X_i − e_c)·(z_k − e_z)/(z_ref − e_z). Computed in float64
+    from the frame's float32 bounds and rounded once, so a ray that grazes
+    a face of the volume (or of the clip box) lands on it, where the
+    float32 chain of `_per_slab_state` may round either way."""
+    f8 = torch.float64
+    i = torch.arange(n_out, dtype=f8, device=z_ks.device)
+    lo, hi, e_c = lo.to(f8), hi.to(f8), e_c.to(f8)
+    x = lo + (i + 0.5) * (hi - lo) / n_out
+    r = (z_ks.to(f8) - e_z.to(f8)) / (z_ref.to(f8) - e_z.to(f8))
+    return (e_c + (x[None, :] - e_c) * r[:, None]).to(torch.float32)
+
+
+def _coverage_masks(geo, z_ks, ax_n: int, ay_n: int, keep):
     """Separable coverage/clip masks: covx [D, wi] folds in the per-slab
     keep mask (occupancy/in-front/z-clip), covy [D, hi] the row terms. A
-    row is covered where its weights (dense [D, n, n_in], or the pairs'
-    [D, n, 2]; all ≥ 0) sum above 0."""
-    covx = ((mx_all.sum(2) > 0) & (x_src >= clo[0]) & (x_src <= chi[0])
-            & keep[:, None]).to(torch.float32)
-    covy = ((my_all.sum(2) > 0) & (y_src >= clo[1])
+    pixel is covered where its source coordinate lies inside the volume,
+    0 < s < n (the rows where `_interp_matrix` is nonzero) and inside the
+    clip box, clo ≤ s ≤ chi, tested on `_exact_src`: the JAX package tests
+    the float32 chain's rows, which parts from the exact test only where a
+    ray grazes a face, and there by the rounding of its compiler
+    (ROADMAP Queue 3)."""
+    e, _, clo, chi, z_ref = geo[:5]
+    x_lo, x_hi, y_lo, y_hi = geo.bounds
+    x_src = _exact_src(e[0], e[2], z_ref, z_ks, x_lo, x_hi,
+                       geo.xs.shape[0])
+    y_src = _exact_src(e[1], e[2], z_ref, z_ks, y_lo, y_hi,
+                       geo.ys.shape[0])
+    covx = ((x_src > 0) & (x_src < ax_n) & (x_src >= clo[0])
+            & (x_src <= chi[0]) & keep[:, None]).to(torch.float32)
+    covy = ((y_src > 0) & (y_src < ay_n) & (y_src >= clo[1])
             & (y_src <= chi[1])).to(torch.float32)
     return covy, covx
 
@@ -307,8 +334,7 @@ def slab_composite_args(volume: torch.Tensor, tf: TransferFunction,
     z_ks, y_pairs, x_pairs, x_src, y_src = _per_slab_state(
         e, z_ref, xs, ys, d_slab, ax_n, ay_n, banded=True)
     keep = slab_occupancy & (z_ks >= clo[2]) & (z_ks <= chi[2])
-    covy, covx = _coverage_masks(y_pairs[1], x_pairs[1], x_src, y_src, clo,
-                                 chi, keep)
+    covy, covx = _coverage_masks(geo, z_ks, ax_n, ay_n, keep)
     warp = (cam_arrays, width, height, perm, flipped, e, z_ref, x_lo, x_hi,
             y_lo, y_hi, xs.shape[0], ys.shape[0], xform.scale)
     if not (use_shading or use_shadow):

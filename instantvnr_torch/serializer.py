@@ -17,7 +17,8 @@ files are byte-identical to those the JAX package and the reference write.
 
 Native `.npz` checkpoints (`save_native`/`load_native`) hold the whole
 training state in the JAX package's layout, so a file crosses between the
-packages with its Adam moments. fV-SRN documents are a later item.
+packages with its Adam moments, for either model family (an fV-SRN
+document carries `"family": "fvsrn"`, as the JAX package writes it).
 """
 from __future__ import annotations
 
@@ -178,10 +179,6 @@ def load_checkpoint_doc(root: dict, device="cuda"):
 # Native exact-resume checkpoints (.npz), the JAX package's layout
 # ---------------------------------------------------------------------------
 
-_FVSRN_ITEM = ("ROADMAP 'Next slices' item 5 (data and model breadth: "
-               "models/fvsrn.py)")
-
-
 def native_leaves(state) -> list:
     """The leaves of a train state in the order jax.tree_util.tree_flatten
     gives for the JAX package's TrainState(params, opt=AdamState(step, mu,
@@ -241,14 +238,20 @@ def load_native(path: str, device="cuda"):
     data = np.load(path)
     doc = json.loads(bytes(data["model_json"]))
     if isinstance(doc, dict) and doc.get("family") == "fvsrn":
-        raise NotImplementedError(
-            "fV-SRN native checkpoints are not ported yet: " + _FVSRN_ITEM)
-    field = NeuralField.from_config(model_config_from_dict(doc))
-    spec, net = field.spec, field.cfg.network
-    widths = ([spec.n_output_dims] + [net.n_neurons] * net.n_hidden_layers
+        from instantvnr_torch.models.fvsrn import FvsrnConfig, FvsrnField
+
+        field = FvsrnField.from_config(FvsrnConfig.from_json(doc))
+        n_in, table_shape = field.mlp_input_dims, (
+            field.n_latent, field.cfg.latent_features)
+    else:
+        field = NeuralField.from_config(model_config_from_dict(doc))
+        n_in, table_shape = field.spec.n_output_dims, (
+            field.spec.n_entries, field.spec.n_features)
+    net = field.cfg.network
+    widths = ([n_in] + [net.n_neurons] * net.n_hidden_layers
               + [field.n_output_dims])
     tree_shapes = ([(a, b) for a, b in zip(widths[:-1], widths[1:])]
-                   + [(spec.n_entries, spec.n_features)])
+                   + [table_shape])
     shapes = tree_shapes + [()] + tree_shapes * 2 + [(2,), ()]
     leaves = []
     for i, shape in enumerate(shapes):

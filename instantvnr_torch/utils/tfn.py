@@ -109,8 +109,22 @@ def bake_transfer_function(cfg: TransferFunctionConfig, resolution: int = 1024,
         ctrl_x=t(knots), ctrl_rgba=t(ctrl))
 
 
+def clip_ties(u: torch.Tensor, lo, hi) -> torch.Tensor:
+    """clamp(u, lo, hi) with the JAX package's gradient on the bounds:
+    jnp.clip is a maximum then a minimum, each of which splits the
+    cotangent of a tie in two, so a value of exactly a knot or the range's
+    end, a kink of the transfer function, passes half of it (torch.clamp
+    passes all of it). Only a differentiable frame
+    (RaymarchSettings.fixed_steps) reaches the second form."""
+    if not u.requires_grad:
+        return torch.clamp(u, lo, hi)
+    lo = torch.as_tensor(lo, dtype=u.dtype, device=u.device)
+    hi = torch.as_tensor(hi, dtype=u.dtype, device=u.device)
+    return torch.minimum(torch.maximum(u, lo), hi)
+
+
 def _normalized(tf: TransferFunction, values: torch.Tensor) -> torch.Tensor:
-    return ((torch.clamp(values, tf.range_lo, tf.range_hi) - tf.range_lo)
+    return ((clip_ties(values, tf.range_lo, tf.range_hi) - tf.range_lo)
             / torch.clamp(tf.range_hi - tf.range_lo, min=1e-20))
 
 
@@ -145,7 +159,7 @@ def classify_controls(tf: TransferFunction, values: torch.Tensor):
     acc = y[0].expand(v.shape + (4,)).to(torch.float32)
     for i in range(kc - 1):
         denom = torch.clamp(x[i + 1] - x[i], min=1e-12)
-        t = torch.clamp((v - x[i]) / denom, 0.0, 1.0)
+        t = clip_ties((v - x[i]) / denom, 0.0, 1.0)
         acc = acc + t[..., None] * (y[i + 1] - y[i])
     return acc[..., :3], acc[..., 3]
 

@@ -117,14 +117,20 @@ def test_render_ground_truth_modes(tmp_path, mode):
     assert frame[..., 3].max() > 0.05
 
 
-def test_unported_options_raise(trained):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        vnr_cmd_train.main(["--device", "cpu", "--volume", "v.vdb"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        vnr_cmd_train.main(["--device", "cpu", "--volume", "v.vdb",
-                            "--sampling-mode", "out-of-core"])
+def test_unported_options_raise(trained, tmp_path):
+    # --volume reads .vdb files only; a raw volume needs a scene JSON
     with pytest.raises(SystemExit):
         vnr_cmd_train.main(["--device", "cpu", "--volume", "v.raw"])
+    # --resume reads native .npz checkpoints only
+    with pytest.raises(SystemExit):
+        vnr_cmd_train.main(VOLUME + ["--resume", "p.bson"])
+    # a .vdb that is not there is an error, in core and out of core (the
+    # reader of .vdb files is tests/test_torch_vdb.py's)
+    missing = str(tmp_path / "v.vdb")
+    for extra in ([], ["--sampling-mode", "out-of-core"]):
+        with pytest.raises(FileNotFoundError):
+            vnr_cmd_train.main(["--device", "cpu", "--volume", missing]
+                               + extra)
 
 
 def test_profile_writes_trace(trained, tmp_path):

@@ -428,8 +428,8 @@ def test_iso_sweep_kernel_matches_plain(cuda, iso):
 def _f64_oracle(spec, coords, g, cdt):
     """The table gradient summed in float64: each corner's product of
     weight and cotangent row, rounded to the compute type, added in
-    float64 (order does not matter at that precision)."""
-    idx, w = he.corner_indices_and_weights(spec, coords)
+    float64 (order does not matter at that precision). Either layout."""
+    idx, w = he._corners(spec, coords)
     b, nl, nf = coords.shape[0], spec.n_levels, spec.n_features
     contrib = (g.to(cdt).reshape(b, nl, 1, nf)
                * w.to(cdt).reshape(b, nl, 8, 1)).double().reshape(-1, nf)
@@ -1168,3 +1168,231 @@ def test_facade_setters_on_card_match_cpu(cuda, setter):
                                        "framebuffer_size" else (37, 40, 4))
     assert cpu[..., 3].max() > 0.05
     np.testing.assert_allclose(card, cpu, atol=5e-3, rtol=0)
+
+
+# -- the twelfth slice: paired hash, the differentiable march, fV-SRN --------
+
+
+@pytest.mark.parametrize("n_features", [2, 4, 8])
+@pytest.mark.parametrize("table_dtype,compute", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+def test_paired_hash_kernels_match_plain(cuda, n_features, table_dtype,
+                                         compute):
+    """K3 and K4 in the paired layout (dense and hashed levels, a ragged
+    batch) against the plain paired gather and index_add_, at
+    test_hash_encode_kernels_match_plain's tolerances; each launches the
+    paired form once, never the tcnn one."""
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        n_levels=6, n_features_per_level=n_features, log2_hashmap_size=12,
+        base_resolution=4, hash_variant="paired"))
+    assert spec.paired and any(spec.level_is_dense)
+    rng = np.random.default_rng(n_features + 40)
+    tdt, cdt = getattr(torch, table_dtype), getattr(torch, compute)
+    table = torch.tensor(rng.uniform(-1, 1, (spec.n_entries, n_features)
+                                     ).astype(np.float32), device=cuda).to(tdt)
+    b = 10007
+    c = rng.random((b, 3)).astype(np.float32)
+    c[:4] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]]
+    coords = torch.tensor(c, device=cuda)
+    before = (he.counter.launches, he.paired_counter.launches)
+    got = he.hash_encode(table, coords, spec, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert (he.counter.launches, he.paired_counter.launches) == (
+        before[0], before[1] + 1)
+    ref = he.hash_encode_reference(table, coords, spec, compute_dtype=cdt)
+    atol = 1e-5 if compute == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol, rtol=0)
+    if table_dtype != "float32":
+        return
+    g = torch.tensor(rng.standard_normal((b, spec.n_output_dims)).astype(
+        np.float32), device=cuda).to(cdt)
+    before = (he.backward_counter.launches,
+              he.paired_backward_counter.launches)
+    grads = []
+    for encode in (he.hash_encode, he.hash_encode_reference):
+        t = table.clone().requires_grad_()
+        encode(t, coords, spec, compute_dtype=cdt).backward(g)
+        grads.append(t.grad.cpu().numpy())
+    torch.cuda.synchronize()
+    assert (he.backward_counter.launches,
+            he.paired_backward_counter.launches) == (before[0], before[1] + 1)
+    np.testing.assert_allclose(grads[0], grads[1], atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("log2", [14, 19])
+def test_paired_hash_backward_at_b65536(cuda, log2):
+    """The paired K4 at the training batch on the reference schema's
+    layouts against the plain index_add_ and a float64 oracle (5e-4,
+    1e-4)."""
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        log2_hashmap_size=log2, hash_variant="paired"))
+    rng = np.random.default_rng(log2 + 7)
+    b = 1 << 16
+    coords = torch.tensor(rng.random((b, 3)).astype(np.float32), device=cuda)
+    g = torch.tensor(rng.standard_normal((b, spec.n_output_dims)).astype(
+        np.float32), device=cuda)
+    got = he._kernel_backward(spec.n_entries, coords, spec, g, torch.float32)
+    torch.cuda.synchronize()
+    plain = he._plain_backward(spec.n_entries, coords, spec, g,
+                               torch.float32)
+    oracle = _f64_oracle(spec, coords, g, torch.float32)
+    for ref in (plain.double(), oracle):
+        np.testing.assert_allclose(got.double().cpu().numpy(),
+                                   ref.cpu().numpy(), atol=5e-4, rtol=1e-4)
+
+
+def _fixed_steps_loss(dev, neural):
+    """tests/test_torch_differentiable.py's losses on `dev`: sum(rgba²) of
+    a 16² fixed_steps frame of vorts 32³, through a 4-level network's
+    training params or the sampled volume. → (loss, leaves)."""
+    from instantvnr_torch.accel import macrocell as mcmod
+    from instantvnr_torch.config import (ModelConfig,
+                                         TransferFunctionConfig)
+    from instantvnr_torch.data.volume import synthetic_volume
+    from instantvnr_torch.models.network import (NeuralField,
+                                                 params_from_numpy)
+    from instantvnr_torch.render.camera import Camera
+    from instantvnr_torch.render.raymarch import RaymarchSettings
+    from instantvnr_torch.render.renderer import (_render_frame,
+                                                  make_neural_sample_fn,
+                                                  reference_sample_fn)
+    from instantvnr_torch.render.slabmarch import camera_arrays
+    from instantvnr_torch.utils.tfn import bake_transfer_function
+
+    vol = synthetic_volume((32,) * 3, kind="vorts", device=dev).data
+    tf = bake_transfer_function(TransferFunctionConfig(), device=dev)
+    mc = mcmod.build(vol, (32, 32, 32), tf)
+    settings = RaymarchSettings(n_iters=4, max_supersteps=24,
+                                fixed_steps=True)
+    cam = camera_arrays(Camera(eye=(10.0, 20.0, -60.0), center=(0, 0, 0),
+                               up=(0, 1, 0), fovy=40.0), dev)
+    jitter = torch.rand(256, generator=torch.Generator().manual_seed(5)).to(
+        dev)
+    if neural:
+        field = NeuralField.from_config(ModelConfig(
+            encoding=EncodingConfig(n_levels=4, n_features_per_level=4,
+                                    log2_hashmap_size=12, base_resolution=4),
+            network=NetworkConfig(n_neurons=16, n_hidden_layers=2)))
+        rng = np.random.default_rng(6)
+        p = params_from_numpy({
+            "table": rng.uniform(-0.5, 0.5, (field.spec.n_entries, 4)
+                                 ).astype(np.float32),
+            "mlp": [(rng.standard_normal(s) * np.sqrt(2.0 / s[0])).astype(
+                np.float32) for s in ((16, 16), (16, 16), (16, 1))]}, dev)
+        leaves = [p["table"], *p["mlp"]]
+        fn, ctx = make_neural_sample_fn(field), p
+    else:
+        leaves = [vol.clone()]
+        fn, ctx = reference_sample_fn, leaves[0]
+    for t in leaves:
+        t.requires_grad_(True)
+    _, frame = _render_frame(fn, 16, 16, settings,
+                             ctx, cam, mc, tf, jitter, None, 1)
+    return (frame ** 2).sum(), leaves
+
+
+@pytest.mark.parametrize("neural", [True, False], ids=["network", "volume"])
+def test_differentiable_march_on_card_matches_cpu(cuda, neural):
+    """The fixed_steps frame's gradients on the card against the CPU's
+    plain forms: with the network, through K3, K1's training form, K2 and
+    K4 (counted), never the inference K1, each gradient within 5e-2 of its
+    largest entry (the fused MLP's tolerance carried through the blend);
+    with the volume, 1e-4."""
+    from instantvnr_torch.render import raymarch as rm
+
+    counters = (he.counter, he.backward_counter, fm.counter,
+                fm.train_forward_counter, fm.backward_counter,
+                rm.emit_counter)
+    grads = []
+    for dev in ("cpu", cuda):
+        before = [c.launches for c in counters]
+        loss, leaves = _fixed_steps_loss(dev, neural)
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            got = [c.launches - b for c, b in zip(counters, before)]
+            if neural:
+                # one emission a superstep; one sample (K3, K1 training
+                # form, and their backward) a superstep with valid slots
+                k3, k4, k1, k1t, k2, emit = got
+                assert k1 == 0 and emit == 24
+                assert 0 < k3 == k1t == k2 == k4 <= emit
+            else:
+                assert got[:5] == [0] * 5 and got[5] == 24
+        grads.append([t.grad.cpu().numpy() for t in leaves])
+    for cpu, card in zip(*grads):
+        assert np.abs(cpu).max() > 0 and np.isfinite(card).all()
+        tol = 5e-2 if neural else 1e-4
+        np.testing.assert_allclose(card, cpu, rtol=0,
+                                   atol=tol * np.abs(cpu).max())
+
+
+def test_edge_pixel_frame_on_card_matches_cpu(cuda):
+    """The 10 × 7 DECODED_SLAB frame whose pixel (6, 5) sees a ray graze
+    the volume's top face: the card's coverage test is the CPU's (both in
+    float64), so the frames agree and the pixel stays 0."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import params_from_numpy
+    from instantvnr_torch.render.camera import Camera
+
+    frames = []
+    rng = np.random.default_rng(4)
+    p = None
+    for dev in ("cpu", cuda):
+        sv = api.SimpleVolume.synthetic((16,) * 3, "vorts", device=dev)
+        nv = api.NeuralVolume(ModelConfig(
+            encoding=EncodingConfig(n_levels=2, n_features_per_level=4,
+                                    log2_hashmap_size=10),
+            network=NetworkConfig(n_neurons=16, n_hidden_layers=2)), sv,
+            device=dev)
+        if p is None:
+            p = {"table": rng.uniform(-0.5, 0.5, (nv.field.spec.n_entries, 4)
+                                      ).astype(np.float32),
+                 "mlp": [(rng.standard_normal(s) * np.sqrt(2.0 / s[0])
+                          ).astype(np.float32)
+                         for s in ((8, 16), (16, 16), (16, 1))]}
+        nv.params = params_from_numpy(p, dev)
+        r = api.VNRenderer(nv, 10, 7)
+        r.set_camera(Camera(eye=(3.0, 2.5, -38.0), center=(0.0, 0.0, 0.0),
+                            up=(0.0, 1.0, 0.0), fovy=45.0))
+        r.render()
+        frames.append(r.mapframe())
+    cpu, card = frames
+    assert cpu[..., 3].max() > 0.05
+    np.testing.assert_array_equal(cpu[5, 6], 0.0)
+    np.testing.assert_array_equal(card[5, 6], 0.0)
+    np.testing.assert_allclose(card, cpu, atol=5e-3, rtol=0)
+
+
+def test_fvsrn_on_card_matches_cpu(cuda):
+    """fV-SRN is plain PyTorch on both devices (no kernel in either
+    package): its forward and gradients on the card against the CPU,
+    float32 compute at 1e-4 (sums in another order), bf16 at the decode's
+    tolerance."""
+    from instantvnr_torch.models.fvsrn import FvsrnConfig, FvsrnField
+    from instantvnr_torch.models.network import network_apply
+
+    for compute, atol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        field = FvsrnField(FvsrnConfig(latent_res=(9, 8, 7),
+                                       compute_dtype=compute))
+        gen = torch.Generator().manual_seed(2)
+        p = field.init(gen, "cpu")
+        c = torch.rand((20011, 3), generator=gen)
+        outs, grads = [], []
+        for dev in ("cpu", cuda):
+            q = {"table": p["table"].detach().to(dev).requires_grad_(),
+                 "mlp": [w.detach().to(dev).requires_grad_()
+                         for w in p["mlp"]]}
+            y = network_apply(q, c.to(dev), field)
+            y.square().sum().backward()
+            outs.append(y.detach().cpu().numpy())
+            grads.append([t.grad.cpu().numpy()
+                          for t in [q["table"], *q["mlp"]]])
+        np.testing.assert_allclose(outs[1], outs[0], atol=atol, rtol=0)
+        for a, b in zip(*grads):
+            np.testing.assert_allclose(b, a, rtol=0,
+                                       atol=10 * atol * np.abs(a).max())
+

@@ -217,17 +217,62 @@ def test_renderer_tf_without_ground_truth():
     assert not torch.equal(tnv.macrocell.max_opacity, want)
 
 
+def test_edge_pixel_grazing_ray_is_uncovered():
+    """At 10 x 7 the ray through intermediate row 6 meets slab 8 (z = 8.5)
+    at y = 16 exactly, on the volume's top face: outside the open interval
+    0 < y < 16 where the volume covers a pixel, so nothing there is
+    composited. Exact rational arithmetic on the frame's float32 geometry
+    says so. The float32 chain of _per_slab_state rounds the point inside
+    (15.999998); testing coverage on it gave the screen pixel (6, 5)
+    alpha 0.013 where the exact test gives 0."""
+    from fractions import Fraction
+
+    from instantvnr_torch.render import slabmarch as sm
+
+    tsv = api.SimpleVolume.synthetic(DIMS, "vorts", device="cpu")
+    tnv = api.NeuralVolume(ModelConfig(encoding=EncodingConfig(**ENC),
+                                       network=NetworkConfig(**NET)), tsv,
+                           device="cpu")
+    spec = tnv.field.spec
+    tnv.params = params_from_numpy(_params_np(spec.n_entries,
+                                              spec.n_features), "cpu")
+    tr = api.VNRenderer(tnv, 10, 7, mode=api.RenderMode.DECODED_SLAB)
+    cam = Camera(**CAM)
+    tr.set_camera(cam)
+    axis, flipped = sm.principal_axis(cam)
+    assert (axis, flipped) == (2, False)
+    dims_w = torch.tensor(DIMS, dtype=torch.float32)
+    geo = sm.frame_geometry(dims_w, 16, 16, 16, sm.camera_arrays(cam, "cpu"),
+                            tr._impl.transform, (0, 1, 2), False, 1.0, 10, 7)
+    e = [Fraction(float(c)) for c in geo.e]
+    z_ref = Fraction(float(geo.z_ref))
+    y_lo, y_hi = (Fraction(float(b)) for b in geo.bounds[2:])
+    z8 = Fraction(17, 2)
+    y_row6 = y_lo + Fraction(13, 2) * (y_hi - y_lo) / 7
+    assert e[1] + (y_row6 - e[1]) * (z8 - e[2]) / (z_ref - e[2]) == 16
+    z_ks, _, _, _, y_src = sm._per_slab_state(geo.e, geo.z_ref, geo.xs,
+                                              geo.ys, 16, 16, 16)
+    assert float(y_src[8, 6]) < 16.0  # the float32 chain's rounding
+    covy, _ = sm._coverage_masks(geo, z_ks, 16, 16,
+                                 torch.ones(16, dtype=torch.bool))
+    assert covy[8, 6] == 0 and covy[7, 6] == 1
+    tr.render()
+    frame = tr.mapframe()
+    assert frame[..., 3].max() > 0.05
+    np.testing.assert_array_equal(frame[5, 6], np.zeros(4, np.float32))
+
+
 def test_set_framebuffer_size_matches_jax(nets):
     jnv, tnv = nets
     jr, tr = _renderers(jnv, tnv)
     _same_grid(jr, tr)
-    # 12 x 9, not 10 x 7: at 10 x 7 a fresh renderer of either package
-    # already parts at one edge pixel (ROADMAP Queue 3), before any setter
-    jr.set_framebuffer_size(12, 9)
-    tr.set_framebuffer_size(12, 9)
-    assert (tr.width, tr.height) == (12, 9)
+    # at 10 x 7, pixel (6, 5)'s ray grazes the volume's top face in slab 8
+    # (test_edge_pixel_grazing_ray_is_uncovered)
+    jr.set_framebuffer_size(10, 7)
+    tr.set_framebuffer_size(10, 7)
+    assert (tr.width, tr.height) == (10, 7)
     ref, got = _frames(jr, tr)
-    assert got.shape == (9, 12, 4) and ref[..., 3].max() > 0.05
+    assert got.shape == (7, 10, 4) and ref[..., 3].max() > 0.05
     np.testing.assert_allclose(got, ref, atol=FRAME_ATOL, rtol=0)
     # the path tracer's accumulation restarts at the new size
     tr.set_mode(api.RenderMode.PATHTRACE_DECODED)
@@ -301,8 +346,14 @@ def test_save_volumes_match_jax(nets, tmp_path):
     assert got.size == ref.size == np.prod(DIMS)
     np.testing.assert_allclose(got, ref, atol=DECODE_ATOL, rtol=0)
     assert np.abs(got - ref).mean() <= DECODE_MEAN
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tnv.save_inference_volume(str(tmp_path / "v.vdb"))
+    # a .vdb path writes an OpenVDB FloatGrid of the same decode
+    # (data/vdb.py; tests/test_torch_vdb.py holds its layout)
+    from instantvnr_torch.data.vdb import read_vdb
+
+    tnv.save_inference_volume(str(tmp_path / "v.vdb"))
+    dense, info = read_vdb(str(tmp_path / "v.vdb"))
+    assert info.bbox_min == (0, 0, 0) and dense.shape == DIMS[::-1]
+    np.testing.assert_array_equal(dense.reshape(-1), got)
     no_gt = api.NeuralVolume(tnv.cfg, dims=DIMS, device="cpu")
     with pytest.raises(ValueError, match="reference volume"):
         no_gt.save_reference_volume(str(tmp_path / "r.raw"))

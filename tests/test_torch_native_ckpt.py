@@ -222,14 +222,22 @@ def test_jax_file_seeds_the_generator_from_its_key(tmp_path):
 
 
 def test_fvsrn_document_raises(tmp_path):
+    """An fV-SRN document loads the fV-SRN family (tests/
+    test_torch_fvsrn.py); one whose leaves are a hash grid's is refused by
+    their shapes."""
+    import dataclasses
+
+    from instantvnr_tpu.models.fvsrn import FvsrnConfig as JFvsrnConfig
+
     jfield, jstate = _jax_state()
     path = str(tmp_path / "jax.npz")
     jser.save_native(path, jfield, jstate)
     data = dict(np.load(path))
     data["model_json"] = np.frombuffer(json.dumps(
-        {"family": "fvsrn"}).encode(), np.uint8)
+        {"family": "fvsrn", **dataclasses.asdict(JFvsrnConfig())}).encode(),
+        np.uint8)
     bad = str(tmp_path / "fvsrn.npz")
     np.savez(bad, **data)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="leaf 0 shape"):
         ser.load_native(bad, device="cpu")
     assert NeuralField.from_config(_cfgs()[1]).n_params == jfield.n_params

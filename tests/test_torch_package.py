@@ -111,8 +111,8 @@ def test_unported_modes_raise_naming_roadmap():
         with pytest.raises(ValueError, match="SimpleVolume"):
             api.VNRenderer(nv, 8, 8, mode)
     r = api.VNRenderer(nv, 8, 8)
-    # native .npz checkpoints are ported; fV-SRN documents are item 5
-    # (tests/test_torch_native_ckpt.py)
+    # native .npz checkpoints hold either family
+    # (tests/test_torch_native_ckpt.py, tests/test_torch_fvsrn.py)
     # an eye inside the volume looking back along the principal axis has
     # no slab factorization: the slab path's wavefront fallback and the
     # isosurface's brute-force marcher render it
