@@ -70,7 +70,19 @@ points:
   the CPU), through a native .npz and, imported from a torch state dict,
   through view_model; VDB files in OpenVDB's layout (a byte-built fixture,
   vorts 128³ written and read, trained on and rendered, a decode saved as
-  .vdb).
+  .vdb);
+- the thirteenth slice, parallelism on torch.distributed, in child
+  processes (this process joins no group): a world-1 NCCL group runs 20
+  data-parallel steps of the 2^19 model (the host-batch step against
+  train_step_hostbatch bit for bit on one gradient, each step's launches
+  exact, timed against the single-device step in turns) and the
+  slab-sharded frame of the serving decode; two gloo ranks sharing the
+  card run the DP step on split halves against the whole batch (and time
+  its 93.6 MB all-reduce), the tensor-parallel step (levels 0-3 and 4-7,
+  its gradient against the single-device one, 20 steps), two experts (50
+  steps each, the stitched decode's PSNR and seam), the ray-sharded
+  NEURAL_WAVEFRONT frame and the slab-sharded frames (plain and shadowed)
+  against the single-device frames, with their collectives counted.
 
 Launch counts, reset before each of these paths and read after it, prove
 which kernels each ran. Any failed phase raises, so the script exits
@@ -4051,6 +4063,541 @@ def phase_vdb(torch, sv, tmp):
         raise AssertionError(f"vdb: {rec}")
 
 
+# -- the thirteenth slice: parallelism on torch.distributed ------------------
+#
+# The phases run in child processes (instantvnr_torch.parallel.mesh.spawn):
+# a world-1 NCCL group, then two gloo ranks sharing cuda:0 (NCCL refuses
+# two ranks on one device). This process joins no group. Each phase sets
+# every kernel and collective count to 0 just before its run and reads
+# them just after.
+PAR_DP_STEPS = PAR_TP_STEPS = 20
+PAR_EP_STEPS = 50
+PAR_W2_DP_STEPS = 3
+# the DP step against the single-device step, in turns: rounds of steps
+PAR_TIME_ROUNDS, PAR_TIME_STEPS = 5, 10
+# a step's launches on every path that trains: K3, K1's training form, K2,
+# K4 once each
+STEP_LAUNCHES = {k: 1 for k in TRAIN_KERNELS}
+# the TP gradient against the single-device gradient of the same function
+# (the split-grad backward's float32 products on the whole table, the
+# torch.matmul MLP): the table at K4's tolerance; W1 and the tail within
+# TP_MLP_RTOL of their largest entry (a bf16 activation on a rounding
+# boundary may round the other way when W1's product is summed in two
+# parts); every norm within TP_NORM_TOL of the reference's (the JAX
+# package's TP step gives 2.0 on the table and W1)
+TP_MLP_RTOL, TP_NORM_TOL = 1e-2, 1e-2
+# DP on two halves against the whole batch: each leaf within DP_GRAD_REL of
+# its own largest entry (a step's gradients are far below K4's atol, which
+# a zero, doubled or half gradient would meet) and its norm within
+# TP_NORM_TOL of the whole batch's; the loss within DP_GRAD_REL of its own
+DP_GRAD_REL = 1e-5
+# EP: JAX's bars (tests/test_parallel.py:266-293): PSNR of the stitched
+# decode, and the two planes at the seam against the rest
+EP_PSNR_MIN, EP_SEAM_MAX = 22.0, 4.0
+# the slab-sharded frame against the single-device frame: JAX's bar (a
+# chunk's early termination starts afresh); the ray-sharded frame marches
+# each ray as the single-device frame does
+SLAB_SHARD_ATOL = 1e-3
+RAY_SHARD_ATOL = 1e-5
+
+
+def _par_reset():
+    from instantvnr_torch.parallel.mesh import collective_counters
+
+    for c in (*counters().values(), *collective_counters().values()):
+        c.reset()
+
+
+def _par_counts(torch):
+    """The launches and collectives since _par_reset, the nonzero ones."""
+    from instantvnr_torch.parallel.mesh import collective_counters
+
+    torch.cuda.synchronize()
+    return {n: c.launches for n, c in (*counters().items(),
+                                       *collective_counters().items())
+            if c.launches}
+
+
+def _leaves(torch, tree):
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def _par_steps(torch, rec, step, state, volume, n, want):
+    """n calls of step(state, volume), each with its counts from 0 and held
+    to `want`; → (state, the run's kernel launches, ms a step)."""
+    total = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _par_reset()
+        state = step(state, volume)
+        got = _par_counts(torch)
+        if got != want:
+            raise AssertionError(f"{rec['phase']}: a step launched {got}, "
+                                 f"not {want}")
+        add_launches(total, got)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    return state, {k: v for k, v in total.items() if k in counters()}, ms
+
+
+def _slab_sharded(torch, rec_name, mesh, grid, tf, host_grid=None):
+    """The 2^19 decode's DECODED_SLAB frame at SIZE², slab-sharded (plain
+    and with a shadow volume) against the single-device frame; → (records,
+    launches)."""
+    from instantvnr_torch.parallel.slab import (make_sharded_slab_render,
+                                                shard_volume_slabs)
+    from instantvnr_torch.render.raymarch import DEFAULT_LIGHT
+    from instantvnr_torch.render.shadow import shadow_volume_for
+    from instantvnr_torch.render.slabmarch import (SlabSettings,
+                                                   camera_arrays,
+                                                   permuted_dims,
+                                                   principal_axis,
+                                                   slab_render)
+    from instantvnr_torch.render.transform import default_transform
+
+    dev = grid.device
+    cam = orbit(1, N_FRAMES, max(DIMS))
+    ca = camera_arrays(cam, dev)
+    axis, flipped = principal_axis(cam)
+    xform = default_transform(DIMS, dev)
+    d_slab = permuted_dims(grid.shape, axis)[0]
+    s = SlabSettings()
+    shadow = shadow_volume_for(grid, tf, DEFAULT_LIGHT)
+    src = grid if host_grid is None else host_grid
+    chunk, _ = shard_volume_slabs(src, mesh, axis, flipped)
+    fn = make_sharded_slab_render(mesh, SIZE, SIZE, s, axis, flipped,
+                                  grid.shape)
+    occ = torch.ones((d_slab,), dtype=torch.bool, device=dev)
+    recs, total, frames = [], {}, {}
+    for name, sv_ in (("plain", None), ("shadow", shadow)):
+        sh = None if sv_ is None else shard_volume_slabs(
+            sv_.cpu().numpy() if host_grid is not None else sv_, mesh, axis,
+            flipped)[0]
+        _par_reset()
+        got = fn(chunk, tf, ca, occ, xform, sh)
+        launched = _par_counts(torch)
+        kernel = "composite_slabs" if sv_ is None else "composite_slabs_ext"
+        want = {kernel: 1, "all_gather": 1}
+        ref = slab_render(grid, tf, ca, SIZE, SIZE, s, axis, flipped, None,
+                          xform, shadow_volume=sv_)
+        err = float((got - ref).abs().max())
+        rec = {"phase": f"{rec_name}[{name}]", "ranks": mesh.shape["data"],
+               "chunk": list(chunk.shape), "launches": launched,
+               "max_abs_err": err, "tol": SLAB_SHARD_ATOL,
+               "alpha_max": float(got[:, 3].max()),
+               "ms": cuda_ms(torch, lambda: fn(chunk, tf, ca, occ, xform,
+                                               sh), iters=5, warmup=1),
+               "single_device_ms": cuda_ms(
+                   torch, lambda: slab_render(grid, tf, ca, SIZE, SIZE, s,
+                                              axis, flipped, None, xform,
+                                              shadow_volume=sv_),
+                   iters=5, warmup=1)}
+        recs.append(rec)
+        frames[name] = got
+        if name == "shadow":  # shadows do something
+            rec["shadow_vs_plain"] = float((got - frames["plain"]).abs().max())
+        if (launched != want or not err <= SLAB_SHARD_ATOL
+                or rec.get("shadow_vs_plain", 1.0) <= 1e-3):
+            raise AssertionError(f"slab-sharded frame: {rec}")
+        add_launches(total, {k: v for k, v in launched.items()
+                             if k in counters()})
+    return recs, total
+
+
+def _memo_grads():
+    """Route trainer.value_and_grad (and the DP step's) through one cached
+    call: two steps on the same batch then share one gradient, which K4's
+    float atomics would otherwise sum in two orders → restore()."""
+    from instantvnr_torch.models import trainer
+    from instantvnr_torch.parallel import train as pt
+
+    real, memo = trainer.value_and_grad, []
+
+    def once(*args):
+        if not memo:
+            memo.append(real(*args))
+        return memo[0]
+
+    trainer.value_and_grad = pt.value_and_grad = once
+
+    def restore():
+        trainer.value_and_grad = pt.value_and_grad = real
+
+    return restore
+
+
+def par_world1(rank, dev, payload):
+    """The world-1 NCCL group: dp_train[world=1,nccl] and
+    slab_sharded[world=1,nccl]."""
+    import torch
+
+    from instantvnr_torch.config import ModelConfig, TransferFunctionConfig
+    from instantvnr_torch.data.sampler import sample_static
+    from instantvnr_torch.models import trainer
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.parallel import mesh as pm
+    from instantvnr_torch.parallel import train as pt
+    from instantvnr_torch.utils.tfn import bake_transfer_function
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pm.make_mesh(device=dev)
+    vol = torch.from_numpy(payload["vorts"]).to(dev)
+    field = NeuralField.from_config(ModelConfig())
+    params = trainer.create_train_state(field, seed=SEED, device=dev).params
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c, t = sample_static(vol, gen, TRAIN_BATCH)
+    # the host-batch step against train_step_hostbatch on one gradient (the
+    # DP step takes the single-device step's, so it launches no kernel)
+    restore = _memo_grads()
+    try:
+        s1 = trainer.train_step_hostbatch(field, trainer.state_for_params(
+            params), c, t)
+        _par_reset()
+        s2 = pt.make_dp_hostbatch_step(field, mesh)(
+            trainer.state_for_params(params), c, t)
+        hostbatch = _par_counts(torch)
+    finally:
+        restore()
+
+    def state_leaves(s):
+        return _leaves(torch, (s.params, s.opt.mu, s.opt.nu, s.loss,
+                               s.generator.get_state()))
+
+    same = all(torch.equal(a, b) for a, b in zip(state_leaves(s1),
+                                                 state_leaves(s2)))
+    # the reduce alone, on a gradient of its own
+    loss, grads = trainer.value_and_grad(field, params, c, t)
+    red_grads, red_loss = pt.fused_pmean((grads, loss), mesh)
+    reduce_same = all(torch.equal(a, b) for a, b in zip(
+        _leaves(torch, (red_grads, red_loss)), _leaves(torch,
+                                                       (grads, loss))))
+    rec = {"phase": "dp_train[world=1,nccl]", "batch": TRAIN_BATCH,
+           "hostbatch_bit_for_bit": same, "reduce_bit_for_bit": reduce_same,
+           "hostbatch_collectives": hostbatch}
+    state = pt.replicate_state(trainer.create_train_state(
+        field, seed=SEED, device=dev), mesh)
+    step = pt.make_dp_train_step(field, mesh, TRAIN_BATCH)
+    state, launches, ms = _par_steps(
+        torch, rec, step, state, vol, PAR_DP_STEPS,
+        dict(STEP_LAUNCHES, all_reduce=1))
+    # the DP step against the single-device step, in turns
+    runs = {"dp": [state, lambda s: step(s, vol)],
+            "single": [trainer.state_for_params(state.params),
+                       lambda s: trainer.train_step(field, vol, s,
+                                                    TRAIN_BATCH)]}
+    times = {k: [] for k in runs}
+    for _ in range(PAR_TIME_ROUNDS):
+        for k, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PAR_TIME_STEPS):
+                run[0] = run[1](run[0])
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3
+                            / PAR_TIME_STEPS)
+    state = runs["dp"][0]
+    rec.update(steps=PAR_DP_STEPS, launches=launches, ms_per_step=ms,
+               loss=float(state.loss), dp_step_ms=times["dp"],
+               single_step_ms=times["single"],
+               dp_step_ms_median=float(np.median(times["dp"])),
+               single_step_ms_median=float(np.median(times["single"])))
+    if not (same and reduce_same and hostbatch == {"all_reduce": 1}
+            and np.isfinite(rec["loss"])):
+        raise AssertionError(f"dp_train[world=1]: {rec}")
+    total = dict(launches)
+    grid = torch.from_numpy(payload["grid"]).to(dev)
+    tf = bake_transfer_function(TransferFunctionConfig(), device=dev)
+    slab_recs, slab_launches = _slab_sharded(
+        torch, "slab_sharded[world=1,nccl]", mesh, grid, tf)
+    add_launches(total, slab_launches)
+    return {"records": [rec] + slab_recs, "launches": total}
+
+
+def _tp_single_grads(torch, field, params, coords, targets):
+    """The single-device gradient of the TP step's function: the split-grad
+    encode on the whole table (every level, caps their sizes), then the
+    torch.matmul MLP of parallel/tp.py::tp_apply, L1."""
+    from instantvnr_torch.ops import hash_encoding as he
+    from instantvnr_torch.ops.mlp import apply_activation
+    from instantvnr_torch.parallel.tp import _matmul
+
+    spec, net, cd = field.spec, field.cfg.network, field.compute_dtype
+    live = [p.detach().requires_grad_() for p in
+            (params["table"], *params["mlp"])]
+    with torch.enable_grad():
+        h = he.hash_encode_traced_splitgrad(
+            live[0], coords, he.level_param_arrays(spec), spec.level_sizes,
+            spec.n_features, cd)
+        for w in live[1:-1]:
+            h = apply_activation(_matmul(h, w, cd), net.activation).to(cd)
+        y = apply_activation(_matmul(h, live[-1], cd), net.output_activation)
+        loss = torch.mean(torch.abs(y - targets))
+        g = torch.autograd.grad(loss, live)
+    return loss.detach(), g
+
+
+def _par_tp(torch, dev, rank, vol):
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.data.sampler import sample_static
+    from instantvnr_torch.models.network import NeuralField, params_from_numpy
+    from instantvnr_torch.parallel import mesh as pm
+    from instantvnr_torch.parallel import tp
+
+    field = NeuralField.from_config(ModelConfig())
+    spec = field.spec
+    mesh = pm.make_mesh(tp=2, device=dev)
+    lps, e_max = tp.tp_layout(field, 2)
+    full = params_from_numpy(seeded_params(field, SEED), dev)
+    local = tp.local_params(tp.split_params_tp(field, full, 2), rank)
+    lp = tp.local_level_params(tp.shard_level_params(field, 2), rank)
+    caps = tp.level_caps(field, 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    c, t = sample_static(vol, gen, TRAIN_BATCH)
+    _par_reset()
+    loss, g = tp._tp_grads(field, mesh, local, lp, caps, c, t)
+    launched = _par_counts(torch)
+    ref_loss, ref = _tp_single_grads(torch, field, full, c, t)
+    lo = spec.level_offsets[rank * lps]
+    hi = spec.level_offsets[(rank + 1) * lps]
+    nf = spec.n_features
+    pairs = [("table", g["table"][:hi - lo], ref[0][lo:hi]),
+             ("w1", g["w1"], ref[1][rank * lps * nf:(rank + 1) * lps * nf])]
+    pairs += [(f"w{i + 2}", a, b) for i, (a, b) in
+              enumerate(zip(g["mlp_rest"], ref[2:]))]
+    errs, ratios, ok = {}, {}, True
+    for name, a, b in pairs:
+        d = (a - b).abs()
+        errs[name] = float(d.max())
+        ratios[name] = float(torch.linalg.vector_norm(a)
+                             / torch.linalg.vector_norm(b))
+        if name == "table":
+            ok &= bool(d.le(HASH_BWD_ATOL + HASH_BWD_RTOL * b.abs()).all())
+        else:
+            ok &= errs[name] <= TP_MLP_RTOL * float(b.abs().max())
+        ok &= abs(ratios[name] - 1.0) <= TP_NORM_TOL
+    pad_zero = bool((g["table"][hi - lo:] == 0).all())
+    want = {"hash_encode_forward": 1, "hash_encode_backward": 1,
+            "all_reduce": 2}
+    rec = {"phase": "tp_train[tp=2,gloo,one card]", "rank": rank,
+           "levels": [rank * lps, (rank + 1) * lps - 1],
+           "shard_rows": hi - lo, "e_max": e_max,
+           "shard_mb": e_max * nf * 4 / 1e6, "grad_launches": launched,
+           "loss": float(loss), "single_loss": float(ref_loss),
+           "max_abs_err": errs, "norm_ratio": ratios,
+           "padding_grad_zero": pad_zero,
+           "tol": f"table atol={HASH_BWD_ATOL}, rtol={HASH_BWD_RTOL}; MLP "
+                  f"{TP_MLP_RTOL} of max; norms within {TP_NORM_TOL}"}
+    if not (ok and pad_zero and launched == want):
+        raise AssertionError(f"tp gradient: {rec}")
+    state = tp.create_tp_train_state(field, mesh, seed=SEED)
+    step = tp.make_tp_train_step(field, mesh, TRAIN_BATCH)
+    total = {k: v for k, v in launched.items() if k in counters()}
+    state, launches, ms = _par_steps(torch, rec, step, state, vol,
+                                     PAR_TP_STEPS, want)
+    add_launches(total, launches)
+    rec.update(steps=PAR_TP_STEPS, ms_per_step=ms, step_loss=float(
+        state.loss), launches=launches)
+    if not np.isfinite(rec["step_loss"]):
+        raise AssertionError(f"tp steps: {rec}")
+    return rec, total
+
+
+def _par_ep(torch, dev, vol, vol_np):
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.parallel import ep
+    from instantvnr_torch.parallel.inspect import count_collectives
+
+    field = NeuralField.from_config(ModelConfig())
+    mesh = ep.make_expert_mesh(dev)
+    state = ep.create_ep_train_state(field, mesh, seed=SEED)
+    step = ep.make_ep_train_step(field, mesh, TRAIN_BATCH)
+    rec = {"phase": "ep[world=2,gloo,one card]",
+           "expert": mesh.axis_index("expert")}
+    state, launches, ms = _par_steps(torch, rec, step, state, vol,
+                                     PAR_EP_STEPS, STEP_LAUNCHES)
+    decode = ep.make_ep_decode(field, mesh, DIMS, gather=True)
+    _par_reset()
+    t0 = time.perf_counter()
+    full = decode(state)
+    dec_launched = _par_counts(torch)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    local_pins = count_collectives(ep.make_ep_decode(field, mesh, DIMS),
+                                   state)
+    full = full.cpu().numpy()
+    err = (full - vol_np) ** 2
+    rng = float(vol_np.max() - vol_np.min())
+    psnr = float(10.0 * np.log10(rng * rng / max(float(err.mean()), 1e-20)))
+    seam = np.zeros(DIMS[2], bool)
+    z = DIMS[2] // 2
+    seam[[z - 1, z]] = True
+    rec.update(steps=PAR_EP_STEPS, ms_per_step=ms, loss=float(state.loss),
+               launches=launches, decode_launches=dec_launched,
+               decode_ms=decode_ms, local_decode_collectives=local_pins,
+               psnr=psnr, mse_seam=float(err[seam].mean()),
+               mse_interior=float(err[~seam].mean()))
+    n_blobs = DIMS[2] // 2 // 16
+    if (psnr <= EP_PSNR_MIN or local_pins != {}
+            or not rec["mse_seam"] < EP_SEAM_MAX * rec["mse_interior"] + 1e-6
+            or dec_launched != {"hash_encode_forward": n_blobs,
+                                "fused_mlp": n_blobs, "all_gather": 1}):
+        raise AssertionError(f"ep: {rec}")
+    total = dict(launches)
+    add_launches(total, {k: v for k, v in dec_launched.items()
+                         if k in counters()})
+    return rec, total
+
+
+def _par_ray(torch, dev, mesh, sv):
+    from functools import partial
+
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import params_from_numpy
+    from instantvnr_torch.parallel.render import make_sharded_render_fn
+    from instantvnr_torch.render.raymarch import raymarch
+
+    nv = api.NeuralVolume(ModelConfig(), sv, device=dev)
+    nv.params = params_from_numpy(seeded_params(nv.field, SEED), dev)
+    impl = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode.NEURAL_WAVEFRONT,
+                          streaming_cache="none")._impl
+    org, dirn, t0, t1, _ = wavefront_rays(torch, sv, SIZE, SIZE,
+                                          orbit(0, N_FRAMES, max(DIMS)))
+    jitter = torch.rand((SIZE * SIZE,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED))
+    args = (impl.sample_ctx, org, dirn, t0, t1, impl.mc, impl.tf, jitter)
+    fn = make_sharded_render_fn(impl.sample_fn, mesh, impl.settings)
+    _par_reset()
+    got = fn(*args)
+    launched = _par_counts(torch)
+
+    def single():
+        return raymarch(partial(impl.sample_fn, impl.sample_ctx), *args[1:],
+                        impl.settings)
+
+    ref = single()
+    err = float((got - ref).abs().max())
+    rec = {"phase": "sharded_render[world=2]", "mode": "NEURAL_WAVEFRONT",
+           "rays": SIZE * SIZE, "launches": launched, "max_abs_err": err,
+           "same_bits": bool(torch.equal(got, ref)), "tol": RAY_SHARD_ATOL,
+           "alpha_max": float(got[:, 3].max()),
+           "ms": cuda_ms(torch, lambda: fn(*args), iters=3, warmup=1),
+           "single_device_ms": cuda_ms(torch, single, iters=3, warmup=1)}
+    need = ("raymarch_emit", "hash_encode_forward", "fused_mlp")
+    if (not err <= RAY_SHARD_ATOL or launched.get("all_gather") != 1
+            or any(not launched.get(k) for k in need)
+            or rec["alpha_max"] <= 0.05):
+        raise AssertionError(f"sharded render: {rec}")
+    return rec, {k: v for k, v in launched.items() if k in counters()}
+
+
+def par_world2(rank, dev, payload):
+    """Two gloo ranks on one card: dp_train[world=2], tp_train[tp=2],
+    ep[world=2], sharded_render[world=2] and slab_sharded[world=2]."""
+    import torch
+
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.data.sampler import sample_static
+    from instantvnr_torch.data.volume import Volume
+    from instantvnr_torch.models import trainer
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.parallel import mesh as pm
+    from instantvnr_torch.parallel import train as pt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pm.make_mesh(device=dev)
+    vol_np = payload["vorts"]
+    sv = api.SimpleVolume(Volume(data=torch.from_numpy(vol_np), dims=DIMS,
+                                 original_range=(0.0, 1.0)), device=dev)
+    vol = sv.volume.data
+    field = NeuralField.from_config(ModelConfig())
+    # DP on split halves against the single-device step on the whole batch
+    state = pt.replicate_state(trainer.create_train_state(
+        field, seed=SEED, device=dev), mesh)
+    params = state.params
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c, t = sample_static(vol, gen, TRAIN_BATCH)  # the same on both ranks
+    half = slice(rank * TRAIN_BATCH // 2, (rank + 1) * TRAIN_BATCH // 2)
+    _par_reset()
+    loss_h, g_h = trainer.value_and_grad(field, params, c[half], t[half])
+    g_m, loss_m = pt.fused_pmean((g_h, loss_h), mesh)
+    launched = _par_counts(torch)
+    loss_w, g_w = trainer.value_and_grad(field, params, c, t)
+    errs, maxes, ratios = [], [], []
+    for a, b in zip(_leaves(torch, g_m), _leaves(torch, g_w)):
+        errs.append(float((a - b).abs().max()))
+        maxes.append(float(b.abs().max()))
+        ratios.append(float(torch.linalg.vector_norm(a)
+                            / torch.linalg.vector_norm(b)))
+    loss_err = abs(float(loss_m) - float(loss_w))
+    ok = (all(e <= DP_GRAD_REL * m for e, m in zip(errs, maxes))
+          and all(abs(r - 1.0) <= TP_NORM_TOL for r in ratios)
+          and loss_err <= DP_GRAD_REL * abs(float(loss_w)))
+    n_floats = sum(x.numel() for x in _leaves(torch, (g_h, loss_h)))
+    ar_ms = cuda_ms(torch, lambda: pt.fused_pmean((g_h, loss_h), mesh),
+                    iters=5, warmup=1)
+    rec = {"phase": "dp_train[world=2,gloo,one card]", "rank": rank,
+           "batch": TRAIN_BATCH, "max_abs_err": max(errs),
+           "leaf_max_abs_err": errs, "leaf_max_abs": maxes,
+           "norm_ratio": ratios, "loss_abs_err": loss_err,
+           "tol": f"each leaf and the loss within {DP_GRAD_REL} of its "
+                  f"largest entry; norms within {TP_NORM_TOL}",
+           "loss_halves": float(loss_m), "loss_whole": float(loss_w),
+           "grad_launches": launched, "all_reduce_mb": n_floats * 4 / 1e6,
+           "all_reduce_ms": ar_ms}
+    if not ok or launched != dict(STEP_LAUNCHES, all_reduce=1):
+        raise AssertionError(f"dp_train[world=2]: {rec}")
+    step = pt.make_dp_train_step(field, mesh, TRAIN_BATCH)
+    state, launches, ms = _par_steps(torch, rec, step, state, vol,
+                                     PAR_W2_DP_STEPS,
+                                     dict(STEP_LAUNCHES, all_reduce=1))
+    rec.update(steps=PAR_W2_DP_STEPS, ms_per_step=ms, launches=launches)
+    total = dict(launches)
+    add_launches(total, {k: v for k, v in launched.items()
+                         if k in counters()})
+    recs = [rec]
+    for part in (lambda: _par_tp(torch, dev, rank, vol),
+                 lambda: _par_ep(torch, dev, vol, vol_np),
+                 lambda: _par_ray(torch, dev, mesh, sv)):
+        r, got = part()
+        recs.append(r)
+        add_launches(total, got)
+    grid = torch.from_numpy(payload["grid"]).to(dev)
+    slab_recs, slab_launches = _slab_sharded(
+        torch, "slab_sharded[world=2,gloo,one card]", mesh, grid, sv.tf,
+        host_grid=payload["grid"])
+    recs += slab_recs
+    add_launches(total, slab_launches)
+    return {"records": recs, "launches": total}
+
+
+def phase_parallel(torch, grid, vorts, device="cuda"):
+    """The parallel slice on the card: a world-1 NCCL group, then two gloo
+    ranks sharing it, each in child processes spawned once (the kernels
+    are built already, so the ranks load them). → the kernel launches of
+    the phases' runs, summed over the ranks."""
+    from instantvnr_torch.parallel.mesh import spawn
+
+    payload = {"grid": grid, "vorts": vorts}
+    t0 = time.perf_counter()
+    outs = spawn(par_world1, 1, payload, device=device,
+                 backend="nccl" if device == "cuda" else "gloo", timeout=600)
+    t1 = time.perf_counter()
+    outs += spawn(par_world2, 2, payload, device=device, backend="gloo",
+                  timeout=600)
+    t2 = time.perf_counter()
+    total = {}
+    for o in outs:
+        for r in o["records"]:
+            log(r)
+        add_launches(total, o["launches"])
+    log({"phase": "parallel", "world1_seconds": t1 - t0,
+         "world2_seconds": t2 - t1, "launches": total})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4203,6 +4750,9 @@ def main() -> int:
         phase_fvsrn(torch, sv, tmp)
         phase_vdb(torch, sv, tmp)
 
+    # -- the parallel slice: DP, TP, EP, ray- and slab-sharded frames -----
+    par = phase_parallel(torch, grid.cpu().numpy(), vol.cpu().numpy())
+
     # -- the interactive apps: the online trainer and the viewer ----------
     with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
         online = {log2: phase_online_app(torch, tmp, log2)
@@ -4241,6 +4791,8 @@ def main() -> int:
     # the extraction's runs: the network path and the grid path
     add_launches(total, iso_net["launches"])
     total["mt_count/mt_emit"] += iso_net["grid_path_launches"]
+    # the parallel phases' runs, over their ranks
+    add_launches(total, par)
     csrc = "instantvnr_torch/csrc/"
     tpu = "instantvnr_tpu/ops/pallas/"
 

@@ -8,8 +8,9 @@ under `csrc/`, built with nvcc at first use (`ops/cuda_lib.py`), beside a
 plain PyTorch version of the same function. A CUDA tensor takes the
 kernel; a CPU tensor takes the plain version.
 
-What is ported and what is left: ROADMAP.md ("Where the port stands");
-the JAX package's parallel/ (sharding over devices) is the module left.
+What is ported: every module of the JAX package but its TPU schedule
+(`render/compaction.py`), sharding over ranks (`parallel/`) included;
+ROADMAP.md ("Where the port stands").
 """
 
 __version__ = "0.1.0"

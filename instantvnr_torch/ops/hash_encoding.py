@@ -374,9 +374,17 @@ def _level_arrays(spec: HashGridSpec):
 
 def _kernel_args(table_or_none, coords, spec, compute_dtype):
     """Validate what the kernels take; → (coords, scales, levels)."""
+    return (_checked_coords(table_or_none, coords, spec.n_levels,
+                            spec.n_features, compute_dtype),
+            *_level_arrays(spec))
+
+
+def _checked_coords(table_or_none, coords, n_levels, n_features,
+                    compute_dtype):
+    """Validate what the kernels take; → contiguous coords."""
     if (compute_dtype not in _KERNEL_DTYPES
-            or spec.n_features not in _KERNEL_FEATURES
-            or spec.n_levels > _MAX_LEVELS or coords.dtype != torch.float32
+            or n_features not in _KERNEL_FEATURES
+            or n_levels > _MAX_LEVELS or coords.dtype != torch.float32
             or (table_or_none is not None
                 and (table_or_none.dtype not in _KERNEL_DTYPES
                      or table_or_none.device != coords.device))):
@@ -385,43 +393,65 @@ def _kernel_args(table_or_none, coords, spec, compute_dtype):
             f"F in {_KERNEL_FEATURES}, at most {_MAX_LEVELS} levels and f32 "
             f"coords on one device (got table "
             f"{getattr(table_or_none, 'dtype', None)}, compute "
-            f"{compute_dtype}, F {spec.n_features}, coords {coords.dtype})")
-    return (coords.contiguous(), *_level_arrays(spec))
+            f"{compute_dtype}, F {n_features}, coords {coords.dtype})")
+    return coords.contiguous()
 
 
 def _kernel_forward(table, coords, spec, compute_dtype):
-    coords, scales, levels = _kernel_args(table, coords, spec, compute_dtype)
+    return _launch_forward(table, coords, _level_arrays(spec),
+                           spec.n_features, compute_dtype, spec.paired)
+
+
+def _launch_forward(table, coords, level_arrays, n_features, compute_dtype,
+                    paired=False):
+    """K3 over the levels of `level_arrays` (scales [L] float32, (res,
+    size, offset, dense) [L, 4] int32) → [B, L·F] in the compute type."""
+    scales, levels = level_arrays
+    n_levels = len(scales)
+    coords = _checked_coords(table, coords, n_levels, n_features,
+                             compute_dtype)
     table = table.contiguous()
     if table.data_ptr() % 16:  # the kernel's vector loads need alignment
         table = table.clone()
     b = coords.shape[0]
-    out = torch.empty((b, spec.n_output_dims), dtype=compute_dtype,
+    out = torch.empty((b, n_levels * n_features), dtype=compute_dtype,
                       device=coords.device)
     cuda_lib.load_library().call(
         "hash_encode_forward", table.data_ptr(), coords.data_ptr(),
-        out.data_ptr(), b, spec.n_levels, spec.n_features, scales.ctypes.data,
+        out.data_ptr(), b, n_levels, n_features, scales.ctypes.data,
         levels.ctypes.data, int(table.dtype == torch.bfloat16),
-        int(compute_dtype == torch.bfloat16), int(spec.paired),
+        int(compute_dtype == torch.bfloat16), int(paired),
         torch.cuda.current_stream(coords.device).cuda_stream)
-    (paired_counter if spec.paired else counter).launches += 1
+    (paired_counter if paired else counter).launches += 1
     return out
 
 
 def _kernel_backward(n_entries, coords, spec, g, compute_dtype):
-    coords, scales, levels = _kernel_args(None, coords, spec, compute_dtype)
+    return _launch_backward(n_entries, coords, _level_arrays(spec),
+                            spec.n_features, g, compute_dtype, spec.paired)
+
+
+def _launch_backward(n_entries, coords, level_arrays, n_features, g,
+                     compute_dtype, paired=False):
+    """K4 over the levels of `level_arrays` into a zeroed [n_entries, F]
+    float32 gradient: each product of weight and cotangent in the compute
+    type, summed in float32."""
+    scales, levels = level_arrays
+    n_levels = len(scales)
+    coords = _checked_coords(None, coords, n_levels, n_features,
+                             compute_dtype)
     g = g.to(compute_dtype).contiguous()
     if g.data_ptr() % 16:  # the kernel's vector loads need alignment
         g = g.clone()
-    grad = torch.zeros((n_entries, spec.n_features), dtype=torch.float32,
+    grad = torch.zeros((n_entries, n_features), dtype=torch.float32,
                        device=coords.device)
     cuda_lib.load_library().call(
         "hash_encode_backward", coords.data_ptr(), g.data_ptr(),
-        grad.data_ptr(), coords.shape[0], spec.n_levels, spec.n_features,
+        grad.data_ptr(), coords.shape[0], n_levels, n_features,
         scales.ctypes.data, levels.ctypes.data,
-        int(compute_dtype == torch.bfloat16), int(spec.paired),
+        int(compute_dtype == torch.bfloat16), int(paired),
         torch.cuda.current_stream(coords.device).cuda_stream)
-    (paired_backward_counter if spec.paired
-     else backward_counter).launches += 1
+    (paired_backward_counter if paired else backward_counter).launches += 1
     return grad
 
 
@@ -573,3 +603,176 @@ def _hash_encode_packed_paired(table, packed: dict, coords, spec,
         for j, l in enumerate(rest):
             feats[l] = f[:, j]
     return torch.cat(feats, dim=1)
+
+
+# -- the traced encode: per-level parameters as data ------------------------
+#
+# Tensor parallelism over levels (parallel/tp.py) gives each model shard a
+# contiguous slice of the levels in a padded table of its own. The same code
+# runs on every shard, so the per-level constants travel as arrays (the JAX
+# package's ops/hash_encoding.py:198-329). On CUDA tensors the encode is K3
+# and its backward K4 over the shard's level rows, their offsets rebased
+# into the shard's table (`hash_encode_forward` and `hash_encode_backward`
+# take any rows of (res, size, offset, dense)); on CPU tensors the plain
+# per-level gather and scatter.
+
+_LEVEL_KEYS = ("scale", "size", "offset", "res", "dense")
+
+
+def level_param_arrays(spec: HashGridSpec) -> dict:
+    """Per-level parameters as [L] host arrays: scale float32, size, offset
+    (into the flat table) and res int64, dense bool. The tcnn layout only:
+    a paired spec raises, as the JAX package's does."""
+    if spec.paired:
+        raise ValueError("tensor-parallel level sharding uses tcnn "
+                         "addressing; the paired hash variant is "
+                         "single-shard (DP/EP) only")
+    return {"scale": torch.tensor(spec.scales, dtype=torch.float32),
+            "size": torch.tensor(spec.level_sizes, dtype=torch.int64),
+            "offset": torch.tensor(spec.level_offsets[:-1],
+                                   dtype=torch.int64),
+            "res": torch.tensor(spec.resolutions, dtype=torch.int64),
+            "dense": torch.tensor(spec.level_is_dense, dtype=torch.bool)}
+
+
+def _level_rows(level_params: dict, n_levels: int) -> list[tuple]:
+    """[(scale, size, offset, res, dense)] of the first n_levels levels, as
+    host numbers (the scale a float32 value)."""
+    cols = [np.asarray(level_params[k]).reshape(-1)[:n_levels]
+            for k in _LEVEL_KEYS]
+    if any(len(c) != n_levels for c in cols):
+        raise ValueError(f"level params hold fewer than {n_levels} levels")
+    return [(float(np.float32(s)), int(z), int(o), int(r), bool(d))
+            for s, z, o, r, d in zip(*cols)]
+
+
+def _rows_kernel_arrays(rows: list[tuple]):
+    """The kernels' (scales [L] float32, (res, size, offset, dense) [L, 4]
+    int32) of the rows."""
+    scales = np.array([r[0] for r in rows], np.float32)
+    levels = np.array([[res, size, off, int(dense)]
+                       for _, size, off, res, dense in rows], np.int32)
+    return scales, levels
+
+
+def _traced_level_corners(coords: torch.Tensor, row: tuple):
+    """One level's LOCAL corner indices [B, 8] (int64 in [0, size)) and
+    trilinear weights [B, 8] float32: tcnn's stride index on a dense level,
+    the prime-XOR hash otherwise."""
+    scale, size, _, res, dense = row
+    corners = device_constant(_CORNER_TUPLES, torch.int64, coords.device)
+    x = coords.to(torch.float32) * scale + 0.5
+    cell = torch.floor(x)
+    frac = x - cell
+    pos = cell.to(torch.int64)[:, None, :] + corners[None]
+    if dense:
+        idx = pos[..., 0] + pos[..., 1] * res + pos[..., 2] * (res * res)
+    else:
+        idx = (((pos[..., 0] * _PRIMES[0]) & _U32)
+               ^ ((pos[..., 1] * _PRIMES[1]) & _U32)
+               ^ ((pos[..., 2] * _PRIMES[2]) & _U32))
+    idx = (idx & _U32) % size
+    cw = torch.where(corners[None] == 0, 1.0 - frac[:, None, :],
+                     frac[:, None, :])
+    return idx, cw[..., 0] * cw[..., 1] * cw[..., 2]
+
+
+def _traced_plain_forward(table, coords, rows, compute_dtype):
+    feats = []
+    for row in rows:
+        idx, w = _traced_level_corners(coords, row)
+        f = table[idx + row[2]].to(compute_dtype) * w.to(compute_dtype)[
+            ..., None]
+        feats.append(f.sum(dim=1))  # [B, F]
+    return torch.cat(feats, dim=1)
+
+
+def _traced_plain_backward(n_entries, coords, rows, g, compute_dtype):
+    """Autodiff of the traced forward: each product of weight and cotangent
+    rounded to the compute type, index_add_-ed in float32."""
+    b, nf = coords.shape[0], g.shape[1] // len(rows)
+    gc = g.to(compute_dtype).reshape(b, len(rows), nf)
+    grad = torch.zeros((n_entries, nf), dtype=torch.float32, device=g.device)
+    for l, row in enumerate(rows):
+        idx, w = _traced_level_corners(coords, row)
+        upd = (gc[:, l, None, :] * w.to(compute_dtype)[..., None])
+        grad.index_add_(0, (idx + row[2]).reshape(-1),
+                        upd.to(torch.float32).reshape(-1, nf))
+    return grad
+
+
+class _TracedEncode(torch.autograd.Function):
+    """The traced encode, differentiable with respect to the table; the
+    backward's products of weight and cotangent are rounded to bwd_dtype."""
+
+    @staticmethod
+    def forward(ctx, table, coords, rows, n_features, compute_dtype,
+                bwd_dtype, kernel):
+        ctx.meta = (table.shape[0], table.dtype, rows, n_features, bwd_dtype,
+                    kernel)
+        ctx.save_for_backward(coords)
+        if kernel:
+            return _launch_forward(table, coords, _rows_kernel_arrays(rows),
+                                   n_features, compute_dtype)
+        return _traced_plain_forward(table, coords, rows, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        n_entries, dtype, rows, n_features, bwd_dtype, kernel = ctx.meta
+        if kernel:
+            grad = _launch_backward(n_entries, coords,
+                                    _rows_kernel_arrays(rows), n_features, g,
+                                    bwd_dtype)
+        else:
+            grad = _traced_plain_backward(n_entries, coords, rows, g,
+                                          bwd_dtype)
+        return grad.to(dtype), None, None, None, None, None, None
+
+
+def _traced(table, coords, rows, n_features, compute_dtype, bwd_dtype):
+    if coords.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {coords.device}")
+    if table.shape[1] != n_features:
+        raise ValueError(f"table rows hold {table.shape[1]} features, not "
+                         f"{n_features}")
+    kernel = coords.device.type == "cuda"
+    if _needs_table_grad(table, coords):
+        return _TracedEncode.apply(table, coords, rows, n_features,
+                                   compute_dtype, bwd_dtype, kernel)
+    if kernel:
+        return _launch_forward(table, coords, _rows_kernel_arrays(rows),
+                               n_features, compute_dtype)
+    return _traced_plain_forward(table, coords, rows, compute_dtype)
+
+
+def hash_encode_traced(table: torch.Tensor, coords: torch.Tensor,
+                       level_params: dict, n_levels: int, n_features: int,
+                       compute_dtype=torch.float32) -> torch.Tensor:
+    """`hash_encode` with the per-level parameters as data
+    (`level_param_arrays`, or a shard's rows of them with offsets into its
+    own table) → [B, n_levels·F]. The same numbers as `hash_encode` on the
+    levels' rows; differentiable with respect to `table` (the products of
+    weight and cotangent in the compute type, summed in float32)."""
+    return _traced(table, coords, _level_rows(level_params, n_levels),
+                   n_features, compute_dtype, compute_dtype)
+
+
+def hash_encode_traced_splitgrad(table: torch.Tensor, coords: torch.Tensor,
+                                 level_params: dict, level_caps: tuple,
+                                 n_features: int,
+                                 compute_dtype=torch.float32) -> torch.Tensor:
+    """`hash_encode_traced` with the split-grad backward of the JAX
+    package's TP path: float32 products of weight and cotangent, each level
+    scattered on its own (level_caps: a static bound on each local level's
+    size, the largest over the shards). JAX accumulates levels of ≥ 2^17
+    rows in float16 there; this accumulates every level in float32, as the
+    single-device backward does, so summing each level into its own buffer
+    gives the same numbers as one scatter with float32 products."""
+    caps = tuple(int(c) for c in level_caps)
+    rows = _level_rows(level_params, len(caps))
+    if any(row[1] > cap for row, cap in zip(rows, caps)):
+        raise ValueError(f"a level is larger than its cap: sizes "
+                         f"{[r[1] for r in rows]}, caps {caps}")
+    return _traced(table, coords, rows, n_features, compute_dtype,
+                   torch.float32)

@@ -1396,3 +1396,122 @@ def test_fvsrn_on_card_matches_cpu(cuda):
             np.testing.assert_allclose(b, a, rtol=0,
                                        atol=10 * atol * np.abs(a).max())
 
+
+
+# -- the parallel slice: the traced hash kernels, TP and DP on the card -----
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("split", [False, True])
+def test_traced_hash_kernels_at_shard_levels_match_plain(cuda, shard, split):
+    """K3 and K4 over one model shard's level rows of the 2^19 schema
+    (offsets rebased into its padded table) against the plain per-level
+    gather and scatter, at B = 2^16: the forward at the hash grid's
+    tolerance, the gradient table at atol 5e-4, rtol 1e-4."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.parallel import tp
+
+    field = NeuralField.from_config(ModelConfig())
+    spec = field.spec
+    lps, e_max = tp.tp_layout(field, 2)
+    lp = tp.local_level_params(tp.shard_level_params(field, 2), shard)
+    caps = tp.level_caps(field, 2)
+    gen = torch.Generator(device=cuda).manual_seed(shard)
+    table = torch.rand((e_max, spec.n_features), generator=gen,
+                       device=cuda) * 2 - 1
+    b = 1 << 16
+    coords = torch.rand((b, 3), generator=gen, device=cuda)
+    g = torch.randn((b, lps * spec.n_features), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    grads = []
+    for where in (cuda, torch.device("cpu")):
+        t = table.to(where).clone().requires_grad_()
+        c = coords.to(where)
+        k3, k4 = he.counter.launches, he.backward_counter.launches
+        if split:
+            y = he.hash_encode_traced_splitgrad(t, c, lp, caps,
+                                                spec.n_features,
+                                                torch.bfloat16)
+        else:
+            y = he.hash_encode_traced(t, c, lp, lps, spec.n_features,
+                                      torch.bfloat16)
+        y.backward(g.to(where))
+        launched = (he.counter.launches - k3,
+                    he.backward_counter.launches - k4)
+        assert launched == ((1, 1) if where.type == "cuda" else (0, 0))
+        grads.append((y.detach().float().cpu(), t.grad.cpu()))
+    (y_k, g_k), (y_p, g_p) = grads
+    assert float((y_k - y_p).abs().max()) <= 1e-2
+    np.testing.assert_allclose(g_k.numpy(), g_p.numpy(), atol=5e-4,
+                               rtol=1e-4)
+
+
+def _small_tp_plan(seed=11, b=4096):
+    import torch_parallel_ranks as ranks
+
+    from instantvnr_torch.parallel import tp
+
+    field = ranks.small_field()
+    spec, net = field.spec, field.cfg.network
+    rng = np.random.default_rng(seed)
+    widths = ([spec.n_output_dims] + [net.n_neurons] * net.n_hidden_layers
+              + [1])
+    params = {"table": torch.from_numpy(rng.uniform(
+                  -0.5, 0.5, (spec.n_entries, spec.n_features)
+                  ).astype(np.float32)),
+              "mlp": [torch.from_numpy((rng.standard_normal((a, c))
+                                        * np.sqrt(2.0 / a)).astype(
+                                            np.float32))
+                      for a, c in zip(widths[:-1], widths[1:])]}
+    coords = rng.random((b, 3), np.float32)
+    targets = rng.random((b, 1), np.float32)
+    split = tp.split_params_tp(field, params, 2)
+    return {"params": ranks._tree_np(params),
+            "tp_split": ranks._tree_np(split), "batch": (coords, targets)}
+
+
+def test_tp_forward_and_gradient_on_card_match_cpu(cuda):
+    """Two gloo ranks on the card, tp = 2: the forward and the merged
+    gradient on the card against the same ranks on the CPU (the forward at
+    the MLP tolerance, each gradient within 1e-2 of its largest entry),
+    K3 and K4 once each a rank on the card."""
+    import torch_parallel_ranks as ranks
+
+    from instantvnr_torch.parallel import mesh as pm
+
+    plan = _small_tp_plan()
+    outs = pm.spawn(ranks.tp_card_vs_cpu, 2, plan, device="cuda",
+                    backend="gloo", timeout=300)
+    for o in outs:
+        card, cpu = o["cuda"], o["cpu"]
+        assert (card["k3"], card["k4"], cpu["k3"], cpu["k4"]) == (1, 1, 0, 0)
+        np.testing.assert_allclose(card["forward"], cpu["forward"],
+                                   atol=2e-2, rtol=2e-2)
+        assert float(card["loss"]) == pytest.approx(float(cpu["loss"]),
+                                                    rel=1e-3)
+        for a, b in zip(torch.utils._pytree.tree_leaves(card["grads"]),
+                        torch.utils._pytree.tree_leaves(cpu["grads"])):
+            assert np.abs(a - b).max() <= 1e-2 * np.abs(b).max()
+
+
+def test_dp_world1_step_on_card(cuda):
+    """A world-1 NCCL group: the DP host-batch step equals
+    trainer.train_step_hostbatch bit for bit on one gradient (K4's float
+    atomics sum in a varying order, so the two steps share the first's
+    gradient), and the reduce alone returns its input bit for bit (the
+    mean divides by 1); one K3, K1 training form, K2 and K4 a step, one
+    all-reduce."""
+    import torch_parallel_ranks as ranks
+
+    from instantvnr_torch.parallel import mesh as pm
+
+    plan = _small_tp_plan()
+    (out,) = pm.spawn(ranks.dp_world1_on_card, 1, plan, device="cuda",
+                      timeout=300)
+    assert all(out["same"]), out["same"]
+    assert all(out["reduce_same"]), out["reduce_same"]
+    assert out["single_launches"] == [1, 1, 1, 1]
+    assert out["hostbatch_launches"] == [1, 1, 1, 1]
+    assert out["train_launches"] == [1, 1, 1, 1]
+    assert out["pins"] == ({"all_reduce": 1}, {"all_reduce": 1})

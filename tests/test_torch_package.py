@@ -67,8 +67,11 @@ def test_port_never_imports_jax_or_the_reference():
             os.path.join("instantvnr_torch", "ops", "brick_sample.py"),
             os.path.join("instantvnr_torch", "ops", "isosurface.py"),
             os.path.join("instantvnr_torch", "data", "outofcore.py"),
-            os.path.join("instantvnr_torch", "data", "procedural.py")
-            } <= names
+            os.path.join("instantvnr_torch", "data", "procedural.py"),
+            os.path.join("instantvnr_torch", "bench_multichip.py")
+            } | {os.path.join("instantvnr_torch", "parallel", f"{m}.py")
+                 for m in ("__init__", "mesh", "train", "tp", "ep", "render",
+                           "slab", "inspect")} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert bad == []
@@ -93,6 +96,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DecodedRenderer(8, 8, nv.macrocell, None, (16, 16, 16))
+    # the parallel package: meshes, rank devices and the train states of
+    # a mesh on the card; the group launcher
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.parallel import ep, mesh, tp
+
+    for fn in (mesh.make_mesh, mesh.rank_device, mesh.init_distributed,
+               ep.make_expert_mesh):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.spawn(print, 1)
+    field = NeuralField.from_config(ModelConfig())
+    card = mesh.Mesh(shape={"data": 1, "model": 1, "expert": 1},
+                     index={"data": 0, "model": 0, "expert": 0}, groups={},
+                     device=torch.device("cuda"))
+    for fn in (tp.create_tp_train_state, ep.create_ep_train_state):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(field, card)
 
 
 def test_unported_modes_raise_naming_roadmap():
