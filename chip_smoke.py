@@ -1938,6 +1938,7 @@ def phase_breakdown(torch, nv, renderer, r_iso):
 def counters():
     """Every kernel's launch counter, by kernel name."""
     from instantvnr_torch.ops import brick_sample as bs
+    from instantvnr_torch.ops import compaction as cp
     from instantvnr_torch.ops import fused_mlp as fm
     from instantvnr_torch.ops import hash_encoding as he
     from instantvnr_torch.ops import iso_sweep as isw
@@ -1957,7 +1958,9 @@ def counters():
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter,
             "raymarch_emit": rm.emit_counter, "pt_track": opt.track_counter,
             "pt_resolve": opt.resolve_counter, "brick_sample": bs.counter,
-            "mt_count/mt_emit": mt.counter}
+            "mt_count/mt_emit": mt.counter,
+            "compact_rows": cp.compact_counter,
+            "scatter_rows": cp.scatter_counter}
 
 
 def decode_launches(torch, fn):
@@ -2203,6 +2206,8 @@ def run_wavefront_mode(torch, nv, mode):
                                  "non-finite")
         alpha_max.append(float(frame[..., 3].max()))
     launches = {n: c.launches for n, c in counters().items()}
+    # a rolled-back frame's serialized redo marches too
+    supersteps.append(r._impl.redo_stats.get("supersteps", 0))
     r.set_camera(orbit(WAVEFRONT_FRAMES, N_FRAMES, max(DIMS)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2236,7 +2241,8 @@ def phase_wavefront_views(torch, nv):
         neural = mode.startswith("NEURAL")
         others = {n: v for n, v in ln.items()
                   if n not in ("raymarch_emit", "fused_mlp",
-                               "hash_encode_forward")}
+                               "hash_encode_forward", "compact_rows",
+                               "scatter_rows")}
         if (ln["raymarch_emit"] != sum(rec["supersteps"])
                 or any(others.values())
                 or (ln["fused_mlp"] > 0) != neural
@@ -2664,6 +2670,7 @@ def run_pathtrace_mode(torch, nv, mode):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         events.append(r.last_stats["events"])
     launches = {n: c.launches for n, c in counters().items()}
+    events.append(r._impl.redo_stats.get("events", 0))  # rollbacks' redos
     frame = r.mapframe()
     if frame.shape != (SIZE, SIZE, 4) or not np.isfinite(frame).all():
         raise AssertionError(f"{mode}: bad shape or non-finite frame")
@@ -2701,7 +2708,8 @@ def phase_pathtrace(torch, nv):
         sampler = ({"fused_mlp", "hash_encode_forward"} if neural
                    else {"brick_sample"})
         others = {n: v for n, v in ln.items()
-                  if n not in sampler | {"pt_track", "pt_resolve"}}
+                  if n not in sampler | {"pt_track", "pt_resolve",
+                                         "compact_rows", "scatter_rows"}}
         ok = (ln["pt_track"] == ln["pt_resolve"] == n_ev
               and not any(others.values())
               and all(0 < ln[s] <= n_ev for s in sampler)
@@ -2752,6 +2760,7 @@ def phase_brick_wavefront(torch, nv):
                 raise AssertionError(f"{mode}/{policy}: non-finite frame")
             alpha_max.append(float(frame[..., 3].max()))
         launches = {n: c.launches for n, c in counters().items()}
+        supersteps.append(r._impl.redo_stats.get("supersteps", 0))
         rec = {"phase": f"brick_wavefront[{mode},{policy}]",
                "build_ms": build_ms, "pool_bytes": nbytes(ctx["packed"]),
                "pool_dtype": str(ctx["packed"].dtype),
@@ -2766,7 +2775,8 @@ def phase_brick_wavefront(torch, nv):
         ln = launches
         others = {n: v for n, v in ln.items()
                   if n not in ("raymarch_emit", "brick_sample", "fused_mlp",
-                               "hash_encode_forward")}
+                               "hash_encode_forward", "compact_rows",
+                               "scatter_rows")}
         lazy_decodes = policy == "lazy" and ln["fused_mlp"] > 0
         if (ln["raymarch_emit"] != sum(supersteps) or any(others.values())
                 or not ln["brick_sample"] >= 1
@@ -4598,6 +4608,324 @@ def phase_parallel(torch, grid, vorts, device="cuda"):
     return total
 
 
+
+# -- ray compaction, schedule replay and CUDA graphs ----------------------
+
+COMPACT_ROWS = 1 << 18  # m of the kernel phase: a 512² frame's rays
+COMPACT_LIVE = 0.45  # the live share of its rows
+# a compacted mode's frames: serialized, replayed (the second one captures
+# the fused frame), then fused
+COMPACT_FRAMES = 6
+COMPACT_MODES = (("NEURAL_WAVEFRONT", "none", SIZE),
+                 ("NEURAL_WAVEFRONT", "auto", SIZE),
+                 ("NEURAL_WAVEFRONT_GRADIENT", "none", SIZE),
+                 ("NEURAL_WAVEFRONT_SSH", "none", SIZE),
+                 ("REFERENCE_RAYMARCH", None, SIZE),
+                 ("NEURAL_WAVEFRONT", "auto", 768))
+PT_COMPACT_FRAMES = 16
+PT_PARITY_SIZE = 64  # 4096 rays: under the 8192 bucket floor, no compaction
+# JAX's test_compacted_statistical_parity: the mean within rtol 0.15, a
+# pixel within 0.35 after 48 frames; the pixel band scaled to 16 frames as
+# Monte Carlo noise scales, by sqrt(48 / 16), on PT_COMPACT_SHARE of the
+# 262,144 pixels (JAX's test holds 256)
+PT_COMPACT_RTOL, PT_COMPACT_SHARE = 0.15, 0.99
+PT_COMPACT_ATOL = 0.35 * math.sqrt(48 / PT_COMPACT_FRAMES)
+COMPACT_KERNELS = ("count_kernel", "scan_kernel", "partition_kernel",
+                   "copy_back_kernel")
+
+
+def phase_compaction_kernels(torch):
+    """compact_rows and scatter_rows against their plain versions, bit for
+    bit, at m = COMPACT_ROWS: the compaction moves the wavefront's 14
+    leaves (97 bytes a row) of seeded rows, COMPACT_LIVE of them live; the
+    unpermute scatters its five outputs (44 bytes a row) by the slot →
+    pixel permutation of a frame after that compaction (its stable
+    partition's order). Device times (the compaction's three kernels and its
+    copies back), the bounds from this run's bytes, and the nearest
+    PyTorch (torch.argsort(~active, stable=True) and one index_select a
+    leaf; index_copy_ a leaf): more than one call each."""
+    from instantvnr_torch.ops import compaction as ops
+    from instantvnr_torch.render.compaction import (_OUT_LEAVES,
+                                                    WAVEFRONT_LEAVES)
+
+    m = COMPACT_ROWS
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def leaf(shape, dt):
+        if dt == torch.bool:
+            return torch.rand((m,) + shape, generator=g,
+                              device="cuda") < COMPACT_LIVE
+        if dt == torch.int32:
+            return torch.randint(0, m, (m,) + shape, generator=g,
+                                 device="cuda", dtype=dt)
+        return torch.rand((m,) + shape, generator=g, device="cuda")
+
+    base = {n: leaf(shape, dt) for n, (shape, dt) in WAVEFRONT_LEAVES.items()}
+    names = list(base)
+    scratch = [torch.empty_like(base[n]) for n in names]
+    out = {}
+    for name, fn in (("kernel", ops.compact_rows),
+                     ("plain", ops.compact_rows_reference)):
+        leaves = [base[n].clone() for n in names]
+        count = torch.zeros(1, dtype=torch.int32, device="cuda")
+        fn(leaves[names.index("active")], leaves, scratch, count=count,
+           copy_back=True)
+        out[name] = (leaves, count)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out["kernel"][0],
+                                                 out["plain"][0]))
+    same &= torch.equal(out["kernel"][1], out["plain"][1])
+    work = [base[n].clone() for n in names]
+    flags = work[names.index("active")]
+
+    def kernel():
+        ops.compact_rows(flags, work, scratch, copy_back=True)
+
+    def plain():
+        ops.compact_rows_reference(flags, work, scratch, copy_back=True)
+
+    def library():
+        order = torch.argsort(~flags, stable=True)
+        return [x.index_select(0, order) for x in work]
+
+    leaf_bytes = nbytes(*work)
+    n_bytes = 2 * leaf_bytes + m + 4  # flags, every leaf in and out, count
+    b_ms, b_by = bound_ms(n_bytes, 0, H100_FP32_FLOPS)
+    lib_ms, lib_call = library_times(torch, library)
+    crec = {"phase": "compact_rows", "rows": m, "leaves": len(names),
+            "row_bytes": leaf_bytes // m, "live": int(out["plain"][1]),
+            "same_bits": same, "max_abs_err": 0.0 if same else None,
+            "tol": "bit for bit",
+            "ms": device_ms(torch, kernel, COMPACT_KERNELS),
+            "call_ms": cuda_ms(torch, kernel),
+            "plain_ms": cuda_ms(torch, plain, iters=3, warmup=1),
+            "library_ms": lib_ms, "library_call_ms": lib_call,
+            "library": "torch.argsort(~active, stable=True) + index_select "
+                       f"a leaf ({len(names) + 1} calls)",
+            "bound_ms": b_ms, "bound_by": b_by, "mbytes": n_bytes / 1e6}
+    log(crec)
+    perm = torch.argsort(~base["active"], stable=True).to(torch.int32)
+    src = [base[n] for n in _OUT_LEAVES]
+    outs = {k: [torch.empty_like(x) for x in src] for k in ("k", "p")}
+    ops.scatter_rows(perm, src, outs["k"])
+    ops.scatter_rows_reference(perm, src, outs["p"])
+    torch.cuda.synchronize()
+    same_s = all(torch.equal(a, b) for a, b in zip(outs["k"], outs["p"]))
+    perm64 = perm.long()
+    n_bytes = 2 * nbytes(*src) + 4 * m
+    b_ms, b_by = bound_ms(n_bytes, 0, H100_FP32_FLOPS)
+    lib_ms, lib_call = library_times(torch, lambda: [
+        o.index_copy_(0, perm64, x) for o, x in zip(outs["p"], src)])
+    srec = {"phase": "scatter_rows", "rows": m, "leaves": len(src),
+            "row_bytes": nbytes(*src) // m, "same_bits": same_s,
+            "max_abs_err": 0.0 if same_s else None, "tol": "bit for bit",
+            "ms": device_ms(torch, lambda: ops.scatter_rows(perm, src,
+                                                            outs["k"]),
+                            ("scatter_kernel",)),
+            "call_ms": cuda_ms(torch, lambda: ops.scatter_rows(
+                perm, src, outs["k"])),
+            "plain_ms": cuda_ms(torch, lambda: ops.scatter_rows_reference(
+                perm, src, outs["p"]), iters=3, warmup=1),
+            "library_ms": lib_ms, "library_call_ms": lib_call,
+            "library": f"index_copy_ a leaf ({len(src)} calls)",
+            "bound_ms": b_ms, "bound_by": b_by, "mbytes": n_bytes / 1e6}
+    log(srec)
+    if not (same and same_s):
+        raise AssertionError(f"a compaction kernel differs from its plain "
+                             f"version: {crec} {srec}")
+    return crec, srec
+
+
+def _sched_counts(cache):
+    """The replay counters over a schedule cache and its bands."""
+    caches = [cache] + [c for c in cache.values() if isinstance(c, dict)]
+    return {k: sum(c.get(k, 0) for c in caches)
+            for k in ("serialized", "replays", "fused_frames",
+                      "invalidated")}
+
+
+def run_compacted_mode(torch, nv, mode, policy, size):
+    """One wavefront mode at size², COMPACT_FRAMES frames of one jitter
+    sequence through the masked march (settings.compact off) and through
+    the compacted path: each compacted frame (serialized, replayed or
+    fused, from the schedule counters) equal to the masked frame bit for
+    bit; ms a frame (render to mapframe) in both, the schedule, the graphs
+    captured and their capture ms, launches, a profiled frame's idle
+    share and peak memory."""
+    from instantvnr_torch import api
+    from instantvnr_torch.render import compaction as comp
+
+    subject = nv.simple if mode.startswith("REFERENCE") else nv
+    g = torch.Generator(device="cuda").manual_seed(SEED + size)
+    jitters = [torch.rand(size * size, generator=g, device="cuda")
+               for _ in range(COMPACT_FRAMES + 1)]
+    frames, ms = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for compact in (False, True):
+        kw = {} if policy is None else {"streaming_cache": policy}
+        r = api.VNRenderer(subject, size, size, api.RenderMode[mode], **kw)
+        impl = r._impl
+        if not compact:
+            impl.settings = dataclasses.replace(impl.settings, compact=False)
+        r.set_camera(orbit(1, N_FRAMES, max(DIMS)))
+        it = iter(jitters)
+        impl._next_jitter = lambda it=it: next(it)
+        capt = dict(comp.CAPTURED)
+        torch.cuda.synchronize()
+        for c in counters().values():
+            c.reset()
+        fs, ts, kinds, steps, host, dev = [], [], [], [], [], []
+        for _ in range(COMPACT_FRAMES):
+            before = _sched_counts(impl._sched_cache)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            r.render()
+            ev[1].record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            fs.append(r.mapframe())
+            ts.append((time.perf_counter() - t0) * 1e3)
+            dev.append(ev[0].elapsed_time(ev[1]))
+            after = _sched_counts(impl._sched_cache)
+            kinds.append("fused" if after["fused_frames"]
+                         > before["fused_frames"] else "replayed"
+                         if after["replays"] > before["replays"]
+                         else "serialized" if compact else "masked")
+            steps.append(impl.last_stats.get("supersteps"))
+        launches = {n: c.launches for n, c in counters().items()}
+        steps.append(impl.redo_stats.get("supersteps", 0)
+                     if compact else 0)
+        frames[compact], ms[compact] = fs, ts
+        if compact:
+            caps = {k: comp.CAPTURED[k] - capt[k] for k in capt}
+            settings = impl.settings
+            prof = profiled_frame(torch, impl, r.render)
+            info = {"kinds": kinds, "supersteps": steps,
+                    "counters": _sched_counts(impl._sched_cache),
+                    "ops": [list(op) for op in impl._sched_cache.get(
+                        "ops") or []],
+                    "render_host_ms": host, "render_stream_ms": dev,
+                    "tiles": settings.tiles,
+                    "finish_bucket": settings.finish_bucket,
+                    "graphs": caps["graphs"],
+                    "capture_ms": caps["ms"],
+                    "launches": launches, "profiled_frame": prof}
+    same = [bool(np.array_equal(a, b)) for a, b in zip(frames[True],
+                                                        frames[False])]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(frames[True],
+                                                          frames[False]))
+    rec = {"phase": f"compacted_wavefront[{mode},{policy},{size}]",
+           "frames": COMPACT_FRAMES, "same_bits": same, "max_abs_err": err,
+           "masked_ms": ms[False], "compacted_ms": ms[True],
+           "alpha_max": float(frames[True][-1][..., 3].max()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), **info}
+    return rec
+
+
+def phase_compacted_wavefront(torch, nv):
+    """COMPACT_MODES through the compacted path against the masked march:
+    bit for bit in every frame; the serialized, replayed and fused frames
+    each seen; the emissions one a superstep; compact_rows and
+    scatter_rows launched."""
+    recs = []
+    for mode, policy, size in COMPACT_MODES:
+        rec = run_compacted_mode(torch, nv, mode, policy, size)
+        log(rec)
+        ln = rec["launches"]
+        kinds = set(rec["kinds"])
+        need = {"serialized", "replayed"} | (
+            set() if mode.endswith("SSH") else {"fused"})
+        if (not all(rec["same_bits"]) or not need <= kinds
+                or ln["raymarch_emit"] != sum(rec["supersteps"])
+                or not ln["compact_rows"] or not ln["scatter_rows"]
+                or rec["counters"]["invalidated"]
+                or not rec["alpha_max"] > 0.05):
+            raise AssertionError(f"compacted wavefront: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def phase_compacted_pathtrace(torch, nv):
+    """The three PATHTRACE modes through the compacted tracker: at
+    PT_PARITY_SIZE² (nothing compacts) its first frame equal to the masked
+    tracker's bit for bit from one seed (the card generator's draws in
+    CUDA graphs against eager draws); at SIZE² PT_COMPACT_FRAMES frames of
+    each tracker, their means in JAX's statistical band, ms a frame."""
+    from instantvnr_torch import api
+
+    recs = []
+    for mode in PT_MODES:
+        parity = {}
+        for compact in (False, True):
+            r = api.VNRenderer(nv, PT_PARITY_SIZE, PT_PARITY_SIZE,
+                               api.RenderMode[mode])
+            r._impl.settings = dataclasses.replace(r._impl.settings,
+                                                   compact=compact)
+            r.set_camera(orbit(0, N_FRAMES, max(DIMS)))
+            r.render()
+            parity[compact] = r.mapframe()
+        same_small = bool(np.array_equal(parity[True], parity[False]))
+        means, ms, kinds = {}, {}, []
+        launches = None
+        for compact in (False, True):
+            r = api.VNRenderer(nv, SIZE, SIZE, api.RenderMode[mode])
+            impl = r._impl
+            impl.settings = dataclasses.replace(impl.settings,
+                                                compact=compact)
+            r.set_camera(orbit(0, N_FRAMES, max(DIMS)))
+            torch.cuda.synchronize()
+            for c in counters().values():
+                c.reset()
+            ts = []
+            events = 0
+            for _ in range(PT_COMPACT_FRAMES):
+                before = _sched_counts(impl._sched_cache)
+                t0 = time.perf_counter()
+                r.render()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                events += impl.last_stats["events"]
+                if compact:
+                    after = _sched_counts(impl._sched_cache)
+                    kinds.append("fused" if after["fused_frames"]
+                                 > before["fused_frames"] else "replayed"
+                                 if after["replays"] > before["replays"]
+                                 else "serialized")
+            means[compact] = r.mapframe()
+            ms[compact] = ts
+            if compact:
+                launches = {n: c.launches for n, c in counters().items()}
+                counts = _sched_counts(impl._sched_cache)
+                ops = [list(op) for op in impl._sched_cache.get("ops") or []]
+                # a rolled-back frame's serialized redo traces too
+                redo = impl.redo_stats.get("events", 0)
+                n_events = events + redo
+        diff = np.abs(means[True] - means[False]).max(-1)
+        mean_c, mean_m = (float(means[k][..., :3].mean())
+                          for k in (True, False))
+        rec = {"phase": f"compacted_pathtrace[{mode}]",
+               "parity_size": PT_PARITY_SIZE, "same_bits_small": same_small,
+               "frames": PT_COMPACT_FRAMES, "kinds": kinds,
+               "masked_ms": ms[False], "compacted_ms": ms[True],
+               "rgb_mean": {"compacted": mean_c, "masked": mean_m},
+               "share_within_atol": float((diff <= PT_COMPACT_ATOL).mean()),
+               "atol": PT_COMPACT_ATOL, "rtol": PT_COMPACT_RTOL,
+               "events": n_events, "redo_events": redo, "counters": counts,
+               "ops": ops,
+               "launches": launches}
+        log(rec)
+        ln = launches
+        if (not same_small or abs(mean_c - mean_m) > PT_COMPACT_RTOL * mean_m
+                or rec["share_within_atol"] < PT_COMPACT_SHARE
+                or ln["pt_track"] != n_events or ln["pt_resolve"] != n_events
+                or not ln["scatter_rows"] or "fused" not in kinds):
+            raise AssertionError(f"compacted path tracer: {rec}")
+        recs.append(rec)
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -4670,6 +4998,7 @@ def main() -> int:
     iso = phase_iso_sweep(torch, vol, grads, float(vol.median()))
     emit = phase_raymarch_emit(torch, sv)
     pt = phase_pt_kernels(torch, sv)
+    compact_k, scatter_k = phase_compaction_kernels(torch)
     phase_small_parity(torch)
     phase_facade_cuda_vs_cpu(torch)
     phase_one_voxel(torch)
@@ -4738,6 +5067,10 @@ def main() -> int:
     pathtrace = phase_pathtrace(torch, nv)
     brick_wavefront = phase_brick_wavefront(torch, nv)
 
+    # -- the compacted wavefront and path tracer against the masked ones --
+    compacted = (phase_compacted_wavefront(torch, nv)
+                 + phase_compacted_pathtrace(torch, nv))
+
     # -- training: 2^14 against its controls, 2^19 over three seeds -------
     train14, nv19 = phase_training(torch, sv)
     phase_train_breakdown(torch, nv19)
@@ -4777,7 +5110,7 @@ def main() -> int:
     # modes and the brick wavefront; the 1000 steps of train_2e14; the
     # online app at 2^19 and the viewer)
     runs = ([plain] + views + wavefront + pathtrace + brick_wavefront
-            + [online[19], viewer_rec])
+            + compacted + [online[19], viewer_rec])
     total = {name: sum(v["launches"][name] for v in runs)
              for name in counters()}
     for d in (decode, views[-1]["decode_launches"]):
@@ -4847,6 +5180,12 @@ def main() -> int:
         # host's compaction of its slots (one 33-plane slab of the grid)
         row("mt_count/mt_emit", "isosurface.cu",
             "instantvnr_tpu/ops/isosurface.py:87", iso_k),
+        # XLA in JAX as well: the compacted path's stable partition (its
+        # row-gather, the live count) and its unpermute
+        row("compact_rows", "compaction.cu",
+            "instantvnr_tpu/render/compaction.py:168", compact_k),
+        row("scatter_rows", "compaction.cu",
+            "instantvnr_tpu/render/compaction.py:816", scatter_k),
     ]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -873,10 +873,16 @@ class VNRenderer:
         if ctx is not None:
             from instantvnr_torch.render.brickcache import brick_sample_fn
 
+            # frames of at least 480,000 pixels: 3 bands of rays, each
+            # through its own schedule, with a 16384 finisher (JAX
+            # api.py:785-799)
+            big = self.width * self.height >= 480_000
             return Renderer(
                 self.width, self.height, mc, tf, brick_sample_fn,
                 sample_ctx=ctx, settings=RaymarchSettings(
                     shading=shading, compact=True, n_iters=8, max_skips=1,
+                    tiles=3 if big else 1,
+                    finish_bucket=16384 if big else None,
                     sampling_rate=self.sampling_rate,
                     density_scale=self.density_scale),
                 transform=nv.transform)
@@ -899,8 +905,8 @@ class VNRenderer:
 
         mc = self._scene_mc()
         tf = self._tf(subject.device)
-        # the JAX package's compacted schedule (api.py:980-987): accepted,
-        # and traced masked
+        # the compacted tracker, as the JAX package's facade runs it
+        # (api.py:980-987)
         settings = PathTraceSettings(density_scale=self.density_scale,
                                      compact=True)
         if mode == RenderMode.PATHTRACE_NEURAL:

@@ -388,9 +388,12 @@ class ViewerApp:
                 "camera": {"yaw": self.orbit.yaw, "pitch": self.orbit.pitch,
                            "dist": self.orbit.dist},
                 "errors": self.errors, "last_error": self.last_error})
-        # the JAX viewer also reports its schedule replay's counters
-        # (render/compaction.py); the port marches and traces masked, with
-        # no schedule to replay, so it has no such key
+        # the schedule replay's counters of the compacted wavefront and
+        # path tracer (render/compaction.py), as the JAX viewer reports them
+        sc = getattr(self.renderer._impl, "_sched_cache", None)
+        if sc:
+            s["replay"] = {k: sc.get(k, 0)
+                           for k in ("replays", "serialized", "invalidated")}
         return s
 
 

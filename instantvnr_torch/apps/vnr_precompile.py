@@ -8,13 +8,18 @@ the `nvcc` build of `instantvnr_torch/csrc/*.cu` into
 sources) and, in every process, the first launches' set-up on the card
 (the CUDA context, loading the library's modules, PyTorch's allocator).
 This app runs the build, so that the next process (the viewer,
-vnr_cmd_render, the bench) loads the library instead of building it.
+vnr_cmd_render, the bench) loads the library instead of building it. The
+compacted wavefront and path tracer have a second set-up in each process:
+their bucket family (render/compaction.py), which `warmup()` runs once
+ahead of the first frame and which on the card captures its CUDA graphs
+(JAX's warmup_programs).
 
     python -m instantvnr_torch.apps.vnr_precompile
     python -m instantvnr_torch.apps.vnr_precompile --report --dims 128
 
-`--report` then times each selected mode's first frame (its set-up
-included) against its second, on the card. On the CPU (`--device cpu`)
+`--report` then times each selected mode's set-up (the renderer and, for
+the compacted modes, the warmed bucket family) and first frame against
+its second, on the card. On the CPU (`--device cpu`)
 there is nothing to build: the plain PyTorch versions run there.
 """
 from __future__ import annotations
@@ -41,8 +46,8 @@ def log(*a):
 
 
 def report(size: int, simple, model_cfg, modes) -> dict:
-    """Each mode's first frame (the renderer's set-up included) and its
-    second, in seconds, each ending in the frame's copy to the host."""
+    """Each mode's set-up (the renderer and its warmup), first frame and
+    second, in seconds, each frame ending in its copy to the host."""
     from instantvnr_torch.api import NeuralVolume, RenderMode, VNRenderer
 
     mode_map = {"slab": RenderMode.DECODED_SLAB,
@@ -63,6 +68,11 @@ def report(size: int, simple, model_cfg, modes) -> dict:
                        else nv, width=size, height=size, mode=mode,
                        streaming_cache=("none" if name == "wavefront_exact"
                                         else "auto"))
+        impl = r._impl
+        if getattr(getattr(impl, "settings", None), "compact", False):
+            impl.warmup()  # the bucket family (on the card, its graphs)
+        setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
         r.render()
         r.mapframe()
         first = time.perf_counter() - t0
@@ -70,8 +80,9 @@ def report(size: int, simple, model_cfg, modes) -> dict:
         r.render()
         r.mapframe()
         second = time.perf_counter() - t0
-        times[name] = {"first_s": first, "second_s": second}
-        log(f"{name}: first frame (set-up included) {first:.3f} s, "
+        times[name] = {"setup_s": setup, "first_s": first,
+                       "second_s": second}
+        log(f"{name}: set-up {setup:.3f} s, first frame {first:.3f} s, "
             f"second {second:.3f} s")
         del r
     return times

@@ -29,6 +29,16 @@ constexpr int kBlock = 256;
 constexpr int kGhost = 2;
 constexpr int kBrick = 20;
 
+// The rows a launch samples: all n, or with a device-side count (the
+// compacted wavefront's valid slots) those of [offset, offset + n) below
+// it. Blocks past the count exit at once.
+__device__ __forceinline__ long long live_rows(long long n, const int* count,
+                                               long long offset) {
+  if (count == nullptr) return n;
+  const long long c = static_cast<long long>(*count) - offset;
+  return c < 0 ? 0 : (c < n ? c : n);
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -59,9 +69,10 @@ __global__ void __launch_bounds__(kBlock)
 brick_sample_kernel(const int* __restrict__ lut, const void* __restrict__ packed,
                     const float* __restrict__ p, long long n, int dx, int dy,
                     int dz, int mx, int my, int mz, int ss,
-                    float* __restrict__ out) {
+                    float* __restrict__ out, const int* __restrict__ count,
+                    long long offset) {
   const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  if (i >= n) return;
+  if (i >= live_rows(n, count, offset)) return;
   const int dims[3] = {dx, dy, dz};
   const int mcd[3] = {mx, my, mz};
   const int brick = ss * (kBrick - 1) + 1;
@@ -107,10 +118,13 @@ brick_sample_kernel(const int* __restrict__ lut, const void* __restrict__ packed
 
 // lut: int32 [mx*my*mz] (slot or -1); packed: [n_rows, 8] float32, or
 // float16 when is_half, 16-byte aligned; p: float32 [n, 3] object space;
-// dims (dx, dy, dz); ss 1 or 2. Writes out float32 [n].
+// dims (dx, dy, dz); ss 1 or 2. Writes out float32 [n]. count: null, or
+// an int32 on the device: then only rows i < *count - offset are sampled
+// and the others of out are left as they were.
 extern "C" int brick_sample(const void* lut, const void* packed, int is_half,
                             const void* p, long long n, int dx, int dy, int dz,
                             int mx, int my, int mz, int ss, void* out,
+                            const void* count, long long offset,
                             void* stream) {
   if (n <= 0) return cudaSuccess;
   if (mx < 1 || my < 1 || mz < 1 || (ss != 1 && ss != 2))
@@ -120,11 +134,12 @@ extern "C" int brick_sample(const void* lut, const void* packed, int is_half,
   const int* l = static_cast<const int*>(lut);
   const float* pp = static_cast<const float*>(p);
   float* o = static_cast<float*>(out);
+  const int* c = static_cast<const int*>(count);
   if (is_half)
     brick_sample_kernel<true><<<blocks, kBlock, 0, s>>>(
-        l, packed, pp, n, dx, dy, dz, mx, my, mz, ss, o);
+        l, packed, pp, n, dx, dy, dz, mx, my, mz, ss, o, c, offset);
   else
     brick_sample_kernel<false><<<blocks, kBlock, 0, s>>>(
-        l, packed, pp, n, dx, dy, dz, mx, my, mz, ss, o);
+        l, packed, pp, n, dx, dy, dz, mx, my, mz, ss, o, c, offset);
   return cudaGetLastError();
 }

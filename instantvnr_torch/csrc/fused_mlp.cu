@@ -375,8 +375,16 @@ fused_mlp_forward_kernel(const uint16_t* __restrict__ x,
                          const uint16_t* __restrict__ w,
                          float* __restrict__ y, float* __restrict__ zs,
                          long long n_rows, int n_in, int n_hidden, int n_out,
-                         int act, int out_act) {
+                         int act, int out_act, const int* __restrict__ count,
+                         long long offset) {
   using T = FwdTile<W, kTrain>;
+  if (count != nullptr) {
+    // the device-side count form (inference only: the training form's zs
+    // stride is n_rows): rows [offset, offset + n_rows) below *count; the
+    // tiles past them are never loaded, and their rows of y never written
+    const long long live = static_cast<long long>(*count) - offset;
+    n_rows = live < 0 ? 0 : (live < n_rows ? live : n_rows);
+  }
   constexpr int kM = T::kM, kRows = T::kRows, kNT = T::kNT, kKT = T::kKT;
   constexpr int kZ = W + 8;  // pre-activation tile stride (floats)
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -579,8 +587,8 @@ fused_mlp_forward_kernel(const uint16_t* __restrict__ x,
 template <int W, bool kTrain>
 cudaError_t launch_forward(const void* x, const void* w, void* y, void* zs,
                            long long n_rows, int n_in, int n_hidden,
-                           int n_out, int act, int out_act,
-                           cudaStream_t stream) {
+                           int n_out, int act, int out_act, const int* count,
+                           long long offset, cudaStream_t stream) {
   using T = FwdTile<W, kTrain>;
   const size_t bytes = T::bytes(fwd_layout(n_in, W, n_hidden, n_out));
   auto kern = fused_mlp_forward_kernel<W, kTrain>;
@@ -594,7 +602,7 @@ cudaError_t launch_forward(const void* x, const void* w, void* y, void* zs,
   kern<<<blocks, kFwdWarps * 32, bytes, stream>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
       static_cast<float*>(y), static_cast<float*>(zs), n_rows, n_in, n_hidden,
-      n_out, act, out_act);
+      n_out, act, out_act, count, offset);
   return cudaGetLastError();
 }
 
@@ -1027,23 +1035,28 @@ bool valid_shape(const void* w, int n_in, int n_hidden, int n_out) {
 template <bool kTrain>
 cudaError_t forward(const void* x, const void* w, void* y, void* zs,
                     long long n_rows, int n_in, int width, int n_hidden,
-                    int n_out, int act, int out_act, void* stream) {
+                    int n_out, int act, int out_act, const int* count,
+                    long long offset, void* stream) {
   if (n_rows <= 0) return cudaSuccess;
   if (!valid_shape(w, n_in, n_hidden, n_out)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (width) {
     case 16:
       return launch_forward<16, kTrain>(x, w, y, zs, n_rows, n_in, n_hidden,
-                                        n_out, act, out_act, s);
+                                        n_out, act, out_act, count, offset,
+                                        s);
     case 32:
       return launch_forward<32, kTrain>(x, w, y, zs, n_rows, n_in, n_hidden,
-                                        n_out, act, out_act, s);
+                                        n_out, act, out_act, count, offset,
+                                        s);
     case 64:
       return launch_forward<64, kTrain>(x, w, y, zs, n_rows, n_in, n_hidden,
-                                        n_out, act, out_act, s);
+                                        n_out, act, out_act, count, offset,
+                                        s);
     case 128:
       return launch_forward<128, kTrain>(x, w, y, zs, n_rows, n_in, n_hidden,
-                                         n_out, act, out_act, s);
+                                         n_out, act, out_act, count, offset,
+                                         s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1053,13 +1066,17 @@ cudaError_t forward(const void* x, const void* w, void* y, void* zs,
 
 // x [n_rows, n_in] bf16, w packed bf16 (each matrix row-major [fan_in]
 // [fan_out], layer 0 first; 16-byte aligned), y [n_rows, n_out] f32.
+// count: null, or an int32 on the device: then only the rows i < *count -
+// offset are computed, and the rows of y past them are left as they were.
 // width: the hidden width, one of 16, 32, 64, 128; n_in ≤ 128.
 extern "C" int fused_mlp_forward(const void* x, const void* w, void* y,
                                  long long n_rows, int n_in, int width,
                                  int n_hidden, int n_out, int act, int out_act,
+                                 const void* count, long long offset,
                                  void* stream) {
   return forward<false>(x, w, y, nullptr, n_rows, n_in, width, n_hidden,
-                        n_out, act, out_act, stream);
+                        n_out, act, out_act, static_cast<const int*>(count),
+                        offset, stream);
 }
 
 // As fused_mlp_forward, without the output activation: z_out [n_rows, n_out]
@@ -1070,7 +1087,7 @@ extern "C" int fused_mlp_train_forward(const void* x, const void* w,
                                        int n_hidden, int n_out, int act,
                                        void* stream) {
   return forward<true>(x, w, z_out, zs, n_rows, n_in, width, n_hidden, n_out,
-                       act, kNone, stream);
+                       act, kNone, nullptr, 0, stream);
 }
 
 // From the training forward's x, zs, z_out and the cotangent g [n_rows,

@@ -307,8 +307,18 @@ __global__ void __launch_bounds__(kThreads)
 hash_encode_forward_kernel(const T* __restrict__ table,
                            const float* __restrict__ coords,
                            Out* __restrict__ out, uint32_t total,
-                           int n_levels, Levels lv) {
+                           int n_levels, Levels lv,
+                           const int* __restrict__ count, long long offset) {
   const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  if (count != nullptr) {
+    // the device-side count form (the compacted wavefront's valid slots):
+    // only the samples [offset, offset + n) below *count; lanes past them
+    // exit at once
+    const long long live = static_cast<long long>(*count) - offset;
+    const long long lanes = live < 0 ? 0 : live * n_levels;
+    if (lanes < static_cast<long long>(total))
+      total = static_cast<uint32_t>(lanes);
+  }
   if (t >= total) return;
   const uint32_t b = t / static_cast<uint32_t>(n_levels);
   const int l = static_cast<int>(t - b * static_cast<uint32_t>(n_levels));
@@ -428,45 +438,50 @@ unsigned blocks_for(long long n, int n_levels) {
 template <typename T, typename Out, int F, bool kBf16, bool kPaired>
 cudaError_t forward_launch(const void* table, const float* coords, void* out,
                            long long n, int n_levels, const Levels& lv,
+                           const int* count, long long offset,
                            cudaStream_t s) {
   hash_encode_forward_kernel<T, Out, F, kBf16, kPaired>
       <<<blocks_for(n, n_levels), kThreads, 0, s>>>(
           static_cast<const T*>(table), coords, static_cast<Out*>(out),
-          static_cast<uint32_t>(n * n_levels), n_levels, lv);
+          static_cast<uint32_t>(n * n_levels), n_levels, lv, count, offset);
   return cudaGetLastError();
 }
 
 template <typename T, int F, bool kPaired>
 cudaError_t forward_typed(const void* table, const float* coords, void* out,
                           long long n, int n_levels, const Levels& lv,
-                          int out_bf16, cudaStream_t s) {
+                          int out_bf16, const int* count, long long offset,
+                          cudaStream_t s) {
   return out_bf16
              ? forward_launch<T, uint16_t, F, true, kPaired>(
-                   table, coords, out, n, n_levels, lv, s)
+                   table, coords, out, n, n_levels, lv, count, offset, s)
              : forward_launch<T, float, F, false, kPaired>(
-                   table, coords, out, n, n_levels, lv, s);
+                   table, coords, out, n, n_levels, lv, count, offset, s);
 }
 
 template <int F, bool kPaired>
 cudaError_t forward_p(const void* table, const float* coords, void* out,
                       long long n, int n_levels, const Levels& lv,
-                      int table_bf16, int out_bf16, cudaStream_t s) {
+                      int table_bf16, int out_bf16, const int* count,
+                      long long offset, cudaStream_t s) {
   return table_bf16
              ? forward_typed<uint16_t, F, kPaired>(table, coords, out, n,
-                                                   n_levels, lv, out_bf16, s)
+                                                   n_levels, lv, out_bf16,
+                                                   count, offset, s)
              : forward_typed<float, F, kPaired>(table, coords, out, n,
-                                                n_levels, lv, out_bf16, s);
+                                                n_levels, lv, out_bf16, count,
+                                                offset, s);
 }
 
 template <int F>
 cudaError_t forward_f(const void* table, const float* coords, void* out,
                       long long n, int n_levels, const Levels& lv,
                       int table_bf16, int out_bf16, int paired,
-                      cudaStream_t s) {
+                      const int* count, long long offset, cudaStream_t s) {
   return paired ? forward_p<F, true>(table, coords, out, n, n_levels, lv,
-                                     table_bf16, out_bf16, s)
+                                     table_bf16, out_bf16, count, offset, s)
                 : forward_p<F, false>(table, coords, out, n, n_levels, lv,
-                                      table_bf16, out_bf16, s);
+                                      table_bf16, out_bf16, count, offset, s);
 }
 
 template <int F, bool kPaired>
@@ -502,11 +517,16 @@ cudaError_t backward_f(const float* coords, const void* g, float* grad,
 // scales: host float [L]; levels: host int [L][4] = (res, size, offset,
 // dense). F is 1, 2, 4 or 8; L ≤ 32; n·L < 2^31. paired: the paired
 // layout's hashed levels (each hashed level's size even).
+// count: null, or an int32 on the device: then only the samples i <
+// *count - offset are encoded, and the rows of out past them are left as
+// they were (the launch is sized for n either way).
 extern "C" int hash_encode_forward(const void* table, const void* coords,
                                    void* out, long long n, int n_levels,
                                    int n_features, const void* scales,
                                    const void* levels, int table_bf16,
-                                   int out_bf16, int paired, void* stream) {
+                                   int out_bf16, int paired,
+                                   const void* count, long long offset,
+                                   void* stream) {
   Levels lv;
   if (!make_levels(n_levels, scales, levels, &lv)) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
@@ -514,19 +534,20 @@ extern "C" int hash_encode_forward(const void* table, const void* coords,
   if (n * n_levels > 0x7fffffffLL) return cudaErrorInvalidValue;
   const float* c = static_cast<const float*>(coords);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* cnt = static_cast<const int*>(count);
   switch (n_features) {
     case 1:
       return forward_f<1>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          paired, s);
+                          paired, cnt, offset, s);
     case 2:
       return forward_f<2>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          paired, s);
+                          paired, cnt, offset, s);
     case 4:
       return forward_f<4>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          paired, s);
+                          paired, cnt, offset, s);
     case 8:
       return forward_f<8>(table, c, out, n, n_levels, lv, table_bf16, out_bf16,
-                          paired, s);
+                          paired, cnt, offset, s);
     default:
       return cudaErrorInvalidValue;
   }

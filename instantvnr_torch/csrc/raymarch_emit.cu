@@ -87,14 +87,14 @@ struct Grid {
   int mx, my, mz;
   float base_step, rate_scale;
   int max_skips;
+  int sps;  // samples a slot (RaymarchSettings.samples_per_slot)
 };
 
-// One slot of the scan: up to max_skips probes, then the emitted interval
-// [tx, ty) and its validity; advances the ray.
+// A slot's probes: up to max_skips cells past empty space, or into the
+// next occupied cell.
 template <class Occupancy>
-__device__ __forceinline__ void emit_slot(Ray& ray, const Occupancy& occ_at,
-                                          const Grid& g, float& tx, float& ty,
-                                          bool& v) {
+__device__ __forceinline__ void probe_cells(Ray& ray, const Occupancy& occ_at,
+                                            const Grid& g) {
   for (int s = 0; s < g.max_skips; ++s) {
     const bool need_new = ray.t >= ray.tce - kEps;
     const bool in_range = ray.t < ray.t_far;
@@ -131,10 +131,25 @@ __device__ __forceinline__ void emit_slot(Ray& ray, const Occupancy& occ_at,
     ray.tce = t_exit_c;
     break;
   }
+}
+
+// One emitted interval [tx, ty) of the current cell and its validity;
+// advances the ray.
+__device__ __forceinline__ void emit_interval(Ray& ray, float& tx, float& ty,
+                                              bool& v) {
   tx = ray.t;
   ty = fminf(ray.t + ray.ss, ray.tce);
   v = (ty > ray.t + kEps) && (ray.t < ray.t_far) && (ray.tce > ray.t);
   if (v) ray.t = ty;
+}
+
+// One slot of one sample: its probes, then its interval.
+template <class Occupancy>
+__device__ __forceinline__ void emit_slot(Ray& ray, const Occupancy& occ_at,
+                                          const Grid& g, float& tx, float& ty,
+                                          bool& v) {
+  probe_cells(ray, occ_at, g);
+  emit_interval(ray, tx, ty, v);
 }
 
 // The staged slots of a block: slot-major [chunk][kPitch], so that the
@@ -258,7 +273,9 @@ raymarch_emit_kernel(const float* __restrict__ org,
       for (int j = 0; j < nc; ++j) {
         float tx, ty;
         bool v;
-        emit_slot(ray, occ, g, tx, ty, v);
+        // a slot probes once, then emits its sps samples from the cell
+        if ((k0 + j) % g.sps == 0) probe_cells(ray, occ, g);
+        emit_interval(ray, tx, ty, v);
         st.tx[st.at(tid, j)] = tx;
         st.ty[st.at(tid, j)] = ty;
         st.v[st.at(tid, j)] = v ? 1 : 0;
@@ -285,34 +302,38 @@ __host__ __device__ constexpr int stage_bytes(int chunk) {
 // max_opacity: float [mz, my, mx]; base_step = 1 / sampling_rate and
 // rate_scale = 15 * base_step, each rounded to float once on the host (as
 // the plain version's Python scalars are). Writes the carried t,
-// t_cell_end, ss [R] and t_x, t_y float [R, K], valid uint8 [R, K].
+// t_cell_end, ss [R] and t_x, t_y float [R, K], valid uint8 [R, K], K =
+// n_iters · samples_per_slot: each of the n_iters slots probes, then emits
+// samples_per_slot intervals from its cell.
 extern "C" int raymarch_emit(const void* org, const void* dirn,
                              const void* t_far, const void* t,
                              const void* t_cell_end, const void* ss,
                              const void* max_opacity, int mx, int my, int mz,
                              float base_step, float rate_scale,
                              long long n_rays, int n_iters, int max_skips,
-                             void* t_out, void* tce_out, void* ss_out,
+                             int samples_per_slot, void* t_out, void* tce_out, void* ss_out,
                              void* t_x, void* t_y, void* valid,
                              void* stream) {
   if (n_rays <= 0) return cudaSuccess;
   if (mx < 1 || my < 1 || mz < 1 || n_iters < 1 || max_skips < 0 ||
-      n_rays > 0x7fffffffLL / 3)
+      samples_per_slot < 1 || n_rays > 0x7fffffffLL / 3)
     return cudaErrorInvalidValue;
+  const int k = n_iters * samples_per_slot;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
   const auto w = [](void* q) { return static_cast<float*>(q); };
   const auto aligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  const int chunk = n_iters < kMaxChunk ? n_iters : kMaxChunk;
+  const int chunk = k < kMaxChunk ? k : kMaxChunk;
   const bool vec = aligned(t_x) && aligned(t_y) && aligned(valid);
   const long long blocks = (n_rays + kRays - 1) / kRays;
-  const Grid g{mx, my, mz, base_step, rate_scale, max_skips};
+  const Grid g{mx, my, mz, base_step, rate_scale, max_skips,
+               samples_per_slot};
   raymarch_emit_kernel<<<static_cast<unsigned>(blocks), kRays,
                          stage_bytes(chunk),
                          static_cast<cudaStream_t>(stream)>>>(
       f(org), f(dirn), f(t_far), f(t), f(t_cell_end), f(ss), f(max_opacity),
-      g, static_cast<int>(n_rays), n_iters, chunk, vec, w(t_out), w(tce_out),
+      g, static_cast<int>(n_rays), k, chunk, vec, w(t_out), w(tce_out),
       w(ss_out), w(t_x), w(t_y), static_cast<uint8_t*>(valid));
   return cudaGetLastError();
 }

@@ -91,7 +91,8 @@ def params_from_numpy(params_np: dict, device="cuda") -> Params:
 
 
 def network_apply(params: Params, coords: torch.Tensor,
-                  field: NeuralField) -> torch.Tensor:
+                  field: NeuralField, count: torch.Tensor | None = None,
+                  offset: int = 0) -> torch.Tensor:
     """coords [B,3] in [0,1]³ → values [B,1] float32; differentiable with
     respect to params that require grad.
 
@@ -107,40 +108,51 @@ def network_apply(params: Params, coords: torch.Tensor,
     A field with its own `apply_params` (models/fvsrn.py) runs that
     instead, as the reference's AbstractNetwork dispatch does
     (tcnn_network.h:70-95), so the trainer, the metrics and the renderers
-    stay family-agnostic."""
+    stay family-agnostic.
+
+    count: an optional int32 [1] on the device, the compacted wavefront's
+    count of valid rows (row `offset` of the batch is this call's first):
+    K3 and K1 skip the rows past it, which then hold no value. The other
+    paths compute every row."""
     custom = getattr(field, "apply_params", None)
     if custom is not None:
         return custom(params, coords)
     compute_dtype = field.compute_dtype
     if "packed" in params:
+        count = None
         feats = hash_encode_packed(params["table"], params["packed"], coords,
                                    field.spec, compute_dtype=compute_dtype)
     else:
         feats = hash_encode(params["table"], coords, field.spec,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, count=count,
+                            offset=offset)
     if compute_dtype == torch.bfloat16:
         from instantvnr_torch.ops.fused_mlp import fused_mlp_apply
 
-        return fused_mlp_apply(params["mlp"], feats, field.cfg.network)
+        return fused_mlp_apply(params["mlp"], feats, field.cfg.network,
+                               count=count, offset=offset)
     return mlp_apply(params["mlp"], feats, field.cfg.network,
                      compute_dtype=compute_dtype)
 
 
 def network_apply_chunked(params: Params, coords: torch.Tensor,
-                          field: NeuralField,
-                          chunk: int = 1 << 18) -> torch.Tensor:
+                          field: NeuralField, chunk: int = 1 << 18,
+                          count: torch.Tensor | None = None) -> torch.Tensor:
     """network_apply over `chunk` samples at a time into one output, so a
     wavefront superstep (2 M samples at 512² × 8 slots, four times that with
     gradient shading) never builds the whole batch's encoding at once: the
     peak holds one chunk's features. With `render_params` on the card each
-    chunk is one `hash_encode_forward` launch and one `fused_mlp` launch."""
+    chunk is one `hash_encode_forward` launch and one `fused_mlp` launch.
+    With a device-side `count` (network_apply) every chunk is launched,
+    and the chunks past the count exit at once."""
     b = coords.shape[0]
     if b <= chunk:
-        return network_apply(params, coords, field)
+        return network_apply(params, coords, field, count=count)
     out = torch.empty((b, field.n_output_dims), dtype=torch.float32,
                       device=coords.device)
     for i in range(0, b, chunk):
-        out[i:i + chunk] = network_apply(params, coords[i:i + chunk], field)
+        out[i:i + chunk] = network_apply(params, coords[i:i + chunk], field,
+                                         count=count, offset=i)
     return out
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from instantvnr_torch.ops.cuda_lib import LaunchCounter
+from instantvnr_torch.ops.cuda_lib import LaunchCounter, count_ptr
 
 counter = LaunchCounter()
 
@@ -79,13 +79,23 @@ def brick_sample_reference(lut: torch.Tensor, packed: torch.Tensor,
 
 
 def brick_sample(lut: torch.Tensor, packed: torch.Tensor, p: torch.Tensor,
-                 dims: tuple, mcdims: tuple, ss: int = 1) -> torch.Tensor:
+                 dims: tuple, mcdims: tuple, ss: int = 1,
+                 count: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version for CPU tensors, the `brick_sample` kernel (one
     thread a sample) for CUDA tensors.
 
     lut [mx·my·mz] int32, packed [n·brick³, 8] float32 or float16, p [N, 3]
-    float32; dims (dx, dy, dz), mcdims (mx, my, mz), ss 1 or 2."""
+    float32; dims (dx, dy, dz), mcdims (mx, my, mz), ss 1 or 2. count: an
+    optional int32 [1] on the device, the compacted wavefront's count of
+    valid rows: the rows past it are not sampled and hold no value (the
+    plain version reads it on the host and samples the rows below it)."""
     if p.device.type == "cpu":
+        if count is not None:
+            n = int(count)
+            out = p.new_zeros(p.shape[0])
+            out[:n] = brick_sample_reference(lut, packed, p[:n], dims, mcdims,
+                                             ss)
+            return out
         return brick_sample_reference(lut, packed, p, dims, mcdims, ss)
     if p.device.type != "cuda":
         raise ValueError(f"unsupported device {p.device}")
@@ -118,6 +128,7 @@ def brick_sample(lut: torch.Tensor, packed: torch.Tensor, p: torch.Tensor,
     lib.call("brick_sample", lut.data_ptr(), packed.data_ptr(),
              int(packed.dtype == torch.float16), p.data_ptr(), n, dx, dy, dz,
              mx, my, mz, int(ss), out.data_ptr(),
+             0 if count is None else count_ptr(count, p.device), 0,
              torch.cuda.current_stream(p.device).cuda_stream)
     counter.launches += 1
     return out

@@ -38,8 +38,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name → argtypes; each returns cudaGetLastError() as int
 SIGNATURES = {
-    # x, w, y, B, n_in, width, n_hidden, n_out, act, out_act, stream
-    "fused_mlp_forward": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, y, B, n_in, width, n_hidden, n_out, act, out_act, count,
+    # offset, stream
+    "fused_mlp_forward": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P, _L,
+                          _P),
     # x, w, z_out, zs, B, n_in, width, n_hidden, n_out, act, stream
     "fused_mlp_train_forward": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     # x, w, zs, z_out, g, dx, dx_bf16, partials, dw, B, n_in, width,
@@ -47,8 +49,9 @@ SIGNATURES = {
     "fused_mlp_backward": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _L, _I, _I,
                            _I, _I, _I, _I, _P),
     # table, coords, out, B, L, F, scales, levels, table_bf16, out_bf16,
-    # stream
-    "hash_encode_forward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _I, _P),
+    # paired, count, offset, stream
+    "hash_encode_forward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _I, _P,
+                            _L, _P),
     # coords, g, grad, B, L, F, scales, levels, g_bf16, stream
     "hash_encode_backward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _P),
     # vol, jy, wy, jx, wx, covy, covx, corr, ctrl, kc, lut, n_lut, out,
@@ -66,12 +69,19 @@ SIGNATURES = {
     "iso_sweep_forward": (_P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
                           _I, _I, _P),
     # org, dirn, t_far, t, t_cell_end, ss, max_opacity, mx, my, mz,
-    # base_step, rate_scale, R, K, max_skips, t_out, tce_out, ss_out, t_x,
-    # t_y, valid, stream
+    # base_step, rate_scale, R, K, max_skips, samples_per_slot, t_out,
+    # tce_out, ss_out, t_x, t_y, valid, stream
     "raymarch_emit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _L, _I,
-                      _I, _P, _P, _P, _P, _P, _P, _P),
-    # lut, packed, is_half, p, n, dx, dy, dz, mx, my, mz, ss, out, stream
-    "brick_sample": (_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+                      _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # lut, packed, is_half, p, n, dx, dy, dz, mx, my, mz, ss, out, count,
+    # offset, stream
+    "brick_sample": (_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                     _L, _P),
+    # active, m, n_leaves, src, dst, row_bytes, copy_back, order, count, ws,
+    # stream
+    "compact_rows": (_P, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P),
+    # perm, m, n_leaves, src, dst, row_bytes, stream
+    "scatter_rows": (_P, _L, _I, _P, _P, _P, _P),
     # org, dirn, t, t_far, tau, max_opacity, mx, my, mz, dx, dy, dz,
     # density_scale, cell_skips, R, new_t, new_tau, majorant, crosses,
     # exited, pos_obj, stream
@@ -90,12 +100,30 @@ SIGNATURES = {
 }
 
 
+def count_ptr(count, device) -> int:
+    """The address of a device-side row count: an int32 [1] tensor on
+    `device` (the compacted wavefront's count of valid rows)."""
+    import torch
+
+    if (count.dtype != torch.int32 or count.device != device
+            or count.numel() != 1):
+        raise ValueError(f"a row count is int32 [1] on {device}, got "
+                         f"{count.dtype} {tuple(count.shape)} on "
+                         f"{count.device}")
+    return count.data_ptr()
+
+
 class LaunchCounter:
     """Plain-integer count of a wrapper's kernel launches: the wrapper adds
-    one where it launches its kernel, and nowhere else."""
+    one where it launches its kernel, and nowhere else. A replayed CUDA
+    graph (render/compaction.py) adds the launches its capture recorded:
+    `instances` lists every counter, in the order they were made."""
+
+    instances: list = []
 
     def __init__(self):
         self.launches = 0
+        LaunchCounter.instances.append(self)
 
     def reset(self):
         self.launches = 0

@@ -211,14 +211,24 @@ def fused_mlp_train_reference(params: list[torch.Tensor], x: torch.Tensor,
 
 
 def fused_mlp_apply(params: list[torch.Tensor], x: torch.Tensor,
-                    cfg: NetworkConfig) -> torch.Tensor:
+                    cfg: NetworkConfig, count: torch.Tensor | None = None,
+                    offset: int = 0) -> torch.Tensor:
     """x [B, n_in] → [B, n_out] float32; the training form when an input
-    requires grad."""
+    requires grad. count: an optional int32 [1] on x's device (inference
+    only), as for ops/hash_encoding.py::hash_encode: only the rows below
+    count − offset are computed, the others hold no value."""
     train = torch.is_grad_enabled() and (
         x.requires_grad or any(w.requires_grad for w in params))
+    if count is not None and train:
+        raise ValueError("fused_mlp_apply: a row count is for inference only")
     if x.device.type == "cpu":
         if train:
             return fused_mlp_train_reference(params, x, cfg)
+        if count is not None:
+            n = min(max(int(count) - offset, 0), x.shape[0])
+            y = torch.zeros((x.shape[0], params[-1].shape[1]))
+            y[:n] = fused_mlp_reference(params, x[:n], cfg)
+            return y
         return fused_mlp_reference(params, x, cfg)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
@@ -233,6 +243,8 @@ def fused_mlp_apply(params: list[torch.Tensor], x: torch.Tensor,
     lib.call("fused_mlp_forward", xb.data_ptr(), wb.data_ptr(), y.data_ptr(),
              b, n_in, width, n_hidden, n_out,
              _ACT_CODES[activation_name(cfg.activation)],
-             _ACT_CODES[activation_name(cfg.output_activation)], _stream(x))
+             _ACT_CODES[activation_name(cfg.output_activation)],
+             0 if count is None else cuda_lib.count_ptr(count, x.device),
+             int(offset), _stream(x))
     counter.launches += 1
     return y

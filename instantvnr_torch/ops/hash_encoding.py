@@ -397,15 +397,19 @@ def _checked_coords(table_or_none, coords, n_levels, n_features,
     return coords.contiguous()
 
 
-def _kernel_forward(table, coords, spec, compute_dtype):
+def _kernel_forward(table, coords, spec, compute_dtype, count=None,
+                    offset=0):
     return _launch_forward(table, coords, _level_arrays(spec),
-                           spec.n_features, compute_dtype, spec.paired)
+                           spec.n_features, compute_dtype, spec.paired,
+                           count, offset)
 
 
 def _launch_forward(table, coords, level_arrays, n_features, compute_dtype,
-                    paired=False):
+                    paired=False, count=None, offset=0):
     """K3 over the levels of `level_arrays` (scales [L] float32, (res,
-    size, offset, dense) [L, 4] int32) → [B, L·F] in the compute type."""
+    size, offset, dense) [L, 4] int32) → [B, L·F] in the compute type.
+    count: an optional int32 [1] on the device; then only the rows below
+    count − offset are encoded (the others hold no value)."""
     scales, levels = level_arrays
     n_levels = len(scales)
     coords = _checked_coords(table, coords, n_levels, n_features,
@@ -421,6 +425,7 @@ def _launch_forward(table, coords, level_arrays, n_features, compute_dtype,
         out.data_ptr(), b, n_levels, n_features, scales.ctypes.data,
         levels.ctypes.data, int(table.dtype == torch.bfloat16),
         int(compute_dtype == torch.bfloat16), int(paired),
+        0 if count is None else cuda_lib.count_ptr(count, coords.device), int(offset),
         torch.cuda.current_stream(coords.device).cuda_stream)
     (paired_counter if paired else counter).launches += 1
     return out
@@ -501,17 +506,33 @@ def hash_encode_reference(table: torch.Tensor, coords: torch.Tensor,
 
 
 def hash_encode(table: torch.Tensor, coords: torch.Tensor, spec: HashGridSpec,
-                compute_dtype=torch.float32) -> torch.Tensor:
+                compute_dtype=torch.float32, count: torch.Tensor | None = None,
+                offset: int = 0) -> torch.Tensor:
     """Encode [B,3] coords → [B, L·F] features in `compute_dtype`: each
     gathered row times its weight is rounded to the compute type, then the
-    8 corners are summed. Differentiable with respect to `table`."""
+    8 corners are summed. Differentiable with respect to `table`.
+
+    count: an optional int32 [1] on the coords' device (inference only),
+    the compacted wavefront's count of valid rows, whose first row is row
+    `offset` of the whole batch: only the rows below count − offset are
+    encoded, and the others hold no value. On the card K3 reads the count
+    itself (no host read); the plain version reads it on the host."""
+    if count is not None and _needs_table_grad(table, coords):
+        raise ValueError("hash_encode: a row count is for inference only")
     if coords.device.type == "cpu":
+        if count is not None:
+            n = min(max(int(count) - offset, 0), coords.shape[0])
+            out = torch.zeros((coords.shape[0], spec.n_output_dims),
+                              dtype=compute_dtype)
+            out[:n] = hash_encode_reference(table, coords[:n], spec,
+                                            compute_dtype)
+            return out
         return hash_encode_reference(table, coords, spec, compute_dtype)
     if coords.device.type != "cuda":
         raise ValueError(f"unsupported device {coords.device}")
     if _needs_table_grad(table, coords):
         return _Encode.apply(table, coords, spec, compute_dtype, True)
-    return _kernel_forward(table, coords, spec, compute_dtype)
+    return _kernel_forward(table, coords, spec, compute_dtype, count, offset)
 
 
 def packed_dense_tables(table: torch.Tensor, spec: HashGridSpec) -> dict:

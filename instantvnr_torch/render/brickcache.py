@@ -478,13 +478,18 @@ class LazyBrickCache:
         return self.ensure_cells(self._cells[sel])
 
 
-def brick_sample_fn(ctx: dict, p: torch.Tensor) -> torch.Tensor:
+def brick_sample_fn(ctx: dict, p: torch.Tensor,
+                    count: torch.Tensor | None = None) -> torch.Tensor:
     """Sample the brick pool at object-space positions p [N, 3] → [N], the
     convention of `ops.trilinear.sample_volume` (cell-centred remap, clamp
     addressing). A query whose macrocell is not cached returns 0.0: those
     cells are TF-empty (`dilate` covers probes across cell walls). On the
-    card one `brick_sample` launch."""
+    card one `brick_sample` launch; with a device-side `count` (the
+    compacted wavefront's valid rows) the rows past it are skipped."""
     from instantvnr_torch.ops.brick_sample import brick_sample
 
     return brick_sample(ctx["lut"], ctx["packed"], p, ctx["dims"],
-                        ctx["mcdims"], ctx_supersample(ctx))
+                        ctx["mcdims"], ctx_supersample(ctx), count=count)
+
+
+brick_sample_fn.takes_count = True

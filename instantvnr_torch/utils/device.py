@@ -22,11 +22,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def device_constant(values: tuple, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
     """A small constant tensor on `device`, made once per process and never
-    written to. Making it per call would copy from the host, and a copy to
-    a CUDA device from pageable memory waits for the stream: the host could
-    then no longer run ahead of the card."""
+    written to (the cache keeps every one: a CUDA graph that reads it may
+    be captured long after it was made, and must find it there). Making it
+    per call would copy from the host, and a copy to a CUDA device from
+    pageable memory waits for the stream: the host could then no longer
+    run ahead of the card, and a graph could not capture it."""
     return torch.tensor(values, dtype=dtype, device=device)

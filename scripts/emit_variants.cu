@@ -286,19 +286,19 @@ extern "C" int emit_variant(const void* org, const void* dirn,
                             const void* max_opacity, int mx, int my, int mz,
                             float base_step, float rate_scale,
                             long long n_rays, int K, int max_skips,
-                            void* t_out, void* tce_out, void* ss_out,
+                            int samples_per_slot, void* t_out, void* tce_out, void* ss_out,
                             void* t_x, void* t_y, void* valid, void* stream,
                             int variant) {
   if (n_rays <= 0) return cudaSuccess;
   if (mx < 1 || my < 1 || mz < 1 || K < 1 || max_skips < 0 ||
-      n_rays > 0x7fffffffLL / 3)
+      samples_per_slot != 1 || n_rays > 0x7fffffffLL / 3)
     return cudaErrorInvalidValue;
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
   const auto w = [](void* q) { return static_cast<float*>(q); };
   auto* v8 = static_cast<uint8_t*>(valid);
   const auto s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(n_rays);
-  const Grid g{mx, my, mz, base_step, rate_scale, max_skips};
+  const Grid g{mx, my, mz, base_step, rate_scale, max_skips, 1};
   const unsigned prev_blocks = (n + kPrevBlock - 1) / kPrevBlock;
   const unsigned blocks = (n + kRays - 1) / kRays;
   const int chunk = K < kMaxChunk ? K : kMaxChunk;

@@ -92,7 +92,7 @@ def main():
                 *(a.data_ptr() for a in (org, dirn, t1, state.t,
                                          state.t_cell_end, state.ss,
                                          mc.max_opacity)),
-                mx, my, mz, 1.0, 15.0, r, k, skips,
+                mx, my, mz, 1.0, 15.0, r, k, skips, 1,
                 *(o.data_ptr() for o in outs), stream, v)
             if rc:
                 raise RuntimeError(f"emit_variant({v}): error {rc}")

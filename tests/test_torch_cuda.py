@@ -1515,3 +1515,154 @@ def test_dp_world1_step_on_card(cuda):
     assert out["hostbatch_launches"] == [1, 1, 1, 1]
     assert out["train_launches"] == [1, 1, 1, 1]
     assert out["pins"] == ({"all_reduce": 1}, {"all_reduce": 1})
+
+
+# -- the compacted wavefront and tracker (render/compaction.py) -------------
+
+
+@pytest.mark.parametrize("m,live,back", [(1 << 18, 0.45, True),
+                                         (1000003, 0.1, True),
+                                         (777, 0.9, False)])
+def test_compaction_kernels_match_plain(cuda, m, live, back):
+    """compact_rows (a stable partition of 1-, 4- and 12-byte rows, the
+    count and the order, with and without the copy back) and scatter_rows
+    against their plain versions, bit for bit, one launch a call."""
+    from instantvnr_torch.ops import compaction as ops
+
+    g = torch.Generator(device=cuda).manual_seed(m)
+    leaves = [torch.rand((m, 3), generator=g, device=cuda),
+              torch.rand(m, generator=g, device=cuda),
+              torch.rand(m, generator=g, device=cuda) < 0.5,
+              torch.randint(0, 1 << 30, (m,), generator=g, device=cuda,
+                            dtype=torch.int32)]
+    flags = torch.rand(m, generator=g, device=cuda) < live
+    res = {}
+    for name, fn in (("k", ops.compact_rows), ("p", ops.compact_rows_reference)):
+        ls = [x.clone() for x in leaves]
+        sc = [torch.empty_like(x) for x in ls]
+        count = torch.zeros(1, dtype=torch.int32, device=cuda)
+        order = torch.zeros(m, dtype=torch.int32, device=cuda)
+        before = ops.compact_counter.launches
+        fn(flags, ls, sc, count=count, order=order, copy_back=back)
+        res[name] = (ls if back else sc, count, order,
+                     ops.compact_counter.launches - before)
+    torch.cuda.synchronize()
+    assert res["k"][3] == 1 and res["p"][3] == 0
+    for a, b in zip(res["k"][0], res["p"][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(res["k"][1], res["p"][1])
+    assert torch.equal(res["k"][2], res["p"][2])
+    assert int(res["k"][1]) == int(flags.sum())
+    perm = torch.randperm(m, generator=g, device=cuda).to(torch.int32)
+    outs = {k: [torch.empty_like(x) for x in leaves] for k in "kp"}
+    ops.scatter_rows(perm, leaves, outs["k"])
+    ops.scatter_rows_reference(perm, leaves, outs["p"])
+    torch.cuda.synchronize()
+    for a, b in zip(outs["k"], outs["p"]):
+        assert torch.equal(a, b)
+
+
+def test_count_forms_match_the_whole_batch(cuda):
+    """K3, K1 (network_apply_chunked over two chunks) and brick_sample with
+    a device-side count: the rows below it bit for bit the call without a
+    count, the chunks past it skipped."""
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import network_apply_chunked
+    from instantvnr_torch.models.network import render_params
+    from instantvnr_torch.ops.brick_sample import brick_sample
+    from instantvnr_torch.render.brickcache import build_brick_cache
+
+    sv = api.SimpleVolume.synthetic((64, 64, 64), "vorts", device=cuda)
+    nv = api.NeuralVolume(ModelConfig(), sv, device=cuda)
+    params = render_params(nv.params, nv.field)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p = torch.rand((300001, 3), generator=g, device=cuda)
+    count = torch.tensor([123457], dtype=torch.int32, device=cuda)
+    whole = network_apply_chunked(params, p, nv.field, chunk=1 << 17)
+    part = network_apply_chunked(params, p, nv.field, chunk=1 << 17,
+                                 count=count)
+    assert torch.equal(part[:123457], whole[:123457])
+    ctx = build_brick_cache(nv.field, params, sv.macrocell)
+    whole = brick_sample(ctx["lut"], ctx["packed"], p, ctx["dims"],
+                         ctx["mcdims"])
+    part = brick_sample(ctx["lut"], ctx["packed"], p, ctx["dims"],
+                        ctx["mcdims"], count=count)
+    assert torch.equal(part[:123457], whole[:123457])
+
+
+@pytest.mark.parametrize("k,s", [(4, 2), (8, 3)])
+def test_raymarch_emit_samples_per_slot(cuda, k, s):
+    """raymarch_emit with samples_per_slot against the plain emission,
+    bit for bit, three supersteps from the carried state."""
+    from instantvnr_torch.render import raymarch as rm
+
+    sv, org, dirn, t0, t1, _ = _wavefront_rays(cuda, 300, 167)
+    state = rm.init_ray_state(t0, t1)
+    for _ in range(3):
+        got = rm.raymarch_emit(org, dirn, t1, state, sv.macrocell, 1.0, k, 8,
+                               s)
+        ref = rm._emit_samples(org, dirn, t1, state, sv.macrocell, 1.0, k, 8,
+                               s)
+        torch.cuda.synchronize()
+        for a, b in zip(got[0] + got[1:], ref[0] + ref[1:]):
+            assert torch.equal(a, b)
+        state = state._replace(t=ref[0][0], t_cell_end=ref[0][1],
+                               ss=ref[0][2])
+
+
+@pytest.mark.parametrize("mode,policy", [
+    ("NEURAL_WAVEFRONT", "none"), ("NEURAL_WAVEFRONT", "auto"),
+    ("NEURAL_WAVEFRONT_GRADIENT", "none"), ("REFERENCE_RAYMARCH", None),
+    ("NEURAL_WAVEFRONT_SSH", "auto")])
+def test_compacted_frames_match_masked_on_card(cuda, mode, policy):
+    """A 256² frame sequence through the compacted path (serialized,
+    replayed, then fused as one CUDA graph) against the masked march with
+    the same jitters: bit for bit in every frame."""
+    import dataclasses
+
+    from instantvnr_torch import api
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.render.camera import Camera
+
+    sv = api.SimpleVolume.synthetic((128, 128, 128), "vorts", device=cuda)
+    nv = api.NeuralVolume(ModelConfig(), sv, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    jit = [torch.rand(256 * 256, generator=g, device=cuda) for _ in range(5)]
+    frames = {}
+    for compact in (False, True):
+        kw = {} if policy is None else {"streaming_cache": policy}
+        r = api.VNRenderer(nv, 256, 256, api.RenderMode[mode], **kw)
+        if not compact:
+            r._impl.settings = dataclasses.replace(r._impl.settings,
+                                                   compact=False)
+        r.set_camera(Camera(eye=(40.0, 30.0, -260.0), center=(0, 0, 0),
+                            up=(0, 1, 0), fovy=45))
+        it = iter(jit)
+        r._impl._next_jitter = lambda it=it: next(it)
+        fs = []
+        for _ in jit:
+            r.render()
+            fs.append(r.mapframe())
+        frames[compact] = fs
+    for a, b in zip(frames[True], frames[False]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_compacted_pathtrace_parity_on_card(cuda):
+    """Under the bucket floor nothing compacts: the compacted tracker's
+    first frame (its events in CUDA graphs drawing from the card's
+    generator) equals the masked tracker's bit for bit from one seed."""
+    import dataclasses
+
+    from instantvnr_torch import api
+
+    sv = api.SimpleVolume.synthetic((64, 64, 64), "vorts", device=cuda)
+    frames = {}
+    for compact in (False, True):
+        r = api.VNRenderer(sv, 64, 64, api.RenderMode.PATHTRACE_REFERENCE)
+        r._impl.settings = dataclasses.replace(r._impl.settings,
+                                               compact=compact)
+        r.render()
+        frames[compact] = r.mapframe()
+    np.testing.assert_array_equal(frames[True], frames[False])

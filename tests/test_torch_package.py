@@ -262,13 +262,14 @@ def test_loader_is_lazy():
     srcs = [os.path.basename(p) for p in cuda_lib._sources()]
     assert {"fused_mlp.cu", "hash_encode.cu", "slab_composite.cu",
             "iso_sweep.cu", "raymarch_emit.cu", "pathtrace.cu",
-            "brick_sample.cu", "isosurface.cu"} <= set(srcs)
+            "brick_sample.cu", "isosurface.cu", "compaction.cu"} <= set(srcs)
     assert set(cuda_lib.SIGNATURES) == {
         "fused_mlp_forward", "fused_mlp_train_forward", "fused_mlp_backward",
         "hash_encode_forward", "hash_encode_backward",
         "slab_composite_forward", "slab_composite_ext_forward",
         "iso_sweep_forward", "raymarch_emit", "pt_track", "pt_resolve",
-        "brick_sample", "mt_count", "mt_emit"}
+        "brick_sample", "mt_count", "mt_emit", "compact_rows",
+        "scatter_rows"}
 
 
 def test_ctypes_signatures_match_sources():

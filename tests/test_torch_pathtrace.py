@@ -387,3 +387,132 @@ def test_facade_clip_scale_and_refresh(volumes):
         assert rn._impl.frame_index == 0
     finally:
         tnv.transform = old
+
+
+# -- the compacted tracker (render/pathtrace.py::pathtrace_compacted) --------
+
+jcomp = __import__("instantvnr_tpu.render.compaction", fromlist=["_bucket"])
+
+
+@pytest.fixture
+def pt_buckets(monkeypatch):
+    """Buckets small enough that a 24² frame compacts, in both packages."""
+    from instantvnr_torch.render import compaction as comp
+
+    for mod in (comp, jcomp):
+        monkeypatch.setattr(mod, "_MIN_BUCKET", 128)
+
+
+@pytest.mark.parametrize("case,seed", [("default", 0), ("clip+scale", 3)])
+def test_pathtrace_compacted_matches_jax_key_chain(scene, pt_buckets, case,
+                                                   seed):
+    """pathtrace_compacted against JAX's on the same rays, with JAX's key
+    chain handed in (an event draws [6, m] at the prefix size m, as JAX's
+    split(key, 6) does): the same recorded schedule, compactions
+    included, and the frame within FRAME_TOL on FRAME_SHARE of the pixels
+    (test_pathtrace_matches_jax_key_chain's band)."""
+    jvol, jtf, jm, tvol, ttf, tm = scene
+    jx, _ = _xform_pair(case)
+    org, dirn, t0, t1, light, lo, hi, k_pt, scale = _jax_rays(24, seed, jx)
+    kw = dict(max_events=160, finish_bucket=128)
+    jcache, tcache = {}, {}
+    ref = np.asarray(jpt.pathtrace_compacted(
+        j_ref_fn, org, dirn, t0, t1, jm, jtf, k_pt,
+        jpt.PathTraceSettings(**kw), light, sample_ctx=jvol.data,
+        scale=scale, clip_lower=lo, clip_upper=hi, schedule_cache=jcache))
+    got = tpt.pathtrace_compacted(
+        reference_sample_fn, _t(org), _t(dirn), _t(t0), _t(t1), tm, ttf,
+        JaxUniforms(k_pt), tpt.PathTraceSettings(**kw), _t(light),
+        sample_ctx=tvol.data, scale=_t(scale), clip_lower=_t(lo),
+        clip_upper=_t(hi), schedule_cache=tcache).numpy()
+    assert any(op[0] == "C" for op in jcache["ops"])
+    assert tcache["ops"] == jcache["ops"]
+    share = float((np.abs(got - ref).max(-1) <= FRAME_TOL).mean())
+    assert share >= FRAME_SHARE, share
+    assert ref[:, 3].mean() > 0.05
+
+
+@pytest.mark.parametrize("finish_bucket", [8192, 0])
+def test_compacted_bit_parity_without_compaction(scene, finish_bucket):
+    """While nothing compacts (16² rays, under the 8192 bucket floor) the
+    compacted tracker draws what the masked one does: the same frame bit
+    for bit, through the finisher and through per-dispatch event chunks
+    (JAX's test_uncompacted_bit_parity and its _chunked twin)."""
+    jvol, jtf, jm, tvol, ttf, tm = scene
+    org, dirn, t0, t1, light, lo, hi, k_pt, scale = _jax_rays(16, 1)
+    args = [_t(a) for a in (org, dirn, t0, t1)]
+    kw = dict(scale=_t(scale), clip_lower=_t(lo), clip_upper=_t(hi))
+    settings = tpt.PathTraceSettings(max_events=160,
+                                     finish_bucket=finish_bucket)
+    masked = tpt.pathtrace(partial(reference_sample_fn, tvol.data), *args,
+                           tm, ttf, JaxUniforms(k_pt), settings, _t(light),
+                           **kw)
+    cache = {}
+    got = tpt.pathtrace_compacted(reference_sample_fn, *args, tm, ttf,
+                                  JaxUniforms(k_pt), settings, _t(light),
+                                  sample_ctx=tvol.data, schedule_cache=cache,
+                                  **kw)
+    assert not any(op[0] == "C" for op in cache["ops"])
+    assert torch.equal(got, masked) and float(got[:, 3].max()) > 0
+
+
+def test_compacted_statistical_parity(scene, monkeypatch):
+    """Twin of JAX's test_compacted_statistical_parity: the mean of 48
+    progressive frames of a renderer whose schedule compacts (and replays,
+    and fuses) against the masked tracker's, in JAX's band (rtol 0.15 on
+    the mean, atol 0.35 a pixel)."""
+    from instantvnr_torch.render import compaction as comp
+
+    monkeypatch.setattr(comp, "_MIN_BUCKET", 32)
+    _, _, _, tvol, ttf, tm = scene
+    means = {}
+    for compact in (False, True):
+        r = tpt.PathTraceRenderer(
+            16, 16, tm, ttf, tvol.data, seed=11,
+            settings=tpt.PathTraceSettings(max_events=160, compact=compact,
+                                           finish_bucket=32))
+        r.set_camera(Camera(eye=EYE, center=(0, 0, 0), up=(0, 1, 0),
+                            fovy=45))
+        compacted = False
+        for _ in range(48):
+            r.render()
+            compacted |= any(op[0] == "C"
+                             for op in r._sched_cache.get("ops", ()))
+        means[compact] = r.mapframe()
+        if compact:
+            cache = r._sched_cache
+            assert compacted and cache.get("replays", 0) >= 8
+            assert cache.get("fused_frames", 0) >= 1
+    assert np.isfinite(means[True]).all()
+    np.testing.assert_allclose(means[True].mean(), means[False].mean(),
+                               rtol=0.15)
+    np.testing.assert_allclose(means[True], means[False], atol=0.35)
+
+
+def test_facade_pathtrace_uses_compaction(volumes):
+    """Twin of test_pathtrace.py:149: the facade's PT modes run the
+    compacted tracker, which records its schedule."""
+    _, tnv = volumes
+    r = api.VNRenderer(tnv, 16, 16, api.RenderMode.PATHTRACE_REFERENCE)
+    assert r._impl.settings.compact
+    r.render()
+    assert r._impl._sched_cache.get("ops") is not None
+
+
+def test_compacted_warmup_leaves_the_draws(scene):
+    """warmup() of a compacted tracker runs its bucket family and leaves
+    the generator and the accumulation as they were: the first frame is an
+    unwarmed renderer's."""
+    _, _, _, tvol, ttf, tm = scene
+    frames = []
+    for warm in (True, False):
+        r = tpt.PathTraceRenderer(16, 16, tm, ttf, tvol.data, seed=4,
+                                  settings=tpt.PathTraceSettings(
+                                      compact=True, max_events=160))
+        r.set_camera(Camera(eye=EYE, center=(0, 0, 0), up=(0, 1, 0),
+                            fovy=45))
+        if warm:
+            assert r.warmup() == 1 and r.frame_index == 0
+        r.render()
+        frames.append(r.mapframe())
+    np.testing.assert_array_equal(frames[0], frames[1])

@@ -280,14 +280,55 @@ def test_network_apply_chunked_matches_whole():
     torch.testing.assert_close(got, whole, rtol=0, atol=0)
 
 
-def test_schedule_knobs_raise_naming_roadmap():
-    rm.RaymarchSettings(compact=True)  # accepted: frames are the same
-    for kw in ({"tiles": 2}, {"speculate": 1}, {"samples_per_slot": 2},
-               {"schedule_replay": False}, {"finish_bucket": 16384}):
-        with pytest.raises(NotImplementedError, match="no counterpart"):
-            rm.RaymarchSettings(**kw)
+def test_schedule_knobs_raise_naming_roadmap(scene, monkeypatch):
+    """The JAX package's schedule knobs of RaymarchSettings run in the
+    port (the compacted path, render/compaction.py; samples_per_slot in
+    the emission): each gives the masked march's frame bit for bit, from
+    the same jitter, on buckets small enough that a 24² frame compacts.
+    Invalid settings still raise."""
+    from instantvnr_torch.render import compaction as comp
+    from instantvnr_torch.render.camera import Camera
+    from instantvnr_torch.render.renderer import Renderer
+
+    monkeypatch.setattr(comp, "_MIN_BUCKET", 64)
+    monkeypatch.setattr(comp, "_FINISH_BUCKET", 128)
+    _, tvol, _, ttf, _, tm, _ = scene
+    jit = [torch.rand(N * N, generator=torch.Generator().manual_seed(i))
+           for i in range(3)]
+
+    def frames(**kw):
+        r = Renderer(N, N, tm, ttf, reference_sample_fn, sample_ctx=tvol.data,
+                     settings=rm.RaymarchSettings(max_supersteps=64, **kw))
+        r.set_camera(Camera(eye=(20.0, 10.0, -50.0), center=(0, 0, 0),
+                            up=(0, 1, 0), fovy=50))
+        it = iter(jit)
+        r._next_jitter = lambda: next(it)
+        out = []
+        for _ in jit:
+            r.render()
+            out.append(r.mapframe())
+        return out, r
+
+    want, _ = frames()
+    assert want[0][..., 3].max() > 0.05
+    for kw in ({}, {"tiles": 2}, {"tiles": 3}, {"speculate": 1},
+               {"samples_per_slot": 2}, {"schedule_replay": False},
+               {"deferred_validation": False}, {"fused_replay": False},
+               {"finish_bucket": 64}):
+        got, r = frames(compact=True, **kw)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b, err_msg=str(kw))
+        caches = [r._sched_cache] + [c for c in r._sched_cache.values()
+                                     if isinstance(c, dict)]
+        replays = sum(c.get("replays", 0) for c in caches)
+        assert replays >= (kw.get("schedule_replay", True)), kw
+        assert any(op[0] == "C" for c in caches for op in c.get("ops", ())) \
+            or not kw.get("schedule_replay", True), kw
     with pytest.raises(ValueError, match="shading"):
         rm.RaymarchSettings(shading="pathtrace")
+    for kw in ({"tiles": 0}, {"samples_per_slot": 0}):
+        with pytest.raises(ValueError, match="at least 1"):
+            rm.RaymarchSettings(**kw)
 
 
 def test_stuck_rays_stop_at_max_supersteps(scene):

@@ -10,7 +10,7 @@ Tolerances:
 - wavefront frames of the ground truth (progressive accumulation, the
   REFERENCE_* modes and FULL_SHADOW_REFERENCE, the slab path's wavefront
   fallback): atol 2e-5, as tests/test_torch_raymarch.py holds the marcher
-  (the JAX modes run its compacted driver, bit-identical to the masked
+  (the JAX modes run its compacted path, bit-identical to the masked
   one by its own tests);
 - NEURAL_WAVEFRONT*: atol 2e-2, mean ≤ 1e-3, the decode's tolerance
   (bf16 MLPs round in other places);
@@ -269,11 +269,16 @@ def test_neural_modes_match_jax(neural, mode):
 
 def test_streaming_caches_and_pathtracer_raise(neural, volumes):
     """What still raises around the streaming caches and the path tracer:
-    an unknown policy, a mode without its volume, and the schedule knobs
-    of the JAX package's compacted tracker (the policies and the path
-    tracer themselves render: tests/test_torch_brickcache.py,
+    an unknown policy, a mode without its volume, and a budget of events
+    that events_per_dispatch does not divide. The schedule knobs of the
+    JAX package's compacted tracker run: each gives the masked tracker's
+    frame from the same draws (an 8² frame never compacts), and so does
+    the facade's NEURAL_WAVEFRONT (the policies and the path tracer
+    themselves: tests/test_torch_brickcache.py,
     tests/test_torch_pathtrace.py)."""
-    from instantvnr_torch.render.pathtrace import PathTraceSettings
+    from instantvnr_torch.render.pathtrace import (PathTraceRenderer,
+                                                   PathTraceSettings,
+                                                   TorchUniforms)
 
     _, tnv = neural
     with pytest.raises(ValueError, match="streaming_cache"):
@@ -287,12 +292,24 @@ def test_streaming_caches_and_pathtracer_raise(neural, volumes):
                  api.RenderMode.PATHTRACE_REFERENCE):
         with pytest.raises(ValueError, match="SimpleVolume"):
             api.VNRenderer(no_gt, 8, 8, mode)
-    for kw in ({"events_per_dispatch": 8}, {"finish_bucket": 0},
+    with pytest.raises(ValueError, match="events_per_dispatch"):
+        PathTraceSettings(events_per_dispatch=3)
+    _, tsv = volumes
+
+    def pt_frame(**kw):
+        pr = PathTraceRenderer(8, 8, tsv.macrocell, tsv.tf, tsv.volume.data,
+                               settings=PathTraceSettings(**kw))
+        pr._uniforms = lambda: TorchUniforms(torch.Generator().manual_seed(2))
+        pr._next_jitter = lambda: torch.full((64, 2), 0.5)
+        pr.render()
+        return pr.mapframe()
+
+    want = pt_frame()
+    for kw in ({}, {"events_per_dispatch": 8}, {"finish_bucket": 0},
                {"speculate": 1}, {"schedule_replay": False},
                {"deferred_validation": False}, {"fused_replay": False}):
-        with pytest.raises(NotImplementedError, match="no counterpart"):
-            PathTraceSettings(**kw)
-    PathTraceSettings(compact=True)  # accepted: the frames are the same
+        np.testing.assert_array_equal(pt_frame(compact=True, **kw), want,
+                                      err_msg=str(kw))
     r.set_streaming_cache("none")
     r.set_mode(api.RenderMode.NEURAL_WAVEFRONT)
     r.render()
