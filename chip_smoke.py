@@ -82,7 +82,16 @@ points:
   its gradient against the single-device one, 20 steps), two experts (50
   steps each, the stitched decode's PSNR and seam), the ray-sharded
   NEURAL_WAVEFRONT frame and the slab-sharded frames (plain and shadowed)
-  against the single-device frames, with their collectives counted.
+  against the single-device frames, with their collectives counted;
+- the compacted driver: compact_rows and scatter_rows against their plain
+  versions bit for bit (the band's and the tracer's leaves at m = 2^18
+  with copy back, the select form at 2^21, edge sizes, all live and none
+  live, a CUDA graph of three launches replayed with new flags;
+  scatter_rows on three permutations), timed beside their bounds and
+  PyTorch; then the compacted wavefront (six cells) and tracer (three
+  modes) against the masked march, frame by frame, serialized, replayed
+  and fused, with the compaction kernels' device time in a profiled
+  fused frame.
 
 Launch counts, reset before each of these paths and read after it, prove
 which kernels each ran. Any failed phase raises, so the script exits
@@ -2641,10 +2650,14 @@ def profiled_frame(torch, r, render):
         render()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(kernel_us(e) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(kernel_us(e) for e in cuda) / 1e3
+    compaction_ms = sum(kernel_us(e) for e in cuda
+                        if is_compaction_kernel(e.name)) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "compaction_device_ms": compaction_ms,
             **r.last_stats}
 
 
@@ -4630,110 +4643,325 @@ PT_PARITY_SIZE = 64  # 4096 rays: under the 8192 bucket floor, no compaction
 # 262,144 pixels (JAX's test holds 256)
 PT_COMPACT_RTOL, PT_COMPACT_SHARE = 0.15, 0.99
 PT_COMPACT_ATOL = 0.35 * math.sqrt(48 / PT_COMPACT_FRAMES)
-COMPACT_KERNELS = ("count_kernel", "scan_kernel", "partition_kernel",
-                   "copy_back_kernel")
+# the select form's slots: m·K of a 512² frame at K = 8 (render/raymarch.py
+# ::_Slots partitions the slots' 12-byte positions by the valid mask)
+SELECT_SLOTS = 1 << 21
+# the edge sizes held bit for bit: ragged tiles, a 768² frame's rays, the
+# select form's n
+COMPACT_EDGE_ROWS = (1, 31, 1023, 1024, 1025, 768 * 768, 1 << 21)
+# the kernels' names, for their device time in a call or a profiled frame
+COMPACT_KERNELS = ("compact_count_kernel", "compact_partition_kernel",
+                   "compact_copy_back_kernel")
+SCATTER_KERNELS = ("scatter_invert_kernel", "scatter_gather_kernel")
+COMPACTION_KERNEL_NAMES = COMPACT_KERNELS + SCATTER_KERNELS
+
+
+def is_compaction_kernel(name):
+    return any(k in name for k in COMPACTION_KERNEL_NAMES)
+
+
+def seeded_rows(torch, spec, m, g, live=COMPACT_LIVE):
+    """Seeded rows of each leaf of `spec` ({name: (shape, dtype)}) on the
+    card: bools live with probability `live`, int32 in [0, m), floats in
+    [0, 1)."""
+    out = {}
+    for n, (shape, dt) in spec.items():
+        if dt == torch.bool:
+            out[n] = torch.rand((m,) + shape, generator=g,
+                                device="cuda") < live
+        elif dt == torch.int32:
+            out[n] = torch.randint(0, max(m, 1), (m,) + shape, generator=g,
+                                   device="cuda", dtype=dt)
+        else:
+            out[n] = torch.rand((m,) + shape, generator=g, device="cuda")
+    return out
+
+
+def compact_both(torch, base):
+    """compact_rows (order, count and copy back; the flags the leaf
+    "active") through the kernel and through the plain version on copies
+    of `base` ({name: tensor}) → (same bits: leaves, scratch, count and
+    order; the live count; the kernel's launches)."""
+    from instantvnr_torch.ops import compaction as ops
+
+    m = base["active"].shape[0]
+    res = {}
+    for name, fn in (("k", ops.compact_rows),
+                     ("p", ops.compact_rows_reference)):
+        leaves = {n: x.clone() for n, x in base.items()}
+        scratch = [torch.empty_like(x) for x in leaves.values()]
+        count = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+        order = torch.full((m,), -1, dtype=torch.int32, device="cuda")
+        before = ops.compact_counter.launches
+        fn(leaves["active"], list(leaves.values()), scratch, count=count,
+           order=order, copy_back=True)
+        res[name] = (list(leaves.values()) + scratch, count, order,
+                     ops.compact_counter.launches - before)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(res["k"][0], res["p"][0]))
+    same &= (torch.equal(res["k"][1], res["p"][1])
+             and torch.equal(res["k"][2], res["p"][2]))
+    return same, int(res["p"][1]), res["k"][3]
+
+
+def frame_permutation(torch, m, g):
+    """The slot → pixel order of a frame of m rays after three stable
+    partitions of a shrinking prefix, each keeping the rays of a smaller
+    disc of the image live (a frame's coherent silhouettes)."""
+    side = math.isqrt(m)
+    idx = torch.arange(m, device="cuda")
+    yx = torch.stack([idx // side, idx % side], 1).float() - side / 2
+    r = yx.norm(dim=1) * (1 + 0.05 * torch.rand(m, generator=g,
+                                                device="cuda"))
+    perm = idx.clone()
+    prefix = m
+    for k in range(3):
+        live = r[perm[:prefix]] < side * (0.5 - 0.12 * k)
+        order = torch.argsort(~live, stable=True)
+        perm[:prefix] = perm[:prefix][order]
+        prefix = int(live.sum())
+    return perm.to(torch.int32)
+
+
+def compaction_cases(torch):
+    """The compaction kernels' timed inputs at the smoke's shapes, from
+    one seed: {name: (fn, plain, library, bound bytes, extra)}, each fn a
+    call through ops/compaction.py (also in scripts/compare_trees.py)."""
+    from instantvnr_torch.ops import compaction as ops
+    from instantvnr_torch.render.compaction import (_OUT_LEAVES,
+                                                    WAVEFRONT_LEAVES)
+    from instantvnr_torch.render.pathtrace import PT_LEAVES
+
+    m = COMPACT_ROWS
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    cases = {}
+    for name, spec in (("band", WAVEFRONT_LEAVES), ("pathtrace", PT_LEAVES)):
+        work = list(seeded_rows(torch, spec, m, g).values())
+        # the flags apart from the leaf they came from, which each call
+        # partitions in place: every timed call partitions random flags
+        flags = work[list(spec).index("active")].clone()
+        scratch = [torch.empty_like(x) for x in work]
+
+        def kernel(work=work, flags=flags, scratch=scratch):
+            ops.compact_rows(flags, work, scratch, copy_back=True)
+
+        def plain(work=work, flags=flags, scratch=scratch):
+            ops.compact_rows_reference(flags, work, scratch, copy_back=True)
+
+        def library(work=work, flags=flags):
+            order = torch.argsort(~flags, stable=True)
+            return [x.index_select(0, order) for x in work]
+
+        leaf = nbytes(*work)
+        # the bound: the flags and the leaves read once, the leaves and the
+        # count written once; beside it the bytes with the scratch written
+        # too, and as the copy back moves them (the leaves read and written
+        # twice)
+        cases[name] = (kernel, plain, library, m + 2 * leaf + 4,
+                       {"rows": m, "leaves": len(work),
+                        "row_bytes": leaf // m,
+                        "bound_scratch_ms": (m + 3 * leaf + 4)
+                        / H100_BYTES_PER_S * 1e3,
+                        "bound_copy_back_ms": (m + 4 * leaf)
+                        / H100_BYTES_PER_S * 1e3,
+                        "library": "torch.argsort(~active, stable=True) + "
+                                   f"index_select a leaf ({len(work) + 1} "
+                                   "calls)"})
+    n = SELECT_SLOTS
+    mask = torch.rand(n, generator=g, device="cuda") < COMPACT_LIVE
+    pos = torch.rand((n, 3), generator=g, device="cuda")
+    cases["select"] = (
+        lambda: ops.select_rows(mask, pos),
+        lambda: ops.compact_rows_reference(
+            mask, [pos], [torch.empty_like(pos)],
+            count=torch.empty(1, dtype=torch.int32, device="cuda"),
+            order=torch.empty(n, dtype=torch.int32, device="cuda")),
+        lambda: pos.index_select(0, torch.argsort(~mask, stable=True)),
+        n + 12 * n + 12 * n + 4 * n + 4,
+        {"rows": n, "leaves": 1, "row_bytes": 12,
+         "library": "torch.argsort(~mask, stable=True) + index_select "
+                    "(2 calls)"})
+    src = list(seeded_rows(torch, {k: WAVEFRONT_LEAVES[k]
+                                   for k in _OUT_LEAVES}, m, g).values())
+    outs = [torch.empty_like(x) for x in src]
+    live = torch.rand(m, generator=g, device="cuda") < COMPACT_LIVE
+    perms = {"scatter_partition": torch.argsort(~live, stable=True),
+             "scatter_frame": frame_permutation(torch, m, g),
+             "scatter_random": torch.randperm(m, generator=g,
+                                              device="cuda")}
+    for name, p in perms.items():
+        p32, p64 = p.to(torch.int32), p.to(torch.int64)
+        cases[name] = (
+            lambda p32=p32: ops.scatter_rows(p32, src, outs),
+            lambda p32=p32: ops.scatter_rows_reference(p32, src, outs),
+            lambda p64=p64: [o.index_copy_(0, p64, x)
+                             for o, x in zip(outs, src)],
+            2 * nbytes(*src) + 4 * m,
+            {"rows": m, "leaves": len(src), "row_bytes": nbytes(*src) // m,
+             "library": f"index_copy_ a leaf ({len(src)} calls)",
+             "perm": p32, "src": src})
+    return cases
+
+
+def graph_replays(torch, g):
+    """The band's compaction twice (order and count, copy back) and the
+    select form, captured in one CUDA graph and replayed three times,
+    new rows and flags copied into its buffers before each: after each
+    replay every output equal bit for bit to the plain versions' on the
+    same inputs → the replays' verdicts."""
+    from instantvnr_torch.ops import compaction as ops
+    from instantvnr_torch.render.compaction import WAVEFRONT_LEAVES
+
+    m = COMPACT_ROWS
+    fi = list(WAVEFRONT_LEAVES).index("active")
+    n = 8 * m
+    work = list(seeded_rows(torch, WAVEFRONT_LEAVES, m, g).values())
+    scratch = [torch.empty_like(x) for x in work]
+    count = torch.empty(1, dtype=torch.int32, device="cuda")
+    order = torch.empty(m, dtype=torch.int32, device="cuda")
+    mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+    pos = torch.zeros((n, 3), device="cuda")
+    sel = {}
+
+    def program():
+        ops.compact_rows(work[fi], work, scratch, count=count, order=order,
+                         copy_back=True)
+        ops.compact_rows(work[fi], work, scratch, count=count, order=order,
+                         copy_back=True)
+        sel["out"] = ops.select_rows(mask, pos)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        program()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        program()
+    verdicts = []
+    for k in range(3):
+        fresh = seeded_rows(torch, WAVEFRONT_LEAVES, m, g,
+                            live=(0.2, 0.45, 0.8)[k])
+        for w, x in zip(work, fresh.values()):
+            w.copy_(x)
+        mask.copy_(torch.rand(n, generator=g, device="cuda") < 0.3 + 0.2 * k)
+        pos.copy_(torch.rand((n, 3), generator=g, device="cuda"))
+        want = [x.clone() for x in fresh.values()]
+        wscr = [torch.empty_like(x) for x in want]
+        wcount = torch.empty(1, dtype=torch.int32, device="cuda")
+        worder = torch.empty(m, dtype=torch.int32, device="cuda")
+        for _ in range(2):
+            ops.compact_rows_reference(want[fi], want, wscr, count=wcount,
+                                       order=worder, copy_back=True)
+        wsel = (torch.empty_like(pos),
+                torch.empty(n, dtype=torch.int32, device="cuda"),
+                torch.empty(1, dtype=torch.int32, device="cuda"))
+        ops.compact_rows_reference(mask, [pos], [wsel[0]], count=wsel[2],
+                                   order=wsel[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        verdicts.append(
+            all(torch.equal(a, b) for a, b in zip(work + scratch,
+                                                  want + wscr))
+            and torch.equal(count, wcount) and torch.equal(order, worder)
+            and all(torch.equal(a, b) for a, b in zip(sel["out"], wsel)))
+    return verdicts
 
 
 def phase_compaction_kernels(torch):
     """compact_rows and scatter_rows against their plain versions, bit for
-    bit, at m = COMPACT_ROWS: the compaction moves the wavefront's 14
-    leaves (97 bytes a row) of seeded rows, COMPACT_LIVE of them live; the
-    unpermute scatters its five outputs (44 bytes a row) by the slot →
-    pixel permutation of a frame after that compaction (its stable
-    partition's order). Device times (the compaction's three kernels and its
-    copies back), the bounds from this run's bytes, and the nearest
-    PyTorch (torch.argsort(~active, stable=True) and one index_select a
-    leaf; index_copy_ a leaf): more than one call each."""
+    bit: the band's compaction (the wavefront's 14 leaves, 93 bytes a row,
+    COMPACT_LIVE of them live, with copy back) and the path tracer's (11
+    leaves, 70 bytes) at m = COMPACT_ROWS; the select form (12-byte
+    positions, order and count) at SELECT_SLOTS; every COMPACT_EDGE_ROWS
+    size, and all live and none live; a CUDA graph of three launches
+    replayed with new flags; scatter_rows on a compaction's slot → pixel
+    order, on a frame's after three compactions and on a random
+    permutation. Device times (the kernels by name), the call by CUDA
+    events, the plain version, the bounds from this run's bytes, and the
+    nearest PyTorch (more than one call each) → (the band's record, the
+    scatter's on a compaction's order)."""
     from instantvnr_torch.ops import compaction as ops
-    from instantvnr_torch.render.compaction import (_OUT_LEAVES,
-                                                    WAVEFRONT_LEAVES)
+    from instantvnr_torch.render.compaction import WAVEFRONT_LEAVES
+    from instantvnr_torch.render.pathtrace import PT_LEAVES
 
-    m = COMPACT_ROWS
-    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
-
-    def leaf(shape, dt):
-        if dt == torch.bool:
-            return torch.rand((m,) + shape, generator=g,
-                              device="cuda") < COMPACT_LIVE
-        if dt == torch.int32:
-            return torch.randint(0, m, (m,) + shape, generator=g,
-                                 device="cuda", dtype=dt)
-        return torch.rand((m,) + shape, generator=g, device="cuda")
-
-    base = {n: leaf(shape, dt) for n, (shape, dt) in WAVEFRONT_LEAVES.items()}
-    names = list(base)
-    scratch = [torch.empty_like(base[n]) for n in names]
-    out = {}
-    for name, fn in (("kernel", ops.compact_rows),
-                     ("plain", ops.compact_rows_reference)):
-        leaves = [base[n].clone() for n in names]
-        count = torch.zeros(1, dtype=torch.int32, device="cuda")
-        fn(leaves[names.index("active")], leaves, scratch, count=count,
-           copy_back=True)
-        out[name] = (leaves, count)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(out["kernel"][0],
-                                                 out["plain"][0]))
-    same &= torch.equal(out["kernel"][1], out["plain"][1])
-    work = [base[n].clone() for n in names]
-    flags = work[names.index("active")]
-
-    def kernel():
-        ops.compact_rows(flags, work, scratch, copy_back=True)
-
-    def plain():
-        ops.compact_rows_reference(flags, work, scratch, copy_back=True)
-
-    def library():
-        order = torch.argsort(~flags, stable=True)
-        return [x.index_select(0, order) for x in work]
-
-    leaf_bytes = nbytes(*work)
-    n_bytes = 2 * leaf_bytes + m + 4  # flags, every leaf in and out, count
-    b_ms, b_by = bound_ms(n_bytes, 0, H100_FP32_FLOPS)
-    lib_ms, lib_call = library_times(torch, library)
-    crec = {"phase": "compact_rows", "rows": m, "leaves": len(names),
-            "row_bytes": leaf_bytes // m, "live": int(out["plain"][1]),
-            "same_bits": same, "max_abs_err": 0.0 if same else None,
-            "tol": "bit for bit",
-            "ms": device_ms(torch, kernel, COMPACT_KERNELS),
-            "call_ms": cuda_ms(torch, kernel),
+    recs = {}
+    cases = compaction_cases(torch)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for name, (fn, plain, library, n_bytes, extra) in cases.items():
+        if name.startswith("scatter"):
+            kernels = SCATTER_KERNELS
+            p, src = extra.pop("perm"), extra.pop("src")
+            outs = {k: [torch.empty_like(x) for x in src] for k in "kp"}
+            ops.scatter_rows(p, src, outs["k"])
+            ops.scatter_rows_reference(p, src, outs["p"])
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(*outs.values()))
+        else:
+            kernels = COMPACT_KERNELS
+            same = None  # checked below, on copies
+        b_ms, b_by = bound_ms(n_bytes, 0, H100_FP32_FLOPS)
+        lib_ms, lib_call = library_times(torch, library)
+        recs[name] = {
+            "phase": f"compaction_kernels[{name}]", **extra,
+            "same_bits": same, "tol": "bit for bit",
+            "ms": device_ms(torch, fn, kernels),
+            "call_ms": cuda_ms(torch, fn),
             "plain_ms": cuda_ms(torch, plain, iters=3, warmup=1),
             "library_ms": lib_ms, "library_call_ms": lib_call,
-            "library": "torch.argsort(~active, stable=True) + index_select "
-                       f"a leaf ({len(names) + 1} calls)",
             "bound_ms": b_ms, "bound_by": b_by, "mbytes": n_bytes / 1e6}
-    log(crec)
-    perm = torch.argsort(~base["active"], stable=True).to(torch.int32)
-    src = [base[n] for n in _OUT_LEAVES]
-    outs = {k: [torch.empty_like(x) for x in src] for k in ("k", "p")}
-    ops.scatter_rows(perm, src, outs["k"])
-    ops.scatter_rows_reference(perm, src, outs["p"])
+    for name, spec in (("band", WAVEFRONT_LEAVES), ("pathtrace", PT_LEAVES)):
+        base = seeded_rows(torch, spec, COMPACT_ROWS, g)
+        same, live, launches = compact_both(torch, base)
+        recs[name].update(same_bits=same and launches == 1, live=live)
+    n = SELECT_SLOTS
+    mask = torch.rand(n, generator=g, device="cuda") < COMPACT_LIVE
+    pos = torch.rand((n, 3), generator=g, device="cuda")
+    out, order, count = ops.select_rows(mask, pos)
+    want = (torch.empty_like(pos), torch.empty(n, dtype=torch.int32,
+                                               device="cuda"),
+            torch.empty(1, dtype=torch.int32, device="cuda"))
+    ops.compact_rows_reference(mask, [pos], [want[0]], count=want[2],
+                               order=want[1])
     torch.cuda.synchronize()
-    same_s = all(torch.equal(a, b) for a, b in zip(outs["k"], outs["p"]))
-    perm64 = perm.long()
-    n_bytes = 2 * nbytes(*src) + 4 * m
-    b_ms, b_by = bound_ms(n_bytes, 0, H100_FP32_FLOPS)
-    lib_ms, lib_call = library_times(torch, lambda: [
-        o.index_copy_(0, perm64, x) for o, x in zip(outs["p"], src)])
-    srec = {"phase": "scatter_rows", "rows": m, "leaves": len(src),
-            "row_bytes": nbytes(*src) // m, "same_bits": same_s,
-            "max_abs_err": 0.0 if same_s else None, "tol": "bit for bit",
-            "ms": device_ms(torch, lambda: ops.scatter_rows(perm, src,
-                                                            outs["k"]),
-                            ("scatter_kernel",)),
-            "call_ms": cuda_ms(torch, lambda: ops.scatter_rows(
-                perm, src, outs["k"])),
-            "plain_ms": cuda_ms(torch, lambda: ops.scatter_rows_reference(
-                perm, src, outs["p"]), iters=3, warmup=1),
-            "library_ms": lib_ms, "library_call_ms": lib_call,
-            "library": f"index_copy_ a leaf ({len(src)} calls)",
-            "bound_ms": b_ms, "bound_by": b_by, "mbytes": n_bytes / 1e6}
-    log(srec)
-    if not (same and same_s):
+    recs["select"].update(
+        same_bits=all(torch.equal(a, b) for a, b in zip((out, order, count),
+                                                         want)),
+        live=int(want[2]))
+    for rec in recs.values():
+        rec["max_abs_err"] = 0.0 if rec["same_bits"] else None
+        log(rec)
+    # edge sizes: random flags at each size, all live and none live at a
+    # few; scatter_rows on a random permutation of each size
+    edges = []
+    for m in COMPACT_EDGE_ROWS:
+        base = seeded_rows(torch, WAVEFRONT_LEAVES, m, g)
+        shares = ((COMPACT_LIVE, 1.0, 0.0) if m in (1, 1025, 768 * 768)
+                  else (COMPACT_LIVE,))
+        for share in shares:
+            if share != COMPACT_LIVE:
+                base["active"].fill_(share == 1.0)
+            same, live, launches = compact_both(torch, base)
+            edges.append({"rows": m, "live_share": share, "live": live,
+                          "same_bits": same, "launches": launches})
+        src = [base[k] for k in ("org", "t", "active")]
+        p = torch.randperm(m, generator=g, device="cuda").to(torch.int32)
+        outs = {k: [torch.empty_like(x) for x in src] for k in "kp"}
+        ops.scatter_rows(p, src, outs["k"])
+        ops.scatter_rows_reference(p, src, outs["p"])
+        torch.cuda.synchronize()
+        edges.append({"rows": m, "scatter": True, "same_bits": all(
+            torch.equal(a, b) for a, b in zip(*outs.values()))})
+    replays = graph_replays(torch, g)
+    erec = {"phase": "compaction_edges", "cases": edges,
+            "graph_replays_same_bits": replays}
+    log(erec)
+    if not (all(r["same_bits"] for r in recs.values())
+            and all(e["same_bits"] and e.get("launches", 1) == 1
+                    for e in edges) and all(replays)):
         raise AssertionError(f"a compaction kernel differs from its plain "
-                             f"version: {crec} {srec}")
-    return crec, srec
+                             f"version: {recs} {erec}")
+    return recs["band"], recs["scatter_partition"]
 
 
 def _sched_counts(cache):

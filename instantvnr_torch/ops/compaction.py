@@ -27,7 +27,7 @@ compact_counter = LaunchCounter()  # compact_rows
 scatter_counter = LaunchCounter()  # scatter_rows
 
 _MAX_LEAVES = 16
-_TILE = 1024  # rows a block of the kernel (kThreads · kItems)
+_MIN_TILE = 256  # rows a block of the kernel at least (kThreads)
 
 
 def _partition_order(active: torch.Tensor):
@@ -97,8 +97,8 @@ def compact_rows(active: torch.Tensor, leaves: list, scratch: list,
     `active` into `scratch` (and back into the leaves with copy_back);
     `count` [1] int32 receives the live count, `order` [m] int32 the source
     row of every destination. The plain version for CPU tensors, the
-    `compact_rows` kernel (three launches, and a fourth with copy_back)
-    for CUDA tensors."""
+    `compact_rows` kernel (two launches, and a third with copy_back) for
+    CUDA tensors."""
     if active.device.type == "cpu":
         return compact_rows_reference(active, leaves, scratch, count, order,
                                       copy_back)
@@ -115,8 +115,10 @@ def compact_rows(active: torch.Tensor, leaves: list, scratch: list,
     if order is not None and order.shape[0] != m:
         raise ValueError("compact_rows: order must have m rows")
     src, dst, rb = _leaf_arrays(leaves, scratch, m, active.device)
-    nb = -(-m // _TILE)
-    ws = torch.empty(2 * nb + 1, dtype=torch.int32, device=active.device)
+    # the count pass's tile counts and their sums by eight
+    nb = -(-m // _MIN_TILE)
+    ws = torch.empty(nb + -(-nb // 8), dtype=torch.int32,
+                     device=active.device)
     load_library().call(
         "compact_rows", active.data_ptr(), m, len(leaves), src.ctypes.data,
         dst.ctypes.data, rb.ctypes.data, int(copy_back),
@@ -141,7 +143,7 @@ def select_rows(mask: torch.Tensor, rows: torch.Tensor):
 def scatter_rows(perm: torch.Tensor, leaves: list, outs: list):
     """Row i of every leaf to row perm[i] of its output (perm [m] int32, a
     permutation). The plain version for CPU tensors, the `scatter_rows`
-    kernel for CUDA tensors."""
+    kernel (the inverse permutation, then a gather) for CUDA tensors."""
     if perm.device.type == "cpu":
         return scatter_rows_reference(perm, leaves, outs)
     if perm.device.type != "cuda":
@@ -153,7 +155,9 @@ def scatter_rows(perm: torch.Tensor, leaves: list, outs: list):
         if d.shape[0] != m:
             raise ValueError("scatter_rows: each output has m rows")
     src, dst, rb = _leaf_arrays(leaves, outs, m, perm.device)
+    inv = torch.empty(m, dtype=torch.int32, device=perm.device)
     load_library().call("scatter_rows", perm.data_ptr(), m, len(leaves),
                         src.ctypes.data, dst.ctypes.data, rb.ctypes.data,
+                        inv.data_ptr(),
                         torch.cuda.current_stream(perm.device).cuda_stream)
     scatter_counter.launches += 1

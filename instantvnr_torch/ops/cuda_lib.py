@@ -80,8 +80,8 @@ SIGNATURES = {
     # active, m, n_leaves, src, dst, row_bytes, copy_back, order, count, ws,
     # stream
     "compact_rows": (_P, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P),
-    # perm, m, n_leaves, src, dst, row_bytes, stream
-    "scatter_rows": (_P, _L, _I, _P, _P, _P, _P),
+    # perm, m, n_leaves, src, dst, row_bytes, ws, stream
+    "scatter_rows": (_P, _L, _I, _P, _P, _P, _P, _P),
     # org, dirn, t, t_far, tau, max_opacity, mx, my, mz, dx, dy, dz,
     # density_scale, cell_skips, R, new_t, new_tau, majorant, crosses,
     # exited, pos_obj, stream

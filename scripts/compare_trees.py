@@ -40,12 +40,20 @@ checks as its phases). Per run, one JSON line:
   shapes (R = 512², K = 8, 8 skips; device time) and the marching-
   tetrahedra kernels on its 33-plane slab of vorts 128³ (the kernels'
   device time, all the call's device work, the call by CUDA events);
+- the compaction kernels at `chip_smoke.compaction_cases`' shapes (the
+  band's compaction of the wavefront's 14 leaves and the path tracer's
+  11 at m = 2^18 with copy back, the select form at 2^21, scatter_rows on
+  a compaction's order, a frame's after three compactions and a random
+  permutation): the device time of every kernel a call launches, and the
+  call by CUDA events;
 - NEURAL_WAVEFRONT at 512² on the 2^19 model with chip_smoke's seeded
   weights (`chip_smoke.run_wavefront_mode`: 6 orbit frames by the host
-  clock, one profiled), and the network's isosurface at 128³ on the 2^19
-  model after this script's 220 training steps at `chip_smoke.TRAINED_ISO`
-  (`chip_smoke.network_extraction`, 3 times: the median ms, the last
-  call's stages).
+  clock, one profiled), the same mode through the compacted driver
+  (`chip_smoke.run_compacted_mode`: masked and compacted frames, one
+  fused frame profiled, with its compaction kernels' device ms), and the
+  network's isosurface at 128³ on the 2^19 model after this script's 220
+  training steps at `chip_smoke.TRAINED_ISO` (`chip_smoke.network_
+  extraction`, 3 times: the median ms, the last call's stages).
 
 Then the card's name and power limit, as nvidia-smi prints them. Needs one
 card.
@@ -65,6 +73,12 @@ BREAKDOWN_KEYS = ("blob_hash_encode_ms", "blob_fused_mlp_ms",
                   "frame_total_ms", "frame_inputs_ext_ms",
                   "frame_composite_ext_ms", "frame_inputs_ops",
                   "iso_frame_total_ms")
+# the compaction kernels of the design before the current one (count,
+# scan, partition, copy back; one scatter), matched by the names after "::"
+# so that a profiled frame of an older tree counts its compaction too
+PREVIOUS_COMPACTION_KERNELS = ("::count_kernel", "::scan_kernel",
+                               "::partition_kernel", "::copy_back_kernel",
+                               "::scatter_kernel")
 SLAB_VIEWS = {"composite_slabs": ("none", False, False),
               "ext_shaded": ("gradient", True, False),
               "ext_shadow": ("none", False, True),
@@ -95,6 +109,7 @@ def measure():
 
     sys.path.insert(0, os.getcwd())
     cs = chip_smoke()
+    cs.COMPACTION_KERNEL_NAMES += PREVIOUS_COMPACTION_KERNELS
     from instantvnr_torch import api
     from instantvnr_torch.config import ModelConfig
     from instantvnr_torch.models.network import NeuralField
@@ -175,6 +190,7 @@ def measure():
     rec["iso_sweep_ms"] = cs.device_ms(
         torch, lambda: isw.iso_sweep(*iso_args, iso), ("iso_sweep_kernel",))
     rec.update(emission_and_isosurface(torch, cs, sv))
+    rec.update(compaction(torch, cs))
     nv = api.NeuralVolume(ModelConfig(), sv, seed=0, device="cuda",
                           train_batch=cs.TRAIN_BATCH)
     r = api.VNRenderer(nv, cs.SIZE, cs.SIZE, api.RenderMode.DECODED_SLAB)
@@ -257,6 +273,17 @@ def emission_and_isosurface(torch, cs, sv):
     return out
 
 
+def compaction(torch, cs):
+    """The compaction kernels at the smoke's shapes, through the tree's own
+    wrappers: the device time of every kernel a call launches (the two
+    designs name their kernels apart) and the call by CUDA events."""
+    out = {}
+    for name, (fn, *_) in cs.compaction_cases(torch).items():
+        out[f"compaction_{name}_ms"] = cs.device_ms(torch, fn, ("",))
+        out[f"compaction_{name}_call_ms"] = cs.cuda_ms(torch, fn)
+    return out
+
+
 def wavefront_and_extraction(torch, cs, sv, nv):
     """A NEURAL_WAVEFRONT orbit on the seeded 2^19 model, and the trained
     nv's isosurface at 128³."""
@@ -269,6 +296,8 @@ def wavefront_and_extraction(torch, cs, sv, nv):
                                     "cuda")
     cs.WAVEFRONT_FRAMES = 6
     wf = cs.run_wavefront_mode(torch, nv_w, "NEURAL_WAVEFRONT")
+    cf = cs.run_compacted_mode(torch, nv_w, "NEURAL_WAVEFRONT", "none",
+                               cs.SIZE)
     del nv_w
     ext = [cs.network_extraction(torch, nv, cs.TRAINED_ISO, "trained")
            for _ in range(3)]
@@ -276,6 +305,10 @@ def wavefront_and_extraction(torch, cs, sv, nv):
             "neural_wavefront_ms_median": float(np.median(wf["frame_ms"])),
             "neural_wavefront_supersteps": wf["supersteps"],
             "neural_wavefront_profiled": wf["profiled_frame"],
+            "compacted_same_bits": cf["same_bits"],
+            "compacted_kinds": cf["kinds"],
+            "compacted_ms": cf["compacted_ms"],
+            "compacted_profiled": cf["profiled_frame"],
             "extraction_ms": [e["ms"] for e in ext],
             "extraction_ms_median": float(np.median([e["ms"] for e in ext])),
             "extraction_triangles": ext[-1]["triangles"],

@@ -1520,21 +1520,34 @@ def test_dp_world1_step_on_card(cuda):
 # -- the compacted wavefront and tracker (render/compaction.py) -------------
 
 
-@pytest.mark.parametrize("m,live,back", [(1 << 18, 0.45, True),
-                                         (1000003, 0.1, True),
-                                         (777, 0.9, False)])
+def _compaction_leaves(cuda, m, g):
+    """16 leaves of 12-, 4- and 1-byte rows (float32 triples, float32,
+    bool, int32)."""
+    makers = (lambda: torch.rand((m, 3), generator=g, device=cuda),
+              lambda: torch.rand(m, generator=g, device=cuda),
+              lambda: torch.rand(m, generator=g, device=cuda) < 0.5,
+              lambda: torch.randint(0, 1 << 30, (m,), generator=g,
+                                    device=cuda, dtype=torch.int32))
+    return [makers[i % 4]() for i in range(16)]
+
+
+# the edge sizes: ragged tiles, a 768² frame's rays, the select form's n;
+# all live and none live
+@pytest.mark.parametrize("m,live,back", [
+    (1 << 18, 0.45, True), (1000003, 0.1, True), (777, 0.9, False),
+    (1, 0.45, True), (31, 0.45, True), (1023, 0.45, False),
+    (1024, 0.45, True), (1025, 0.45, True), (589824, 0.45, True),
+    (1 << 21, 0.45, False), (1025, 1.0, True), (1025, 0.0, True),
+    (589824, 1.0, False), (589824, 0.0, True)])
 def test_compaction_kernels_match_plain(cuda, m, live, back):
-    """compact_rows (a stable partition of 1-, 4- and 12-byte rows, the
-    count and the order, with and without the copy back) and scatter_rows
+    """compact_rows (a stable partition of 16 leaves of 1-, 4- and 12-byte
+    rows, the count and the order, with and without the copy back) and
+    scatter_rows (on the partition's order and on a random permutation)
     against their plain versions, bit for bit, one launch a call."""
     from instantvnr_torch.ops import compaction as ops
 
     g = torch.Generator(device=cuda).manual_seed(m)
-    leaves = [torch.rand((m, 3), generator=g, device=cuda),
-              torch.rand(m, generator=g, device=cuda),
-              torch.rand(m, generator=g, device=cuda) < 0.5,
-              torch.randint(0, 1 << 30, (m,), generator=g, device=cuda,
-                            dtype=torch.int32)]
+    leaves = _compaction_leaves(cuda, m, g)
     flags = torch.rand(m, generator=g, device=cuda) < live
     res = {}
     for name, fn in (("k", ops.compact_rows), ("p", ops.compact_rows_reference)):
@@ -1544,7 +1557,7 @@ def test_compaction_kernels_match_plain(cuda, m, live, back):
         order = torch.zeros(m, dtype=torch.int32, device=cuda)
         before = ops.compact_counter.launches
         fn(flags, ls, sc, count=count, order=order, copy_back=back)
-        res[name] = (ls if back else sc, count, order,
+        res[name] = (ls + sc if back else sc, count, order,
                      ops.compact_counter.launches - before)
     torch.cuda.synchronize()
     assert res["k"][3] == 1 and res["p"][3] == 0
@@ -1553,13 +1566,96 @@ def test_compaction_kernels_match_plain(cuda, m, live, back):
     assert torch.equal(res["k"][1], res["p"][1])
     assert torch.equal(res["k"][2], res["p"][2])
     assert int(res["k"][1]) == int(flags.sum())
-    perm = torch.randperm(m, generator=g, device=cuda).to(torch.int32)
-    outs = {k: [torch.empty_like(x) for x in leaves] for k in "kp"}
-    ops.scatter_rows(perm, leaves, outs["k"])
-    ops.scatter_rows_reference(perm, leaves, outs["p"])
+    for perm in (res["p"][2],
+                 torch.randperm(m, generator=g, device=cuda).to(torch.int32)):
+        outs = {k: [torch.empty_like(x) for x in leaves] for k in "kp"}
+        before = ops.scatter_counter.launches
+        ops.scatter_rows(perm, leaves, outs["k"])
+        assert ops.scatter_counter.launches == before + 1
+        ops.scatter_rows_reference(perm, leaves, outs["p"])
+        torch.cuda.synchronize()
+        for a, b in zip(outs["k"], outs["p"]):
+            assert torch.equal(a, b)
+
+
+def test_select_rows_matches_plain(cuda):
+    """The select form at a 512² frame's m·K = 2^21 slots: the 12-byte
+    positions, the order and the count bit for bit the plain version's."""
+    from instantvnr_torch.ops import compaction as ops
+
+    n = 1 << 21
+    g = torch.Generator(device=cuda).manual_seed(21)
+    mask = torch.rand(n, generator=g, device=cuda) < 0.3
+    pos = torch.rand((n, 3), generator=g, device=cuda)
+    before = ops.compact_counter.launches
+    got = ops.select_rows(mask, pos)
+    assert ops.compact_counter.launches == before + 1
+    want = (torch.empty_like(pos),
+            torch.empty(n, dtype=torch.int32, device=cuda),
+            torch.empty(1, dtype=torch.int32, device=cuda))
+    ops.compact_rows_reference(mask, [pos], [want[0]], count=want[2],
+                               order=want[1])
     torch.cuda.synchronize()
-    for a, b in zip(outs["k"], outs["p"]):
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_compaction_graph_replay(cuda):
+    """compact_rows (the flags one of its leaves, copy back, order and
+    count) twice and select_rows captured in one CUDA graph, replayed three
+    times with new rows and flags copied in: each replay bit for bit the
+    plain versions on the same inputs (the workspace starts clean)."""
+    from instantvnr_torch.ops import compaction as ops
+
+    m, n = 100003, 300007
+    g = torch.Generator(device=cuda).manual_seed(5)
+    leaves = _compaction_leaves(cuda, m, g)
+    scratch = [torch.empty_like(x) for x in leaves]
+    count = torch.empty(1, dtype=torch.int32, device=cuda)
+    order = torch.empty(m, dtype=torch.int32, device=cuda)
+    mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+    pos = torch.zeros((n, 3), device=cuda)
+    sel = []
+
+    def program():
+        for _ in range(2):
+            ops.compact_rows(leaves[2], leaves, scratch, count=count,
+                             order=order, copy_back=True)
+        sel[:] = ops.select_rows(mask, pos)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        program()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        program()
+    for share in (0.2, 0.7, 0.0):
+        fresh = _compaction_leaves(cuda, m, g)
+        fresh[2] = torch.rand(m, generator=g, device=cuda) < share
+        for x, y in zip(leaves, fresh):
+            x.copy_(y)
+        mask.copy_(torch.rand(n, generator=g, device=cuda) < 1 - share)
+        pos.copy_(torch.rand((n, 3), generator=g, device=cuda))
+        wsc = [torch.empty_like(x) for x in fresh]
+        wcount = torch.empty(1, dtype=torch.int32, device=cuda)
+        worder = torch.empty(m, dtype=torch.int32, device=cuda)
+        for _ in range(2):
+            ops.compact_rows_reference(fresh[2], fresh, wsc, count=wcount,
+                                       order=worder, copy_back=True)
+        wsel = (torch.empty_like(pos),
+                torch.empty(n, dtype=torch.int32, device=cuda),
+                torch.empty(1, dtype=torch.int32, device=cuda))
+        ops.compact_rows_reference(mask, [pos], [wsel[0]], count=wsel[2],
+                                   order=wsel[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(leaves + scratch, fresh + wsc):
+            assert torch.equal(a, b)
+        assert torch.equal(count, wcount) and torch.equal(order, worder)
+        for a, b in zip(sel, wsel):
+            assert torch.equal(a, b)
 
 
 def test_count_forms_match_the_whole_batch(cuda):
