@@ -66,8 +66,9 @@ points:
   in each layout and the paired model's decode and frame; the
   differentiable march (RaymarchSettings.fixed_steps) on the 2^19 model at
   128², forward and backward timed, its launches exact, its gradients on
-  the card against the CPU; fV-SRN trained, decoded, rendered (and against
-  the CPU), through a native .npz and, imported from a torch state dict,
+  the card against the CPU, and the same frame differentiated in its
+  camera rays with the params frozen; fV-SRN trained, decoded, rendered
+  (and against the CPU), through a native .npz and, imported from a torch state dict,
   through view_model; VDB files in OpenVDB's layout (a byte-built fixture,
   vorts 128³ written and read, trained on and rendered, a decode saved as
   .vdb);
@@ -91,7 +92,13 @@ points:
   PyTorch; then the compacted wavefront (six cells) and tracer (three
   modes) against the masked march, frame by frame, serialized, replayed
   and fused, with the compaction kernels' device time in a profiled
-  fused frame.
+  fused frame;
+- the coordinate gradient: hash_encode_coords_backward (the encoding's
+  gradient with respect to its coordinates) on the 2^19 schema at
+  B = 2^16, tcnn and paired layouts, f32 and bf16 compute, against its
+  plain version and a float64 oracle, its bits equal over two launches,
+  timed beside the plain version; the differentiable march's frame
+  differentiated in its rays (above).
 
 Launch counts, reset before each of these paths and read after it, prove
 which kernels each ran. Any failed phase raises, so the script exits
@@ -284,23 +291,31 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, pattern, iters=20):
+def device_ms(torch, fn, pattern, iters=20, per_call=None):
     """Mean device time per call of the kernels whose names contain
     `pattern`, from torch.profiler: the kernel alone, without the host
     time of its wrapper (which a call of a kernel under 0.2 ms can
-    exceed, so CUDA events around the calls would time the host)."""
+    exceed, so CUDA events around the calls would time the host). With
+    `per_call`, the kernels a call launches: a reading that lost events
+    (torch.profiler drops some now and then) is taken again, up to 5
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(kernel_us(e) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and any(p in e.name for p in pattern)) / iters / 1e3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(p in e.name for p in pattern)]
+        if per_call is None or len(events) == per_call * iters:
+            return sum(kernel_us(e) for e in events) / iters / 1e3
+    raise AssertionError(f"torch.profiler saw {len(events)} launches of "
+                         f"{pattern}, not {per_call * iters}")
 
 
 def kernel_us(event):
@@ -1963,6 +1978,7 @@ def counters():
             "hash_encode_backward": he.backward_counter,
             "hash_encode_forward_paired": he.paired_counter,
             "hash_encode_backward_paired": he.paired_backward_counter,
+            "hash_encode_coords_backward": he.coords_counter,
             "composite_slabs": sc.counter,
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter,
             "raymarch_emit": rm.emit_counter, "pt_track": opt.track_counter,
@@ -3440,6 +3456,14 @@ FIXED_ITERS, FIXED_SUPERSTEPS = 4, 24
 # (measured 0.2-2.6% on the 2^19 model, PR 12); the volume's: sums in
 # another order
 FIXED_GRAD_TOL = {"network": 5e-2, "volume": 1e-4}
+# the hash encoding's coordinate backward against its plain version and a
+# float64 oracle, as a share of the largest entry: float32 sums of 64
+# corner terms a sample in another order (read 2.6e-7 on an H100, PERF.md
+# §6); its f32 operations a lane: the cell 12, per corner the
+# address 5, the dot 2F, the weights and their derivatives 15, then the
+# scale 3
+HASH_COORDS_RTOL = 1e-5
+COORDS_CELL_OPS, COORDS_CORNER_OPS = 15, 20
 FVSRN_STEPS = 100
 FVSRN_FRAMES = 6
 FVSRN_CMP_DIMS = (32, 32, 32)
@@ -3625,6 +3649,103 @@ def phase_hash_paired(torch):
     return out
 
 
+def _coords_oracle(torch, spec, table, coords, g, compute):
+    """float64 coordinate gradient on the card, from the corners' indices:
+    the rows and the cotangent rounded to the compute type, the rest in
+    float64 (corner c's bit along axis k is bit (k − a) mod 3, a the
+    pairing axis of a paired hashed level, else 0)."""
+    from instantvnr_torch.ops import hash_encoding as he
+
+    b, nl, nf = coords.shape[0], spec.n_levels, spec.n_features
+    idx = he._corners(spec, coords)[0].reshape(b, nl, 8)
+    gl = g.to(compute).double().reshape(b, nl, nf)
+    out = torch.zeros((b, 3), dtype=torch.float64, device=coords.device)
+    for lvl in range(nl):
+        s = float(np.float32(spec.scales[lvl]))
+        x = coords * s + 0.5  # float32, as every form computes it
+        frac = (x - torch.floor(x)).double()
+        dw = (table[idx[:, lvl]].to(compute).double()
+              * gl[:, lvl, None, :]).sum(-1)
+        a = (lvl % 3 if spec.paired and not spec.level_is_dense[lvl]
+             else 0)
+        for c in range(8):
+            up = [(c >> ((k - a) % 3)) & 1 for k in range(3)]
+            w = [frac[:, k] if up[k] else 1.0 - frac[:, k] for k in range(3)]
+            for k in range(3):
+                o = [w[m] for m in range(3) if m != k]
+                out[:, k] += (s if up[k] else -s) * dw[:, c] * o[0] * o[1]
+    return out
+
+
+def phase_hash_coords_grad(torch):
+    """hash_encode_coords_backward on the main path's model, ModelConfig()
+    (8 levels × 8 features, 2^19), at B = 2^16 in both layouts and both
+    compute types from the f32 master table: against its plain version on
+    the card and a float64 oracle (HASH_COORDS_RTOL of the largest entry),
+    its bits equal over two launches; timed beside the plain version, with
+    its bound. No single PyTorch call computes it, so library_ms is null
+    → {(layout, compute): record}."""
+    from instantvnr_torch.config import EncodingConfig
+    from instantvnr_torch.ops import hash_encoding as he
+
+    out = {}
+    b = TRAIN_BATCH
+    for variant in ("tcnn", "paired"):
+        spec = he.HashGridSpec.from_config(EncodingConfig(
+            hash_variant=variant))
+        gen = torch.Generator(device="cuda").manual_seed(
+            SEED + 30 + len(out))
+        table = torch.rand((spec.n_entries, spec.n_features), generator=gen,
+                           device="cuda") * 2.0 - 1.0
+        coords = torch.rand((b, 3), generator=gen, device="cuda")
+        g32 = torch.randn((b, spec.n_output_dims), generator=gen,
+                          device="cuda")
+        rows = int(torch.unique(he._corners(spec, coords)[0]).numel())
+        lanes = b * (1 << (spec.n_levels - 1).bit_length())
+        for cname, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            g = g32.to(cdt)
+
+            def kern():
+                return he._kernel_coords_backward(table, coords, spec, g, cdt)
+
+            def plain():
+                return he._plain_coords_backward(table, coords, spec, g, cdt)
+
+            got, again, ref = kern(), kern(), plain()
+            oracle = _coords_oracle(torch, spec, table, coords, g, cdt)
+            torch.cuda.synchronize()
+            largest = float(oracle.abs().max())
+            err = float((got - ref).abs().max())
+            oracle_err = float((got.double() - oracle).abs().max())
+            n_bytes = rows * spec.n_features * 4 + nbytes(coords, g, got)
+            n_ops = lanes * (COORDS_CELL_OPS + 8 * (
+                COORDS_CORNER_OPS + 2 * spec.n_features))
+            bms, bby = bound_ms(n_bytes, n_ops, H100_FP32_FLOPS)
+            rec = {"phase": f"hash_coords_grad[{variant},{cname}]",
+                   "layout": "2^19", "batch": b, "levels": spec.n_levels,
+                   "features": spec.n_features, "distinct_rows": rows,
+                   "largest": largest, "max_abs_err": err,
+                   "oracle_max_abs_err": oracle_err,
+                   "tol": f"{HASH_COORDS_RTOL} of the largest entry",
+                   "same_bits": bool(torch.equal(got, again)),
+                   "ms": device_ms(torch, kern,
+                                   ("hash_encode_coords_backward_kernel",),
+                                   per_call=1),
+                   "call_ms": cuda_ms(torch, kern),
+                   "plain_ms": cuda_ms(torch, plain, iters=10, warmup=1),
+                   "library_ms": None, "bound_ms": bms, "bound_by": bby,
+                   "mbytes": n_bytes / 1e6}
+            log(rec)
+            if (not err <= HASH_COORDS_RTOL * largest
+                    or not oracle_err <= HASH_COORDS_RTOL * largest
+                    or not rec["same_bits"] or not largest > 0):
+                raise AssertionError(f"coordinate kernel disagrees: {rec}")
+            out[(variant, cname)] = rec
+        del table, coords, g32
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_paired_training(torch, sv):
     """A 2^19 training step (B = 2^16) in the paired layout beside the
     tcnn one, through NeuralVolume.train: PAIRED_STEPS steps on the host
@@ -3700,19 +3821,27 @@ def phase_paired_training(torch, sv):
     return rec
 
 
-def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None):
+def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None,
+                       rays=False):
     """One fixed_steps frame of the 2^19 model (or, with `volume`, of the
     sampled volume) on `dev`, camera 0 of the orbit over vorts 128³, and
     its loss sum(frame²) backward → (leaves with their grads, forward ms,
-    backward ms, the samples' count: the supersteps that sampled)."""
+    backward ms, the samples' count: the supersteps that sampled). With
+    `rays` the params stay frozen and the leaves are the camera rays'
+    origins and directions (their t range fixed), made on the CPU and
+    marched as `_render_frame` marches them."""
+    from functools import partial
+
     from instantvnr_torch.accel import macrocell as mcmod
     from instantvnr_torch.config import TransferFunctionConfig
     from instantvnr_torch.models.network import params_from_numpy
-    from instantvnr_torch.render.raymarch import RaymarchSettings
-    from instantvnr_torch.render.renderer import (_render_frame,
+    from instantvnr_torch.render.raymarch import RaymarchSettings, raymarch
+    from instantvnr_torch.render.renderer import (_frame_rays,
+                                                  _render_frame,
                                                   make_neural_sample_fn,
                                                   reference_sample_fn)
     from instantvnr_torch.render.slabmarch import camera_arrays
+    from instantvnr_torch.render.transform import default_transform
     from instantvnr_torch.utils.tfn import bake_transfer_function
 
     tf = bake_transfer_function(TransferFunctionConfig(), device=dev)
@@ -3733,6 +3862,19 @@ def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None):
     else:
         leaves = [vol.clone()]
         params, fn = leaves[0], reference_sample_fn
+    if rays:
+        # made on the CPU for both devices: the frame is only piecewise
+        # smooth in its rays (a step's quantization, a skipped cell), so
+        # rays made 1 ulp apart on the card take other steps on a few
+        # pixels and give those another gradient (PERF.md §6)
+        cpu = torch.device("cpu")
+        xform = default_transform(DIMS, cpu)
+        org, dirn, t0, t1, light, lo, hi = (x.to(dev) for x in _frame_rays(
+            size, size, camera_arrays(orbit(0, N_FRAMES, max(DIMS)), cpu),
+            torch.tensor(DIMS, dtype=torch.float32),
+            torch.tensor(settings.light_dir), xform))
+        xform = default_transform(DIMS, dev)
+        leaves = [org.detach().clone(), dirn.detach().clone()]
     for t in leaves:
         t.requires_grad_(True)
 
@@ -3742,38 +3884,31 @@ def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None):
 
     sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
     sync()
-    t0 = time.perf_counter()
-    _, frame = _render_frame(counted, size, size, settings, params, cam, mc,
-                             tf, jitter, None, 1)
+    t0_ = time.perf_counter()
+    if rays:
+        frame = raymarch(partial(counted, params), *leaves, t0, t1, mc, tf,
+                         jitter, settings, light_dir=light,
+                         scale=xform.scale, clip_lower=lo, clip_upper=hi)
+    else:
+        _, frame = _render_frame(counted, size, size, settings, params, cam,
+                                 mc, tf, jitter, None, 1)
     loss = (frame ** 2).sum()
     sync()
-    t1 = time.perf_counter()
+    t1_ = time.perf_counter()
     loss.backward()
     sync()
-    t2 = time.perf_counter()
-    return (leaves, (t1 - t0) * 1e3, (t2 - t1) * 1e3, calls[0],
+    t2_ = time.perf_counter()
+    return (leaves, (t1_ - t0_) * 1e3, (t2_ - t1_) * 1e3, calls[0],
             float(frame[:, 3].detach().max()))
 
 
 _VORTS = []  # vorts 128³ as numpy, made once
 
 
-def phase_differentiable_march(torch, sv):
-    """RaymarchSettings(fixed_steps=True) on the 2^19 model: a 128² frame
-    (n_iters 4, 24 supersteps) and its loss's backward on the card, timed
-    three times with its peak memory; the launches of one run exact (a
-    raymarch_emit a superstep; K3, K1's training form, K2 and K4 once a
-    superstep that samples; never the inference K1); the gradients at 64²
-    on the card against the CPU's plain forms (FIXED_GRAD_TOL, each
-    leaf's relative L2 error; the largest entry's error is reported), for
-    the network's params and for the sampled volume. The peak memory is
-    the frame's own: the peak over what was allocated before it."""
-    from instantvnr_torch.config import ModelConfig
-    from instantvnr_torch.models.network import NeuralField
-
-    _VORTS.append(sv.volume.data.cpu().numpy())
-    field = NeuralField.from_config(ModelConfig())
-    p_np = seeded_params(field, SEED + 20)
+def _timed_fixed_frames(torch, field, p_np, rays):
+    """Three FIXED_SIZE frames of `_fixed_steps_frame` on the card, each
+    with every count from 0 and the peak memory over what was allocated
+    before it → their records."""
     runs = []
     for i in range(3):
         for c in counters().values():
@@ -3782,49 +3917,105 @@ def phase_differentiable_march(torch, sv):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         _, fwd_ms, bwd_ms, sampled, alpha = _fixed_steps_frame(
-            torch, "cuda", field, p_np, FIXED_SIZE)
+            torch, "cuda", field, p_np, FIXED_SIZE, rays=rays)
         runs.append({"forward_ms": fwd_ms, "backward_ms": bwd_ms,
                      "sampled_supersteps": sampled, "alpha_max": alpha,
                      "peak_memory_over_baseline":
                          torch.cuda.max_memory_allocated() - base,
                      "launches": {n: c.launches
                                   for n, c in counters().items()}})
+    return runs
+
+
+def _grad_errs(torch, field, p_np, **kw):
+    """Each leaf's gradient at FIXED_CMP_SIZE on the card against the
+    CPU's plain forms: relative L2 and largest-entry errors."""
+    grads = []
+    for dev in ("cpu", "cuda"):
+        leaves, *_ = _fixed_steps_frame(torch, dev, field, p_np,
+                                        FIXED_CMP_SIZE, **kw)
+        grads.append([t.grad.double().cpu() for t in leaves])
+    return [{"l2_rel": float((b - a).norm() / a.norm()),
+             "max_rel": float((b - a).abs().max() / a.abs().max())}
+            for a, b in zip(*grads)]
+
+
+def phase_differentiable_march(torch, sv):
+    """RaymarchSettings(fixed_steps=True) on the 2^19 model: a 128² frame
+    (n_iters 4, 24 supersteps) and its loss's backward on the card, timed
+    three times with its peak memory; the launches of one run exact (a
+    raymarch_emit a superstep; K3, K1's training form, K2 and K4 once a
+    superstep that samples; never the inference K1 or the coordinate
+    pass); the gradients at 64² on the card against the CPU's plain forms
+    (FIXED_GRAD_TOL, each leaf's relative L2 error; the largest entry's
+    error is reported), for the network's params and for the sampled
+    volume. Then the same frame differentiated in its camera rays, the
+    params frozen: timed three times, its launches exact (K3, K1's
+    training form, K2 and hash_encode_coords_backward once a superstep
+    that samples, never K4), the rays' gradients (origins, directions) on
+    the card against the CPU's. The peak memory is the frame's own: the
+    peak over what was allocated before it."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField
+
+    _VORTS.append(sv.volume.data.cpu().numpy())
+    field = NeuralField.from_config(ModelConfig())
+    p_np = seeded_params(field, SEED + 20)
+    runs = _timed_fixed_frames(torch, field, p_np, rays=False)
     launches = runs[-1]["launches"]
     k = runs[-1]["sampled_supersteps"]
     want = {n: 0 for n in counters()}
     want.update({"raymarch_emit": FIXED_SUPERSTEPS, "hash_encode_forward": k,
                  "fused_mlp_train_forward": k, "fused_mlp_backward": k,
                  "hash_encode_backward": k})
-    cmp = {}
-    for name in ("network", "volume"):
-        grads = []
-        for dev in ("cpu", "cuda"):
-            vol = (None if name == "network"
-                   else torch.from_numpy(_VORTS[0]))
-            leaves, *_ = _fixed_steps_frame(torch, dev, field, p_np,
-                                            FIXED_CMP_SIZE, volume=vol)
-            grads.append([t.grad.double().cpu() for t in leaves])
-        cmp[name] = [{"l2_rel": float((b - a).norm() / a.norm()),
-                      "max_rel": float((b - a).abs().max() / a.abs().max())}
-                     for a, b in zip(*grads)]
+    cmp = {"network": _grad_errs(torch, field, p_np),
+           "volume": _grad_errs(torch, field, p_np,
+                                volume=torch.from_numpy(_VORTS[0]))}
+    ray_runs = _timed_fixed_frames(torch, field, p_np, rays=True)
+    ray_launches = ray_runs[-1]["launches"]
+    k_rays = ray_runs[-1]["sampled_supersteps"]
+    want_rays = {n: 0 for n in counters()}
+    want_rays.update({"raymarch_emit": FIXED_SUPERSTEPS,
+                      "hash_encode_forward": k_rays,
+                      "fused_mlp_train_forward": k_rays,
+                      "fused_mlp_backward": k_rays,
+                      "hash_encode_coords_backward": k_rays})
+    ray_cmp = dict(zip(("org", "dirn"),
+                       _grad_errs(torch, field, p_np, rays=True)))
+
+    def times(rs):
+        return {"forward_ms": [r["forward_ms"] for r in rs],
+                "backward_ms": [r["backward_ms"] for r in rs],
+                "forward_backward_ms_median": float(np.median(
+                    [r["forward_ms"] + r["backward_ms"] for r in rs])),
+                "peak_memory_over_baseline": max(
+                    r["peak_memory_over_baseline"] for r in rs)}
+
     rec = {"phase": "differentiable_march",
            "model": "ModelConfig() 2^19", "frame": f"{FIXED_SIZE}^2",
            "n_iters": FIXED_ITERS, "max_supersteps": FIXED_SUPERSTEPS,
-           "forward_ms": [r["forward_ms"] for r in runs],
-           "backward_ms": [r["backward_ms"] for r in runs],
-           "forward_backward_ms_median": float(np.median(
-               [r["forward_ms"] + r["backward_ms"] for r in runs])),
-           "peak_memory_over_baseline": max(
-               r["peak_memory_over_baseline"] for r in runs),
+           **times(runs),
            "sampled_supersteps": k, "alpha_max": runs[-1]["alpha_max"],
            "launches": launches,
-           "grad_rel_err_cuda_vs_cpu": cmp, "tol": FIXED_GRAD_TOL}
+           "grad_rel_err_cuda_vs_cpu": cmp, "tol": FIXED_GRAD_TOL,
+           "rays": {**times(ray_runs), "params": "frozen",
+                    "sampled_supersteps": k_rays,
+                    "alpha_max": ray_runs[-1]["alpha_max"],
+                    "launches": ray_launches,
+                    "grad_rel_err_cuda_vs_cpu": ray_cmp,
+                    "tol": FIXED_GRAD_TOL["network"]},
+           "ray_launches": ray_launches}
     log(rec)
     if launches != want or not k > 0 or rec["alpha_max"] <= 0.05:
         raise AssertionError(f"differentiable march launches {launches} != "
                              f"{want}: {rec}")
+    if ray_launches != want_rays or not k_rays > 0:
+        raise AssertionError(f"ray-differentiated march launches "
+                             f"{ray_launches} != {want_rays}: {rec}")
     if any(not e["l2_rel"] <= FIXED_GRAD_TOL[n] for n in cmp
-           for e in cmp[n]):
+           for e in cmp[n]) or any(
+               not e["l2_rel"] <= FIXED_GRAD_TOL["network"]
+               for e in ray_cmp.values()):
         raise AssertionError(f"fixed_steps gradients, card against CPU: "
                              f"{rec}")
     return rec
@@ -5208,6 +5399,7 @@ def main() -> int:
     hashes = {log2: phase_hash_encode(torch, f"2^{log2}", log2)
               for log2 in (14, 19)}
     paired = phase_hash_paired(torch)
+    coords_grad = phase_hash_coords_grad(torch)
     knots = np.linspace(0.0, 1.0, 70)
     alphas = np.random.default_rng(SEED + 4).uniform(0.0, 0.9, 70)
     tf70 = bake_transfer_function(TransferFunctionConfig(
@@ -5349,6 +5541,7 @@ def main() -> int:
     # differentiable march's frame
     add_launches(total, paired_path["launches"])
     add_launches(total, diff["launches"])
+    add_launches(total, diff["ray_launches"])
     # the extraction's runs: the network path and the grid path
     add_launches(total, iso_net["launches"])
     total["mt_count/mt_emit"] += iso_net["grid_path_launches"]
@@ -5385,6 +5578,12 @@ def main() -> int:
         row("hash_encode_backward_paired", "hash_encode.cu",
             "instantvnr_tpu/ops/hash_encoding.py:853",
             paired[PAIRED_BATCHES[0]][1]),
+        # XLA's autodiff of hash_encode in its coords (the frame
+        # differentiated in its rays); the tcnn layout in bf16 compute,
+        # the main path's (the other three forms are in their phases)
+        row("hash_encode_coords_backward", "hash_encode.cu",
+            "instantvnr_tpu/ops/hash_encoding.py:332",
+            coords_grad[("tcnn", "bf16")]),
         row("composite_slabs", "slab_composite.cu",
             tpu + "slab_composite.py:242", comp),
         row("composite_slabs_ext", "slab_composite.cu",

@@ -19,7 +19,9 @@ from typing import Any
 import numpy as np
 
 MACROCELL_SIZE_MIP = 4  # cell = 2^4 = 16 voxels/side (reference CMakeLists.txt:61)
+DEFAULT_TRAIN_BATCH = 1 << 16  # reference core/network.cu:183
 NEARLY_ONE = 0.9999  # early-termination opacity (reference instantvnr_types.h:160)
+DEFAULT_WAVEFRONT_ITERS = 16  # samples/ray/superstep (method_raymarching.cu:30-49)
 
 
 def env_int(name: str, default: int) -> int:

@@ -1,10 +1,13 @@
-// Multi-resolution hash-grid encoding for Hopper, sm_90a: forward gather and
-// backward scatter (tiny-cuda-nn's GridEncoding).
+// Multi-resolution hash-grid encoding for Hopper, sm_90a: forward gather,
+// backward scatter and the coordinates' gradient (tiny-cuda-nn's
+// GridEncoding, its kernel_grid and kernel_grid_backward, and
+// kernel_grid_backward_input).
 //
 // Replaces no TPU kernel: the JAX package computes the encoding in XLA
 // (instantvnr_tpu/ops/hash_encoding.py::hash_encode, a gather whose autodiff
-// is a scatter-add), since Mosaic has no gather or scatter. These are the
-// training step's own kernels.
+// is a scatter-add in the table and a gather-and-dot in the coords), since
+// Mosaic has no gather or scatter. The first two are the training step's
+// own kernels; the third serves a frame differentiated in its rays.
 //
 // Per level each lane computes tcnn's position x = p·scale + 0.5,
 // cell = floor(x), w = x − cell, then for each of the 8 corners (x fastest)
@@ -412,6 +415,78 @@ hash_encode_backward_kernel(const float* __restrict__ coords,
   }
 }
 
+// Coordinates' backward (hash_encode_coords_backward; plain version
+// ops/hash_encoding.py::_plain_coords_backward): grad_p[a] = Σ_l scale_l ·
+// Σ_c ±Π_{b≠a} w_c,b · ⟨g_l, T[idx_c]⟩, + where corner c lies on the upper
+// side of axis a. K3's lane map, one lane per (sample, level), with the
+// levels padded to Lp = 2^lp_log2 ≥ L lanes so that a sample's lanes are
+// one aligned group of a warp (4 samples a warp at L = 8): lane t is sample
+// t / Lp, level t mod Lp, and a padding level adds 0. Each lane takes its
+// cell, then per corner K3's address and vector row load; the row, rounded
+// to the compute type, is dotted with the lane's cotangent row in float32
+// in feature order, and the dot times the three weight derivatives is
+// summed over the corners in order, then times scale_l. The Lp lanes of a
+// sample then reduce by shuffles within their group, in a fixed order (no
+// atomics: the same bits on every run), and the group's first lane stores
+// the sample's 3 floats. A lane past the last sample adds 0 but takes part
+// in the shuffles. Bound on an H100: bytes, each distinct table row once,
+// the coords, the cotangent and the gradient.
+template <typename T, typename G, int F, bool kBf16, bool kPaired>
+__global__ void __launch_bounds__(kThreads)
+hash_encode_coords_backward_kernel(const T* __restrict__ table,
+                                   const float* __restrict__ coords,
+                                   const G* __restrict__ g,
+                                   float* __restrict__ grad, long long n,
+                                   int n_levels, int lp_log2, Levels lv) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int lp = 1 << lp_log2;
+  const long long b = t >> lp_log2;
+  const int l = static_cast<int>(t & (lp - 1));
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  if (b < n && l < n_levels) {
+    const Cell c = level_cell(coords + 3 * b, lv.scale[l]);
+    float gv[F];
+    load_row<F>(g + (b * n_levels + l) * F, gv);
+    // the corner's bit along axis k is bit (k − a) mod 3: tcnn's x, y, z
+    // (a = 0), or a paired level's half along its pairing axis a = l mod 3
+    // and pair-row bits along the two after it (paired_corner)
+    const int a = kPaired && !((lv.dense_mask >> l) & 1u) ? l % 3 : 0;
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) {
+      uint32_t idx;
+      float w_unused;
+      level_corner<kPaired>(c, corner, lv, l, &idx, &w_unused);
+      float row[F];
+      load_row<F>(table + static_cast<size_t>(idx) * F, row);
+      float dw = 0.0f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) dw += to_compute<kBf16>(row[f]) * gv[f];
+      bool up[3];
+      float w[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        up[k] = (corner >> ((k - a + 3) % 3)) & 1;
+        w[k] = up[k] ? c.frac[k] : 1.0f - c.frac[k];
+      }
+      const float d[3] = {w[1] * w[2], w[0] * w[2], w[0] * w[1]};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc[k] += dw * (up[k] ? d[k] : -d[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[k] *= lv.scale[l];
+  }
+  for (int off = lp >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off, lp);
+  }
+  if (l == 0 && b < n) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) grad[3 * b + k] = acc[k];
+  }
+}
+
 bool make_levels(int n_levels, const void* scales, const void* levels,
                  Levels* lv) {
   if (n_levels <= 0 || n_levels > kMaxLevels) return false;
@@ -510,6 +585,49 @@ cudaError_t backward_f(const float* coords, const void* g, float* grad,
                                        g_bf16, s);
 }
 
+template <typename T, int F, bool kPaired>
+cudaError_t coords_backward_t(const void* table, const float* coords,
+                              const void* g, float* grad, long long n,
+                              int n_levels, int lp_log2, const Levels& lv,
+                              int g_bf16, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>(
+      ((n << lp_log2) + kThreads - 1) / kThreads);
+  if (g_bf16) {
+    hash_encode_coords_backward_kernel<T, uint16_t, F, true, kPaired>
+        <<<blocks, kThreads, 0, s>>>(
+            static_cast<const T*>(table), coords,
+            static_cast<const uint16_t*>(g), grad, n, n_levels, lp_log2, lv);
+  } else {
+    hash_encode_coords_backward_kernel<T, float, F, false, kPaired>
+        <<<blocks, kThreads, 0, s>>>(
+            static_cast<const T*>(table), coords,
+            static_cast<const float*>(g), grad, n, n_levels, lp_log2, lv);
+  }
+  return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t coords_backward_f(const void* table, const float* coords,
+                              const void* g, float* grad, long long n,
+                              int n_levels, int lp_log2, const Levels& lv,
+                              int table_bf16, int g_bf16, int paired,
+                              cudaStream_t s) {
+  if (table_bf16) {
+    return paired ? coords_backward_t<uint16_t, F, true>(
+                        table, coords, g, grad, n, n_levels, lp_log2, lv,
+                        g_bf16, s)
+                  : coords_backward_t<uint16_t, F, false>(
+                        table, coords, g, grad, n, n_levels, lp_log2, lv,
+                        g_bf16, s);
+  }
+  return paired ? coords_backward_t<float, F, true>(table, coords, g, grad, n,
+                                                    n_levels, lp_log2, lv,
+                                                    g_bf16, s)
+                : coords_backward_t<float, F, false>(table, coords, g, grad,
+                                                     n, n_levels, lp_log2, lv,
+                                                     g_bf16, s);
+}
+
 }  // namespace
 
 // table [T, F] (f32, or bf16 if table_bf16), 16-byte aligned; coords [n, 3]
@@ -576,6 +694,43 @@ extern "C" int hash_encode_backward(const void* coords, const void* g,
       return backward_f<4>(c, g, gr, n, n_levels, lv, g_bf16, paired, s);
     case 8:
       return backward_f<8>(c, g, gr, n, n_levels, lv, g_bf16, paired, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// grad_coords [n, 3] f32 receives the coordinates' gradient of the
+// cotangent g [n, L·F] (bf16 if g_bf16, which is also the compute type:
+// the table's rows are rounded to it; else f32) through the table [T, F]
+// (f32, or bf16 if table_bf16); every row of it is written. The other
+// arguments as for hash_encode_forward; g 16-byte aligned as the table.
+extern "C" int hash_encode_coords_backward(
+    const void* table, const void* coords, const void* g, void* grad_coords,
+    long long n, int n_levels, int n_features, const void* scales,
+    const void* levels, int table_bf16, int g_bf16, int paired,
+    void* stream) {
+  Levels lv;
+  if (!make_levels(n_levels, scales, levels, &lv)) return cudaErrorInvalidValue;
+  if (n <= 0) return cudaSuccess;
+  int lp_log2 = 0;
+  while ((1 << lp_log2) < n_levels) ++lp_log2;  // L ≤ 32: a warp at most
+  if ((n << lp_log2) / kThreads > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float* c = static_cast<const float*>(coords);
+  float* gr = static_cast<float*>(grad_coords);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_features) {
+    case 1:
+      return coords_backward_f<1>(table, c, g, gr, n, n_levels, lp_log2, lv,
+                                  table_bf16, g_bf16, paired, s);
+    case 2:
+      return coords_backward_f<2>(table, c, g, gr, n, n_levels, lp_log2, lv,
+                                  table_bf16, g_bf16, paired, s);
+    case 4:
+      return coords_backward_f<4>(table, c, g, gr, n, n_levels, lp_log2, lv,
+                                  table_bf16, g_bf16, paired, s);
+    case 8:
+      return coords_backward_f<8>(table, c, g, gr, n, n_levels, lp_log2, lv,
+                                  table_bf16, g_bf16, paired, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -69,6 +69,11 @@ def psnr_vs(field: NeuralField, params, gt: torch.Tensor) -> torch.Tensor:
                                      dims), gt)
 
 
+def psnr(field: NeuralField, params, gt: torch.Tensor) -> float:
+    """`psnr_vs` as a host float."""
+    return float(psnr_vs(field, params, gt))
+
+
 def _uniform_filter3(x: torch.Tensor, win: int) -> torch.Tensor:
     """3-D mean filter over win³ windows (valid), one axis at a time."""
     x = x[None, None]

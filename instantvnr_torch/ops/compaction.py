@@ -99,12 +99,20 @@ def compact_rows(active: torch.Tensor, leaves: list, scratch: list,
     row of every destination. The plain version for CPU tensors, the
     `compact_rows` kernel (two launches, and a third with copy_back) for
     CUDA tensors."""
+    m = active.shape[0]
+    # both paths alike: a short scratch leaf would take the kernel past its
+    # end, and the plain copy would broadcast a one-row one
+    if len(scratch) != len(leaves) or any(
+            t.shape[0] != m for t in (*leaves, *scratch)):
+        raise ValueError(
+            f"compact_rows: every leaf and scratch leaf has the flags' {m} "
+            f"rows (got {[tuple(t.shape) for t in leaves]} and "
+            f"{[tuple(t.shape) for t in scratch]})")
     if active.device.type == "cpu":
         return compact_rows_reference(active, leaves, scratch, count, order,
                                       copy_back)
     if active.device.type != "cuda":
         raise ValueError(f"unsupported device {active.device}")
-    m = active.shape[0]
     if active.dtype != torch.bool or not active.is_contiguous():
         raise ValueError("compact_rows: active must be contiguous bool")
     for t, dt in ((count, torch.int32), (order, torch.int32)):

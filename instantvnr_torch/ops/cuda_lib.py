@@ -54,6 +54,10 @@ SIGNATURES = {
                             _L, _P),
     # coords, g, grad, B, L, F, scales, levels, g_bf16, stream
     "hash_encode_backward": (_P, _P, _P, _L, _I, _I, _P, _P, _I, _I, _P),
+    # table, coords, g, grad_coords, B, L, F, scales, levels, table_bf16,
+    # g_bf16, paired, stream
+    "hash_encode_coords_backward": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _I,
+                                    _I, _I, _P),
     # vol, jy, wy, jx, wx, covy, covx, corr, ctrl, kc, lut, n_lut, out,
     # D, ay, ax, hi, wi, term_thresh, stream
     "slab_composite_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,

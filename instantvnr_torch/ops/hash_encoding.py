@@ -16,19 +16,26 @@ The hash multiplies must wrap as uint32. Torch has few uint32 ops, so the
 products are taken in int64 (exact: a coordinate < 2^31 times a prime
 < 2^32 stays below 2^63) and masked to 32 bits before the xor and the mod.
 
-`hash_encode` is differentiable with respect to the table. For CUDA
-tensors its forward is the kernel `hash_encode_forward` and its backward
-`hash_encode_backward` (`csrc/hash_encode.cu`); CPU tensors take the plain
-version, `hash_encode_reference`: a gather forward and an `index_add_`
-backward. Both accumulate the table gradient in float32 whatever the
-compute type. (The JAX package differentiates its gather with XLA, which
-scatters into the gathered rows' type, bf16 once a table of ≥ 32 MB is
-pre-cast: ROADMAP Queue 3.) The gradient with respect to the coordinates
-is not ported: nothing needs it, the differentiable march
-(RaymarchSettings.fixed_steps) included, whose sample positions depend on
-the camera alone, gradient shading's probes too. `hash_encode_packed`, the gather of corner-packed dense
-levels, is plain PyTorch: only CPU decodes take it (`network_apply`); the
-card's decode gathers through `hash_encode_forward`.
+`hash_encode` is differentiable with respect to the table and to the
+coordinates, each gradient computed only when it is asked for. For CUDA
+tensors its forward is the kernel `hash_encode_forward`, the table's
+gradient `hash_encode_backward` and the coordinates'
+`hash_encode_coords_backward` (`csrc/hash_encode.cu`); CPU tensors take
+the plain versions, `hash_encode_reference`: a gather forward, an
+`index_add_` backward and `_plain_coords_backward`. The table gradient
+accumulates in float32 whatever the compute type. (The JAX package
+differentiates its gather with XLA, which scatters into the gathered rows'
+type, bf16 once a table of ≥ 32 MB is pre-cast: ROADMAP Queue 3.) The
+coordinates' gradient is what a frame differentiated in its rays needs
+(RaymarchSettings.fixed_steps with origins or directions that require
+grad, as in camera or pose refinement): JAX's `hash_encode` is
+differentiable in its coords (tests/test_ops.py:347). Per sample it is
+grad_p[a] = Σ_l scale_l · Σ_c ∂w_c/∂f_a · ⟨g_l, T[idx_c]⟩, from tcnn's
+x = p·scale + 0.5, cell = floor(x) (no gradient), f = x − cell and
+w_c = Π_a (1 − f_a or f_a). `hash_encode_packed`, the gather of
+corner-packed dense levels, is plain PyTorch: only CPU decodes take it
+(`network_apply`); the card's decode gathers through
+`hash_encode_forward`.
 
 `HashGridSpec.paired` (EncodingConfig.hash_variant="paired") selects the
 JAX package's paired layout of the hashed levels (the section below);
@@ -198,12 +205,16 @@ def corner_indices_and_weights(spec: HashGridSpec, coords: torch.Tensor):
 _PAIR_CORNERS = ((0, 0), (1, 0), (0, 1), (1, 1))
 
 
-def _level_cell_frac(spec: HashGridSpec, lvl: int, coords: torch.Tensor):
-    """(cell [B, 3] int64, frac [B, 3] float32) at one level: tcnn's
-    x = p·scale + 0.5, cell = floor(x), frac = x − cell."""
-    x = coords.to(torch.float32) * float(np.float32(spec.scales[lvl])) + 0.5
+def _cell_frac(coords: torch.Tensor, scale: float):
+    """(cell [B, 3] int64, frac [B, 3] float32) at a level of the float32
+    scale: tcnn's x = p·scale + 0.5, cell = floor(x), frac = x − cell."""
+    x = coords.to(torch.float32) * scale + 0.5
     cell = torch.floor(x)
     return cell.to(torch.int64), x - cell
+
+
+def _level_cell_frac(spec: HashGridSpec, lvl: int, coords: torch.Tensor):
+    return _cell_frac(coords, float(np.float32(spec.scales[lvl])))
 
 
 def _dense_level_corners(spec: HashGridSpec, lvl: int, coords: torch.Tensor):
@@ -352,10 +363,68 @@ def _plain_backward(n_entries, coords, spec, g, compute_dtype, corners=None):
     return grad.index_add_(0, indices.reshape(-1), contrib)
 
 
+def _corner_sides(spec: HashGridSpec, lvl: int) -> tuple:
+    """The side (0 lower, 1 upper) of each of a level's 8 corners along x,
+    y and z, in the layout's corner order: tcnn's (x fastest), or on a
+    paired spec's hashed level corner 2·j + half, its half along the
+    pairing axis a = lvl mod 3 and pair-row j's two bits along the axes
+    after it (`_PAIR_CORNERS`)."""
+    if not spec.paired or spec.level_is_dense[lvl]:
+        return _CORNER_TUPLES
+    a = lvl % 3
+    sides = []
+    for c in range(8):
+        side = [0, 0, 0]
+        side[a], side[(a + 1) % 3], side[(a + 2) % 3] = (c & 1,
+                                                         (c >> 1) & 1, c >> 2)
+        sides.append(tuple(side))
+    return tuple(sides)
+
+
+def _level_coords_grad(rows, g_l, frac, sides, scale: float):
+    """One level's term of the coordinates' gradient [B, 3] float32: rows
+    [B, 8, F] and the cotangent g_l [B, F] as float32 values of the compute
+    type, frac [B, 3], sides [8, 3] bool. Each corner's ⟨g_l, row⟩ times
+    ∂w_c/∂f_a = ±Π_{b≠a} w_c,b (+ on the upper side), summed over the
+    corners, times ∂f/∂p = scale."""
+    dw = (rows * g_l[:, None, :]).sum(dim=2)  # [B, 8]
+    cw = torch.where(sides[None], frac[:, None, :], 1.0 - frac[:, None, :])
+    dwdf = torch.stack([cw[..., 1] * cw[..., 2], cw[..., 0] * cw[..., 2],
+                        cw[..., 0] * cw[..., 1]], dim=-1)  # [B, 8, 3]
+    dwdf = torch.where(sides[None], dwdf, -dwdf)
+    return (dw[..., None] * dwdf).sum(dim=1) * scale
+
+
+def _plain_coords_backward(table, coords, spec, g, compute_dtype,
+                           corners=None):
+    """The plain backward of the coordinates → [B, 3] float32: per level
+    `_level_coords_grad` over the corners' table rows, the levels summed
+    in order. The rows and the cotangent are rounded to the compute type
+    (the forward's operands), and everything after that is float32: the
+    dot of each row with its cotangent row, the weights' derivatives and
+    the sums. (JAX's autodiff under bf16 compute rounds each product of
+    the dot, and its sum, to bf16 as well.) `corners`: the coords'
+    (indices, weights), if already computed."""
+    b, nl, nf = coords.shape[0], spec.n_levels, spec.n_features
+    indices = (corners or _corners(spec, coords))[0].reshape(b, nl, 8)
+    gc = g.to(compute_dtype).to(torch.float32).reshape(b, nl, nf)
+    grad = torch.zeros((b, 3), dtype=torch.float32, device=coords.device)
+    for lvl in range(nl):
+        rows = table[indices[:, lvl]].to(compute_dtype).to(torch.float32)
+        _, frac = _level_cell_frac(spec, lvl, coords)
+        sides = device_constant(_corner_sides(spec, lvl), torch.bool,
+                                coords.device)
+        grad += _level_coords_grad(rows, gc[:, lvl], frac, sides,
+                                   float(np.float32(spec.scales[lvl])))
+    return grad
+
+
 counter = cuda_lib.LaunchCounter()  # hash_encode_forward, tcnn layout
 backward_counter = cuda_lib.LaunchCounter()  # hash_encode_backward, tcnn
 paired_counter = cuda_lib.LaunchCounter()  # hash_encode_forward, paired
 paired_backward_counter = cuda_lib.LaunchCounter()  # backward, paired
+# hash_encode_coords_backward, either layout (the traced forms too)
+coords_counter = cuda_lib.LaunchCounter()
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_FEATURES = (1, 2, 4, 8)
@@ -460,47 +529,90 @@ def _launch_backward(n_entries, coords, level_arrays, n_features, g,
     return grad
 
 
+def _kernel_coords_backward(table, coords, spec, g, compute_dtype):
+    return _launch_coords_backward(table, coords, _level_arrays(spec),
+                                   spec.n_features, g, compute_dtype,
+                                   spec.paired)
+
+
+def _launch_coords_backward(table, coords, level_arrays, n_features, g,
+                            compute_dtype, paired=False):
+    """The coordinates' gradient [B, 3] float32 over the levels of
+    `level_arrays`, with `_plain_coords_backward`'s rounding: the table's
+    rows and g in the compute type, the rest in float32."""
+    scales, levels = level_arrays
+    n_levels = len(scales)
+    coords = _checked_coords(table, coords, n_levels, n_features,
+                             compute_dtype)
+    table = table.contiguous()
+    if table.data_ptr() % 16:  # the kernel's vector loads need alignment
+        table = table.clone()
+    g = g.to(compute_dtype).contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    grad = torch.empty((coords.shape[0], 3), dtype=torch.float32,
+                       device=coords.device)
+    cuda_lib.load_library().call(
+        "hash_encode_coords_backward", table.data_ptr(), coords.data_ptr(),
+        g.data_ptr(), grad.data_ptr(), coords.shape[0], n_levels, n_features,
+        scales.ctypes.data, levels.ctypes.data,
+        int(table.dtype == torch.bfloat16),
+        int(compute_dtype == torch.bfloat16), int(paired),
+        torch.cuda.current_stream(coords.device).cuda_stream)
+    coords_counter.launches += 1
+    return grad
+
+
 class _Encode(torch.autograd.Function):
-    """hash_encode, differentiable with respect to the table."""
+    """hash_encode, differentiable with respect to the table and to the
+    coordinates: the backward computes each gradient only when it is asked
+    for (on the card K4 for the table, `hash_encode_coords_backward` for
+    the coordinates)."""
 
     @staticmethod
     def forward(ctx, table, coords, spec, compute_dtype, kernel):
         ctx.meta = (table.shape[0], table.dtype, spec, compute_dtype, kernel)
+        # the coordinates' gradient reads the table's rows
+        saved = (coords, table if ctx.needs_input_grad[1] else None)
         if kernel:
-            ctx.save_for_backward(coords)
+            ctx.save_for_backward(*saved)
             return _kernel_forward(table, coords, spec, compute_dtype)
-        # the plain backward reuses the forward's corners
+        # the plain backwards reuse the forward's corners
         corners = _corners(spec, coords)
-        ctx.save_for_backward(coords, *corners)
+        ctx.save_for_backward(*saved, *corners)
         return _gather_encode(table, coords, spec, compute_dtype, corners)
 
     @staticmethod
     def backward(ctx, g):
-        coords, *corners = ctx.saved_tensors
+        coords, table, *corners = ctx.saved_tensors
         n_entries, dtype, spec, compute_dtype, kernel = ctx.meta
-        if kernel:
-            grad = _kernel_backward(n_entries, coords, spec, g, compute_dtype)
-        else:
-            grad = _plain_backward(n_entries, coords, spec, g, compute_dtype,
-                                   tuple(corners))
-        return grad.to(dtype), None, None, None, None
+        corners = tuple(corners) or None
+        grad_table = grad_coords = None
+        if ctx.needs_input_grad[0]:
+            grad_table = (
+                _kernel_backward(n_entries, coords, spec, g, compute_dtype)
+                if kernel else _plain_backward(n_entries, coords, spec, g,
+                                               compute_dtype, corners))
+            grad_table = grad_table.to(dtype)
+        if ctx.needs_input_grad[1]:
+            grad_coords = (
+                _kernel_coords_backward(table, coords, spec, g, compute_dtype)
+                if kernel else _plain_coords_backward(table, coords, spec, g,
+                                                      compute_dtype, corners))
+            grad_coords = grad_coords.to(coords.dtype)
+        return grad_table, grad_coords, None, None, None
 
 
-def _needs_table_grad(table, coords) -> bool:
-    if not torch.is_grad_enabled():
-        return False
-    if coords.requires_grad:
-        raise NotImplementedError(
-            "hash_encode: the gradient with respect to the coordinates is "
-            "not ported")
-    return table.requires_grad
+def _needs_grad(table, coords) -> bool:
+    return torch.is_grad_enabled() and (table.requires_grad
+                                        or coords.requires_grad)
 
 
 def hash_encode_reference(table: torch.Tensor, coords: torch.Tensor,
                           spec: HashGridSpec,
                           compute_dtype=torch.float32) -> torch.Tensor:
     """Plain version of `hash_encode`, on any device."""
-    if _needs_table_grad(table, coords):
+    if _needs_grad(table, coords):
         return _Encode.apply(table, coords, spec, compute_dtype, False)
     return _gather_encode(table, coords, spec, compute_dtype)
 
@@ -510,14 +622,15 @@ def hash_encode(table: torch.Tensor, coords: torch.Tensor, spec: HashGridSpec,
                 offset: int = 0) -> torch.Tensor:
     """Encode [B,3] coords → [B, L·F] features in `compute_dtype`: each
     gathered row times its weight is rounded to the compute type, then the
-    8 corners are summed. Differentiable with respect to `table`.
+    8 corners are summed. Differentiable with respect to `table` and to
+    `coords`.
 
     count: an optional int32 [1] on the coords' device (inference only),
     the compacted wavefront's count of valid rows, whose first row is row
     `offset` of the whole batch: only the rows below count − offset are
     encoded, and the others hold no value. On the card K3 reads the count
     itself (no host read); the plain version reads it on the host."""
-    if count is not None and _needs_table_grad(table, coords):
+    if count is not None and _needs_grad(table, coords):
         raise ValueError("hash_encode: a row count is for inference only")
     if coords.device.type == "cpu":
         if count is not None:
@@ -530,7 +643,7 @@ def hash_encode(table: torch.Tensor, coords: torch.Tensor, spec: HashGridSpec,
         return hash_encode_reference(table, coords, spec, compute_dtype)
     if coords.device.type != "cuda":
         raise ValueError(f"unsupported device {coords.device}")
-    if _needs_table_grad(table, coords):
+    if _needs_grad(table, coords):
         return _Encode.apply(table, coords, spec, compute_dtype, True)
     return _kernel_forward(table, coords, spec, compute_dtype, count, offset)
 
@@ -633,9 +746,11 @@ def _hash_encode_packed_paired(table, packed: dict, coords, spec,
 # runs on every shard, so the per-level constants travel as arrays (the JAX
 # package's ops/hash_encoding.py:198-329). On CUDA tensors the encode is K3
 # and its backward K4 over the shard's level rows, their offsets rebased
-# into the shard's table (`hash_encode_forward` and `hash_encode_backward`
-# take any rows of (res, size, offset, dense)); on CPU tensors the plain
-# per-level gather and scatter.
+# into the shard's table (`hash_encode_forward`, `hash_encode_backward` and
+# `hash_encode_coords_backward` take any rows of (res, size, offset,
+# dense)); on CPU tensors the plain per-level gather and scatter. Both forms
+# are differentiable in the coordinates too, the split-grad one included,
+# where the JAX package's custom_vjp returns None, a zero (ROADMAP Queue 3).
 
 _LEVEL_KEYS = ("scale", "size", "offset", "res", "dense")
 
@@ -682,10 +797,8 @@ def _traced_level_corners(coords: torch.Tensor, row: tuple):
     the prime-XOR hash otherwise."""
     scale, size, _, res, dense = row
     corners = device_constant(_CORNER_TUPLES, torch.int64, coords.device)
-    x = coords.to(torch.float32) * scale + 0.5
-    cell = torch.floor(x)
-    frac = x - cell
-    pos = cell.to(torch.int64)[:, None, :] + corners[None]
+    cell, frac = _cell_frac(coords, scale)
+    pos = cell[:, None, :] + corners[None]
     if dense:
         idx = pos[..., 0] + pos[..., 1] * res + pos[..., 2] * (res * res)
     else:
@@ -722,16 +835,32 @@ def _traced_plain_backward(n_entries, coords, rows, g, compute_dtype):
     return grad
 
 
+def _traced_plain_coords_backward(table, coords, rows, g, compute_dtype):
+    """`_plain_coords_backward` over the rows' levels (tcnn's corners)."""
+    b, nf = coords.shape[0], g.shape[1] // len(rows)
+    gc = g.to(compute_dtype).to(torch.float32).reshape(b, len(rows), nf)
+    sides = device_constant(_CORNER_TUPLES, torch.bool, coords.device)
+    grad = torch.zeros((b, 3), dtype=torch.float32, device=coords.device)
+    for l, row in enumerate(rows):
+        idx, _ = _traced_level_corners(coords, row)
+        _, frac = _cell_frac(coords, row[0])
+        r = table[idx + row[2]].to(compute_dtype).to(torch.float32)
+        grad += _level_coords_grad(r, gc[:, l], frac, sides, row[0])
+    return grad
+
+
 class _TracedEncode(torch.autograd.Function):
-    """The traced encode, differentiable with respect to the table; the
-    backward's products of weight and cotangent are rounded to bwd_dtype."""
+    """The traced encode, differentiable with respect to the table (the
+    backward's products of weight and cotangent rounded to bwd_dtype) and
+    to the coordinates (the forward's compute type, as `_Encode`'s)."""
 
     @staticmethod
     def forward(ctx, table, coords, rows, n_features, compute_dtype,
                 bwd_dtype, kernel):
-        ctx.meta = (table.shape[0], table.dtype, rows, n_features, bwd_dtype,
-                    kernel)
-        ctx.save_for_backward(coords)
+        ctx.meta = (table.shape[0], table.dtype, rows, n_features,
+                    compute_dtype, bwd_dtype, kernel)
+        ctx.save_for_backward(coords,
+                              table if ctx.needs_input_grad[1] else None)
         if kernel:
             return _launch_forward(table, coords, _rows_kernel_arrays(rows),
                                    n_features, compute_dtype)
@@ -739,16 +868,25 @@ class _TracedEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (coords,) = ctx.saved_tensors
-        n_entries, dtype, rows, n_features, bwd_dtype, kernel = ctx.meta
-        if kernel:
-            grad = _launch_backward(n_entries, coords,
-                                    _rows_kernel_arrays(rows), n_features, g,
-                                    bwd_dtype)
-        else:
-            grad = _traced_plain_backward(n_entries, coords, rows, g,
-                                          bwd_dtype)
-        return grad.to(dtype), None, None, None, None, None, None
+        coords, table = ctx.saved_tensors
+        (n_entries, dtype, rows, n_features, compute_dtype, bwd_dtype,
+         kernel) = ctx.meta
+        grad_table = grad_coords = None
+        if ctx.needs_input_grad[0]:
+            grad_table = (
+                _launch_backward(n_entries, coords, _rows_kernel_arrays(rows),
+                                 n_features, g, bwd_dtype) if kernel
+                else _traced_plain_backward(n_entries, coords, rows, g,
+                                            bwd_dtype)).to(dtype)
+        if ctx.needs_input_grad[1]:
+            grad_coords = (
+                _launch_coords_backward(table, coords,
+                                        _rows_kernel_arrays(rows), n_features,
+                                        g, compute_dtype) if kernel
+                else _traced_plain_coords_backward(table, coords, rows, g,
+                                                   compute_dtype))
+            grad_coords = grad_coords.to(coords.dtype)
+        return grad_table, grad_coords, None, None, None, None, None
 
 
 def _traced(table, coords, rows, n_features, compute_dtype, bwd_dtype):
@@ -758,7 +896,7 @@ def _traced(table, coords, rows, n_features, compute_dtype, bwd_dtype):
         raise ValueError(f"table rows hold {table.shape[1]} features, not "
                          f"{n_features}")
     kernel = coords.device.type == "cuda"
-    if _needs_table_grad(table, coords):
+    if _needs_grad(table, coords):
         return _TracedEncode.apply(table, coords, rows, n_features,
                                    compute_dtype, bwd_dtype, kernel)
     if kernel:
@@ -774,7 +912,8 @@ def hash_encode_traced(table: torch.Tensor, coords: torch.Tensor,
     (`level_param_arrays`, or a shard's rows of them with offsets into its
     own table) → [B, n_levels·F]. The same numbers as `hash_encode` on the
     levels' rows; differentiable with respect to `table` (the products of
-    weight and cotangent in the compute type, summed in float32)."""
+    weight and cotangent in the compute type, summed in float32) and to
+    `coords` (as `hash_encode`)."""
     return _traced(table, coords, _level_rows(level_params, n_levels),
                    n_features, compute_dtype, compute_dtype)
 
@@ -789,7 +928,10 @@ def hash_encode_traced_splitgrad(table: torch.Tensor, coords: torch.Tensor,
     size, the largest over the shards). JAX accumulates levels of ≥ 2^17
     rows in float16 there; this accumulates every level in float32, as the
     single-device backward does, so summing each level into its own buffer
-    gives the same numbers as one scatter with float32 products."""
+    gives the same numbers as one scatter with float32 products. The
+    coordinates get their true gradient, as from `hash_encode_traced`;
+    JAX's custom_vjp returns None for them, a silent zero (ROADMAP Queue
+    3)."""
     caps = tuple(int(c) for c in level_caps)
     rows = _level_rows(level_params, len(caps))
     if any(row[1] > cap for row, cap in zip(rows, caps)):

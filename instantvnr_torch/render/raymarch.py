@@ -38,7 +38,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from instantvnr_torch.accel.macrocell import MACROCELL_SIZE, MacroCell
-from instantvnr_torch.config import NEARLY_ONE, env_int
+from instantvnr_torch.config import (DEFAULT_WAVEFRONT_ITERS, NEARLY_ONE,
+                                     env_int)
 from instantvnr_torch.ops.cuda_lib import LaunchCounter
 from instantvnr_torch.utils.device import device_constant
 from instantvnr_torch.utils.math import normalize, ray_box_intersect
@@ -66,7 +67,8 @@ class RaymarchSettings:
     # sample slots per ray per superstep (the reference's VNR_RM_N_ITERS,
     # method_raymarching.cu:30-40), read when the settings are made
     n_iters: int = field(
-        default_factory=lambda: env_int("VNR_RM_N_ITERS", 16))
+        default_factory=lambda: env_int("VNR_RM_N_ITERS",
+                                        DEFAULT_WAVEFRONT_ITERS))
     max_skips: int = 8  # empty-cell DDA skips per slot
     max_supersteps: int = 192
     shading: str = "none"  # "none" | "gradient" | "ssh" | "shadow"
@@ -239,18 +241,32 @@ def raymarch_emit(org, dirn, t_far, state: _RayState, mc: MacroCell,
     """Phase 1: `_emit_samples` for CPU tensors, the `raymarch_emit` CUDA
     kernel (csrc/raymarch_emit.cu, one thread a ray) for CUDA tensors, with
     the same results bit for bit (IEEE division, floorf, no FMA, the same
-    order of operations)."""
+    order of operations). Under autograd with rays or a marching state
+    that require grad (a fixed_steps frame differentiated in its rays) the
+    kernel's outputs carry their gradient through `_Emit`."""
+    args = (mc, base_step, n_iters, max_skips, samples_per_slot)
     if org.device.type == "cpu":
-        return _emit_samples(org, dirn, t_far, state, mc, base_step, n_iters,
-                             max_skips, samples_per_slot)
+        return _emit_samples(org, dirn, t_far, state, *args)
     if org.device.type != "cuda":
         raise ValueError(f"unsupported device {org.device}")
+    ins = (org, dirn, t_far, state.t, state.t_cell_end, state.ss)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
+        t, tce, ss, t_x, t_y, valid = _Emit.apply(*ins, *args)
+        return (t, tce, ss), t_x, t_y, valid
+    return _kernel_emit(*ins, *args)
+
+
+def _kernel_emit(org, dirn, t_far, t, t_cell_end, ss, mc: MacroCell,
+                 base_step: float, n_iters: int, max_skips: int,
+                 samples_per_slot: int):
+    """The `raymarch_emit` kernel on CUDA tensors → `_emit_samples`'s
+    outputs."""
     r = org.shape[0]
     f32 = torch.float32
     mx, my, mz = mc.dims
     args = {"org": (org, (r, 3)), "dirn": (dirn, (r, 3)),
-            "t_far": (t_far, (r,)), "t": (state.t, (r,)),
-            "t_cell_end": (state.t_cell_end, (r,)), "ss": (state.ss, (r,)),
+            "t_far": (t_far, (r,)), "t": (t, (r,)),
+            "t_cell_end": (t_cell_end, (r,)), "ss": (ss, (r,)),
             "max_opacity": (mc.max_opacity, (mz, my, mx))}
     ins = {}
     for name, (a, shape) in args.items():
@@ -258,7 +274,7 @@ def raymarch_emit(org, dirn, t_far, state: _RayState, mc: MacroCell,
             raise ValueError(f"raymarch_emit: expected {name} float32 {shape} "
                              f"on {org.device}, got {a.dtype} "
                              f"{tuple(a.shape)} on {a.device}")
-        ins[name] = a.contiguous()
+        ins[name] = a.detach().contiguous()
     from instantvnr_torch.ops.cuda_lib import load_library
 
     lib = load_library()
@@ -280,6 +296,47 @@ def raymarch_emit(org, dirn, t_far, state: _RayState, mc: MacroCell,
              torch.cuda.current_stream(org.device).cuda_stream)
     emit_counter.launches += 1
     return (t_out, tce_out, ss_out), t_x, t_y, valid
+
+
+class _Emit(torch.autograd.Function):
+    """The emission kernel, differentiable in the rays (org, dirn, t_far)
+    and the marching state (t, t_cell_end, ss), as the JAX package's XLA
+    scan is: a slot's interval ends and a ray's next t are the cell exits
+    and quantized steps of its origin and direction. The forward is the
+    kernel; the backward differentiates the plain emission
+    (`_emit_samples`, plain PyTorch on the same CUDA tensors), which makes
+    the kernel's choices of cells and slots bit for bit, so the gradient
+    is the CPU's. It is no kernel of its own: it runs only in a frame
+    differentiated in its rays (ROADMAP Queue 2)."""
+
+    @staticmethod
+    def forward(ctx, org, dirn, t_far, t, t_cell_end, ss, *args):
+        ctx.save_for_backward(org, dirn, t_far, t, t_cell_end, ss)
+        ctx.args = args
+        (t_o, tce_o, ss_o), t_x, t_y, valid = _kernel_emit(
+            org, dirn, t_far, t, t_cell_end, ss, *args)
+        ctx.mark_non_differentiable(valid)
+        return t_o, tce_o, ss_o, t_x, t_y, valid
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[:6]
+        ins = [x.detach().requires_grad_(n)
+               for x, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            state = _RayState(t=ins[3], t_cell_end=ins[4], ss=ins[5],
+                              alpha=None, color=None, active=None,
+                              best_w=None, best_pos=None, best_rgb=None)
+            (t, tce, ss), t_x, t_y, _ = _emit_samples(
+                ins[0], ins[1], ins[2], state, *ctx.args)
+        outs = [(o, g) for o, g in zip((t, tce, ss, t_x, t_y), grads[:5])
+                if g is not None and o.requires_grad]
+        wanted = [x for x in ins if x.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in outs], wanted, [g for _, g in outs],
+            allow_unused=True) if outs and wanted else ())
+        return (*(next(got) if n else None for n in need),
+                *(None for _ in ctx.args))
 
 
 def _compose(values, t_x, t_y, valid, state_alpha, state_color,
@@ -528,11 +585,13 @@ def raymarch(sample_fn: Callable[[torch.Tensor], torch.Tensor],
     once no ray is active. With it, it runs exactly max_supersteps
     supersteps under the caller's grad mode, so the rgba is differentiable
     with respect to what sample_fn reads (a sampled volume, a network's
-    params): a ray that has finished samples nothing and blends opacity 0,
-    so the extra supersteps leave the frame as it was. The positions depend
-    only on the camera and the macrocell, so `raymarch_emit` needs no
-    backward; gradient shading needs only the sampled values' gradient.
-    The SSH shadow march follows the same rule."""
+    params, or the rays themselves: org, dirn and the t range): a ray that
+    has finished samples nothing and blends opacity 0, so the extra
+    supersteps leave the frame as it was. The positions depend on the rays
+    through the emission's cell exits and steps (`raymarch_emit`, the
+    kernel's `_Emit` on the card) and the sample's lerp, so rays that
+    require grad give the frame's gradient in them, as in JAX. The SSH
+    shadow march follows the same rule."""
     with torch.set_grad_enabled(settings.fixed_steps
                                 and torch.is_grad_enabled()):
         return _raymarch(sample_fn, org, dirn, t_near, t_far, mc, tf, jitter,

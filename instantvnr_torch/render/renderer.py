@@ -440,17 +440,19 @@ def make_neural_sample_fn(field, chunk: int = 1 << 18):
     Evaluated `chunk` samples at a time (network_apply_chunked).
 
     Under autograd, which only a `fixed_steps` march turns on, ctx must be
-    the f32 training params with a tensor that requires grad: the sample
-    then runs through the training forms (on the card K3 and K4 of
-    hash_encode, the fused MLP's training forward and backward), as the
-    JAX package's differentiable frame samples `nv.state.params`. The
-    inference K1 and a bf16 decode table have no backward, so such a ctx
-    raises there."""
+    the f32 training params, and a tensor of them or the sample positions
+    (rays that require grad: camera or pose refinement, the weights
+    frozen) must require grad: the sample then runs through the training
+    forms (on the card K3, the fused MLP's training forward and backward,
+    and the backwards asked for: K4 for the table,
+    `hash_encode_coords_backward` for the positions), as the JAX package's
+    differentiable frame samples `nv.state.params`. The inference K1 and a
+    bf16 decode table have no backward, so such a ctx raises there."""
     from instantvnr_torch.models.network import network_apply_chunked
 
     def fn(params, p, count=None):
         if torch.is_grad_enabled():
-            _check_differentiable(params)
+            _check_differentiable(params, p)
         return network_apply_chunked(params, p, field, chunk=chunk,
                                      count=count)[:, 0]
 
@@ -460,12 +462,14 @@ def make_neural_sample_fn(field, chunk: int = 1 << 18):
     return fn
 
 
-def _check_differentiable(params):
+def _check_differentiable(params, p):
     table = params["table"]
-    if "packed" in params or table.dtype != torch.float32 or not any(
-            t.requires_grad for t in [table, *params["mlp"]]):
+    if "packed" in params or table.dtype != torch.float32 or not (
+            p.requires_grad
+            or any(t.requires_grad for t in [table, *params["mlp"]])):
         raise NotImplementedError(
             "a fixed_steps frame samples the network through its training "
             "forms (ROADMAP Queue 1 item 9): pass the f32 training params "
-            "with a tensor that requires grad, not render_params, whose bf16 "
-            "table and inference MLP have no backward")
+            "with a tensor that requires grad, or rays that require grad, "
+            "not render_params, whose bf16 table and inference MLP have no "
+            "backward")

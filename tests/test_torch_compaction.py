@@ -174,6 +174,26 @@ def test_compact_rows_equals_jax_compact_body(prefix):
                                        np.nonzero(~live)[0]]))
 
 
+@pytest.mark.parametrize("rows", [1, 999, 1001])
+def test_compact_rows_refuses_a_short_scratch_leaf(rows):
+    """A scratch leaf of other than m rows is refused before the device
+    dispatch, as on the card: one row is not broadcast, and none of the
+    leaves is written."""
+    rng = np.random.default_rng(7)
+    active = _t(rng.random(1000) < 0.4)
+    leaves = [_t(rng.random((1000, 3)).astype(np.float32)),
+              _t(rng.integers(0, 9, 1000).astype(np.int32))]
+    before = [x.clone() for x in leaves]
+    scratch = [torch.zeros((rows, 3)), torch.empty_like(leaves[1])]
+    with pytest.raises(ValueError, match="1000 rows"):
+        ops.compact_rows(active, leaves, scratch, copy_back=True)
+    with pytest.raises(ValueError, match="1000 rows"):
+        ops.compact_rows(active, leaves, scratch[:1])
+    for got, want in zip(leaves, before):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not scratch[0].any()
+
+
 def test_scatter_rows_equals_jax_unpermute():
     m = 1 << 16
     rng = np.random.default_rng(2)

@@ -1762,3 +1762,254 @@ def test_compacted_pathtrace_parity_on_card(cuda):
         r.render()
         frames[compact] = r.mapframe()
     np.testing.assert_array_equal(frames[True], frames[False])
+
+
+# -- the hash encoding's coordinate gradient, the frame in its rays ----------
+
+
+def _lattice_coords(spec, per_level=4):
+    """float32 coords with one axis exactly on a lattice point of each
+    level (p·scale rounds to k + 0.5, so x = p·scale + 0.5 is an integer
+    and floor picks the cell whose lower face it is)."""
+    rng = np.random.default_rng(11)
+    out = []
+    for scale in spec.scales:
+        s = np.float32(scale)
+        found = 0
+        while found < per_level:
+            kk = np.float32(int(rng.integers(0, max(int(s), 1))) + 0.5)
+            p0 = np.float32(kk / s)
+            cand = p0 + np.arange(-64, 65, dtype=np.float32) * np.spacing(p0)
+            hit = cand[cand * s == kk]
+            if hit.size:  # else the product's step passed over k + 0.5
+                c = rng.random(3).astype(np.float32)
+                c[found % 3] = hit[0]
+                out.append(c)
+                found += 1
+    return np.stack(out)
+
+
+def _coords_grad_inputs(cuda, spec, n, seed, cdt):
+    """Coords [n, 3] (the grid's corners and faces, lattice points, then
+    uniform) and a cotangent [n, L·F] in the compute type, on the card."""
+    rng = np.random.default_rng(seed)
+    c = rng.random((n, 3)).astype(np.float32)
+    if n > 4:
+        c[:4] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]]
+        lat = _lattice_coords(spec)[:n - 4]
+        c[4:4 + len(lat)] = lat
+    g = rng.standard_normal((n, spec.n_output_dims)).astype(np.float32)
+    return (torch.tensor(c, device=cuda),
+            torch.tensor(g, device=cuda).to(cdt))
+
+
+@pytest.mark.parametrize("variant", ["tcnn", "paired"])
+@pytest.mark.parametrize("n_features", [1, 2, 4, 8])
+@pytest.mark.parametrize("table_dtype,compute", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+def test_hash_coords_kernel_matches_plain(cuda, variant, n_features,
+                                          table_dtype, compute):
+    """hash_encode_coords_backward on an 8-level 2^19 layout (dense and
+    hashed levels) at n = 1, 1001 and 2^16 against the plain
+    _plain_coords_backward on the same card tensors, within 1e-5 of the
+    largest entry (float32 sums in another order). Coords that require
+    grad launch it once a backward and never K4; a table that requires
+    grad as well adds K4, with the coords' gradient unchanged."""
+    spec = he.HashGridSpec.from_config(EncodingConfig(
+        n_features_per_level=n_features, hash_variant=variant))
+    tdt, cdt = getattr(torch, table_dtype), getattr(torch, compute)
+    gen = torch.Generator(device=cuda).manual_seed(n_features)
+    table = (torch.rand((spec.n_entries, n_features), generator=gen,
+                        device=cuda) * 2 - 1).to(tdt)
+    coords_c = he.coords_counter
+    k4_c = he.paired_backward_counter if spec.paired else he.backward_counter
+    for n in (1, 1001, 1 << 16):
+        coords, g = _coords_grad_inputs(cuda, spec, n, n + n_features, cdt)
+        ref = he._plain_coords_backward(table, coords, spec, g, cdt)
+        for table_grad in (False, True):
+            t = table.clone().requires_grad_(table_grad)
+            c = coords.clone().requires_grad_()
+            before = (coords_c.launches, k4_c.launches)
+            he.hash_encode(t, c, spec, compute_dtype=cdt).backward(g)
+            torch.cuda.synchronize()
+            assert (coords_c.launches - before[0],
+                    k4_c.launches - before[1]) == (1, int(table_grad))
+            got = c.grad.cpu().numpy()
+            want = ref.cpu().numpy()
+            assert np.isfinite(got).all() and np.abs(want).max() > 0
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+
+
+def test_hash_coords_kernel_bits_repeat(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    for variant in ("tcnn", "paired"):
+        spec = he.HashGridSpec.from_config(EncodingConfig(
+            hash_variant=variant))
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        table = torch.rand((spec.n_entries, spec.n_features), generator=gen,
+                           device=cuda) * 2 - 1
+        coords, g = _coords_grad_inputs(cuda, spec, 1 << 16, 5,
+                                        torch.bfloat16)
+        a = he._kernel_coords_backward(table, coords, spec, g, torch.bfloat16)
+        b = he._kernel_coords_backward(table, coords, spec, g, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_traced_coords_kernel_at_shard_levels(cuda, split):
+    """The traced forms' coordinate gradient over a model shard's level
+    rows of the 2^19 schema (the split-grad form's true gradient, where
+    JAX gives zero) against the plain per-level version on the CPU, within
+    1e-5 of the largest entry; one coordinate launch, no K4 with the table
+    frozen."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.parallel import tp
+
+    field = NeuralField.from_config(ModelConfig())
+    spec = field.spec
+    lps, e_max = tp.tp_layout(field, 2)
+    lp = tp.local_level_params(tp.shard_level_params(field, 2), 1)
+    caps = tp.level_caps(field, 2)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    table = torch.rand((e_max, spec.n_features), generator=gen,
+                       device=cuda) * 2 - 1
+    b = 1 << 16
+    coords = torch.rand((b, 3), generator=gen, device=cuda)
+    g = torch.randn((b, lps * spec.n_features), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    grads = []
+    for where in (cuda, torch.device("cpu")):
+        c = coords.to(where).clone().requires_grad_()
+        before = (he.coords_counter.launches, he.backward_counter.launches)
+        if split:
+            y = he.hash_encode_traced_splitgrad(table.to(where), c, lp, caps,
+                                                spec.n_features,
+                                                torch.bfloat16)
+        else:
+            y = he.hash_encode_traced(table.to(where), c, lp, lps,
+                                      spec.n_features, torch.bfloat16)
+        y.backward(g.to(where))
+        assert (he.coords_counter.launches - before[0],
+                he.backward_counter.launches - before[1]) == (
+                    (1, 0) if where.type == "cuda" else (0, 0))
+        grads.append(c.grad.cpu().numpy())
+    assert np.abs(grads[1]).max() > 0
+    np.testing.assert_allclose(grads[0], grads[1], rtol=0,
+                               atol=1e-5 * np.abs(grads[1]).max())
+
+
+def test_compact_rows_refuses_a_short_scratch_leaf_on_card(cuda):
+    """A scratch leaf of other than m rows raises before the launch, the
+    ValueError of the CPU, and nothing is written."""
+    from instantvnr_torch.ops import compaction as ops
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    active = torch.rand(1000, generator=g, device=cuda) < 0.4
+    leaf = torch.rand((1000, 3), generator=g, device=cuda)
+    before = leaf.clone()
+    for rows in (1, 999, 1001):
+        scratch = torch.zeros((rows, 3), device=cuda)
+        launches = ops.compact_counter.launches
+        with pytest.raises(ValueError, match="1000 rows"):
+            ops.compact_rows(active, [leaf], [scratch], copy_back=True)
+        assert ops.compact_counter.launches == launches
+        assert not scratch.any()
+    assert torch.equal(leaf, before)
+
+
+def _ray_grad_loss(dev, trainable, compute="bfloat16"):
+    """The differentiable-march scene of _fixed_steps_loss (the network)
+    differentiated in its rays' origins and directions → (loss, [org,
+    dirn] leaves, the params' leaves). The rays are made on the CPU on
+    both devices: the frame is only piecewise smooth in them (a step's
+    quantization, a skipped cell), so a ray made 1 ulp apart on the card
+    can take other steps and another gradient."""
+    from functools import partial
+
+    from instantvnr_torch.accel import macrocell as mcmod
+    from instantvnr_torch.config import (ModelConfig, NetworkConfig,
+                                         TransferFunctionConfig)
+    from instantvnr_torch.data.volume import synthetic_volume
+    from instantvnr_torch.models.network import (NeuralField,
+                                                 params_from_numpy)
+    from instantvnr_torch.render.camera import Camera
+    from instantvnr_torch.render.raymarch import RaymarchSettings, raymarch
+    from instantvnr_torch.render.renderer import (_frame_rays,
+                                                  make_neural_sample_fn)
+    from instantvnr_torch.render.slabmarch import camera_arrays
+    from instantvnr_torch.render.transform import default_transform
+    from instantvnr_torch.utils.tfn import bake_transfer_function
+
+    vol = synthetic_volume((32,) * 3, kind="vorts", device=dev).data
+    tf = bake_transfer_function(TransferFunctionConfig(), device=dev)
+    mc = mcmod.build(vol, (32, 32, 32), tf)
+    settings = RaymarchSettings(n_iters=4, max_supersteps=24,
+                                fixed_steps=True)
+    cpu = torch.device("cpu")
+    org, dirn, t0, t1, light, _, _ = (x.to(dev) for x in _frame_rays(
+        16, 16, camera_arrays(Camera(eye=(10.0, 20.0, -60.0),
+                                     center=(0, 0, 0), up=(0, 1, 0),
+                                     fovy=40.0), cpu),
+        torch.tensor([32.0] * 3), torch.tensor(settings.light_dir),
+        default_transform((32, 32, 32), cpu)))
+    jitter = torch.rand(256, generator=torch.Generator().manual_seed(5)).to(
+        dev)
+    field = NeuralField.from_config(ModelConfig(
+        encoding=EncodingConfig(n_levels=4, n_features_per_level=4,
+                                log2_hashmap_size=12, base_resolution=4),
+        network=NetworkConfig(n_neurons=16, n_hidden_layers=2),
+        compute_dtype=compute))
+    rng = np.random.default_rng(6)
+    p = params_from_numpy({
+        "table": rng.uniform(-0.5, 0.5, (field.spec.n_entries, 4)
+                             ).astype(np.float32),
+        "mlp": [(rng.standard_normal(s) * np.sqrt(2.0 / s[0])).astype(
+            np.float32) for s in ((16, 16), (16, 16), (16, 1))]}, dev)
+    params = [p["table"], *p["mlp"]]
+    for t in params:
+        t.requires_grad_(trainable)
+    rays = [org.detach().clone().requires_grad_(),
+            dirn.detach().clone().requires_grad_()]
+    rgba = raymarch(partial(make_neural_sample_fn(field), p), *rays, t0, t1,
+                    mc, tf, jitter, settings, light_dir=light)
+    return (rgba ** 2).sum(), rays, params
+
+
+@pytest.mark.parametrize("trainable", [False, True])
+def test_ray_gradient_on_card_matches_cpu(cuda, trainable):
+    """The fixed_steps frame differentiated in its rays on the card (the
+    emission kernel's backward through the plain emission, K3, K1's
+    training form, K2 and the coordinate kernel) against the CPU's plain
+    forms, within 5e-2 of each gradient's largest entry (the fused MLP's
+    tolerance carried through the blend). Launches: one emission a
+    superstep, one coordinate pass a sampling superstep, K4 only with the
+    params trainable."""
+    from instantvnr_torch.render import raymarch as rm
+
+    counters = (rm.emit_counter, he.counter, fm.train_forward_counter,
+                fm.backward_counter, he.coords_counter, he.backward_counter,
+                fm.counter)
+    grads = []
+    for dev in ("cpu", cuda):
+        before = [c.launches for c in counters]
+        loss, rays, params = _ray_grad_loss(dev, trainable)
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            emit, k3, k1t, k2, kc, k4, k1 = [c.launches - b for c, b in
+                                              zip(counters, before)]
+            assert emit == 24 and k1 == 0
+            assert 0 < k3 == k1t == k2 == kc <= emit
+            assert k4 == (kc if trainable else 0)
+        grads.append([t.grad.cpu().numpy() for t in rays]
+                     + ([t.grad.cpu().numpy() for t in params] if trainable
+                        else []))
+        assert trainable or all(t.grad is None for t in params)
+    for cpu, card in zip(*grads):
+        assert np.abs(cpu).max() > 0 and np.isfinite(card).all()
+        np.testing.assert_allclose(card, cpu, rtol=0,
+                                   atol=5e-2 * np.abs(cpu).max())

@@ -51,6 +51,7 @@ from instantvnr_torch.config import TransferFunctionConfig
 from instantvnr_torch.data.volume import synthetic_volume
 from instantvnr_torch.models.network import (NeuralField, params_from_numpy,
                                              render_params)
+from instantvnr_torch.ops.hash_encoding import packed_dense_tables
 from instantvnr_torch.render.camera import Camera, camera_rays
 from instantvnr_torch.render.raymarch import RaymarchSettings, raymarch
 from instantvnr_torch.render.renderer import (_render_frame,
@@ -151,6 +152,113 @@ def test_network_gradients_match_jax(scene, compute_dtype, rtol):
         assert _rel_err(w.grad.numpy(), np.asarray(jw)) < rtol
 
 
+@pytest.mark.parametrize("compute_dtype,rtol", [("float32", 1e-4),
+                                                ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("trainable", [False, True])
+def test_ray_gradients_match_jax(scene, compute_dtype, rtol, trainable):
+    """The same loss differentiated in the rays' origins and directions
+    (camera or pose refinement), the params frozen or trainable too: the
+    gradient reaches the samples' positions through the emission's cell
+    exits and steps and the sample's lerp, then the network through the
+    hash encoding's coordinate backward; each held to jax.grad. bf16: JAX
+    also rounds the encoding's coordinate cotangent to bf16
+    (tests/test_torch_hash_coords_grad.py)."""
+    _, _, jtf, ttf, jm, tm = scene
+    jcfg = JModelConfig(encoding=JEnc(**ENC), network=JNet(**NET),
+                        compute_dtype=compute_dtype)
+    tcfg = ModelConfig(encoding=EncodingConfig(**ENC),
+                       network=NetworkConfig(**NET),
+                       compute_dtype=compute_dtype)
+    jfield, tfield = JNeuralField.from_config(jcfg), NeuralField.from_config(
+        tcfg)
+    p = _params_np(tfield.spec, [tfield.spec.n_output_dims, 16, 16, 1])
+    org, dirn, t0, t1 = _default_rays(8)
+    jit = np.full((64,), 0.5, np.float32)
+    jset = jrm.RaymarchSettings(n_iters=4, max_supersteps=16,
+                                fixed_steps=True)
+    tset = RaymarchSettings(n_iters=4, max_supersteps=16, fixed_steps=True)
+    jfn = j_make_neural(jfield)
+
+    def jloss(params, o, d):
+        rgba = jrm.raymarch(partial(jfn, params), o, d, t0, t1, jm, jtf,
+                            jnp.asarray(jit), jset)
+        return jnp.sum(rgba ** 2)
+
+    jp = {"table": jnp.asarray(p["table"]),
+          "mlp": [jnp.asarray(w) for w in p["mlp"]]}
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jp, jnp.asarray(org),
+                                            jnp.asarray(dirn))
+    tp = params_from_numpy(p, "cpu")
+    leaves = [tp["table"], *tp["mlp"]]
+    for t in leaves:
+        t.requires_grad_(trainable)
+    to, td = (torch.from_numpy(a).requires_grad_(True) for a in (org, dirn))
+    t = torch.from_numpy
+    rgba = raymarch(partial(make_neural_sample_fn(tfield), tp), to, td,
+                    t(t0), t(t1), tm, ttf, t(jit), tset)
+    (rgba ** 2).sum().backward()
+    for got, want in ((to.grad, jg[1]), (td.grad, jg[2])):
+        got = got.numpy()
+        assert np.isfinite(got).all() and np.abs(got).max() > 0
+        assert _rel_err(got, np.asarray(want)) < rtol
+    if trainable:
+        for w, jw in zip(leaves, [jg[0]["table"], *jg[0]["mlp"]]):
+            assert _rel_err(w.grad.numpy(), np.asarray(jw)) < rtol
+    else:
+        assert all(w.grad is None for w in leaves)
+
+
+def test_emission_backward_is_the_plain_emissions():
+    """The card's emission (`_Emit`: the kernel forward, the backward
+    through the plain emission recomputed) gives the gradient of the plain
+    emission under autograd, for every output and input: here with the
+    kernel's launch replaced by the plain emission, its twin bit for bit
+    (tests/test_torch_cuda.py holds the kernel to it)."""
+    from instantvnr_torch.render import raymarch as rm
+
+    vol = synthetic_volume(DIMS, kind="sphere", device="cpu")
+    ttf = bake_transfer_function(TransferFunctionConfig(), device="cpu")
+    tm = mcmod.build(vol.data, vol.dims, ttf)
+    org, dirn, t0, t1 = (torch.from_numpy(a) for a in _default_rays(8))
+    rng = np.random.default_rng(2)
+    weights = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((64,), (64,), (64,), (64, 4), (64, 4))]
+    args = (tm, 0.5, 4, 8, 1)
+
+    def grads(emit):
+        leaves = [x.clone().requires_grad_(True) for x in (org, dirn, t1)]
+        state = rm.init_ray_state(t0, leaves[2])
+        state = state._replace(t=state.t + 0.25 * leaves[0][:, 0])
+        (t, tce, ss), t_x, t_y, valid = emit(leaves[0], leaves[1], leaves[2],
+                                             state)
+        assert valid.any()
+        loss = sum((w * o).sum() for w, o in zip(
+            weights, (t, tce, torch.where(torch.isfinite(ss), ss, 0.0),
+                      t_x, t_y)))
+        loss.backward()
+        return [x.grad for x in leaves]
+
+    want = grads(lambda o, d, tf, st: rm._emit_samples(o, d, tf, st, *args))
+
+    def plain_launch(o, d, tf, t, tce, ss, *a):
+        st = rm._RayState(t=t, t_cell_end=tce, ss=ss, alpha=None, color=None,
+                          active=None, best_w=None, best_pos=None,
+                          best_rgb=None)
+        return rm._emit_samples(o, d, tf, st, *a)
+
+    orig = rm._kernel_emit
+    rm._kernel_emit = plain_launch
+    try:
+        got = grads(lambda o, d, tf, st: (
+            lambda r: ((r[0], r[1], r[2]), r[3], r[4], r[5]))(rm._Emit.apply(
+                o, d, tf, st.t, st.t_cell_end, st.ss, *args)))
+    finally:
+        rm._kernel_emit = orig
+    for g, w in zip(got, want):
+        assert w is not None and w.abs().sum() > 0
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("shading", ["none", "gradient", "ssh"])
 def test_volume_gradient_matches_jax(scene, shading):
     """tests/test_render.py:148's loss, sum(frame²) of an 8 × 8 frame of
@@ -244,6 +352,41 @@ def test_inference_params_raise_under_fixed_steps(scene):
     out = raymarch(partial(fn, render_params(p, field)), org, dirn, t0, t1,
                    tm, ttf, jitter, RaymarchSettings(n_iters=4))
     assert not out.requires_grad
+
+
+def test_frozen_params_march_with_rays_that_require_grad(scene):
+    """The f32 training params with no tensor that requires grad are
+    accepted once the rays require grad (the sample positions do), and the
+    frame is differentiable in them; with rays that do not, or with a bf16
+    or corner-packed table, the march still refuses, naming the item."""
+    _, _, _, ttf, _, tm = scene
+    cfg = ModelConfig(encoding=EncodingConfig(**ENC),
+                      network=NetworkConfig(**NET))
+    field = NeuralField.from_config(cfg)
+    p = params_from_numpy(_params_np(field.spec,
+                                     [field.spec.n_output_dims, 16, 16, 1]),
+                          "cpu")
+    org, dirn, t0, t1 = (torch.from_numpy(a) for a in _default_rays(4))
+    jitter = torch.full((16,), 0.5)
+    fn = make_neural_sample_fn(field)
+    fixed = RaymarchSettings(n_iters=4, max_supersteps=4, fixed_steps=True)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        raymarch(partial(fn, p), org, dirn, t0, t1, tm, ttf, jitter, fixed)
+    o = org.clone().requires_grad_(True)
+    # what render_params builds on the CPU for a big schema (a small one
+    # keeps the f32 table, the training params' copy, and is accepted)
+    table16 = p["table"].to(torch.bfloat16)
+    for ctx in ({"table": table16, "mlp": p["mlp"],
+                 "packed": packed_dense_tables(table16, field.spec)},
+                {"table": table16, "mlp": p["mlp"]}):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            raymarch(partial(fn, ctx), o, dirn, t0, t1, tm, ttf, jitter,
+                     fixed)
+    out = raymarch(partial(fn, p), o, dirn, t0, t1, tm, ttf, jitter, fixed)
+    assert out.requires_grad
+    out.sum().backward()
+    assert o.grad.abs().sum() > 0
+    assert all(t.grad is None for t in [p["table"], *p["mlp"]])
 
 
 def test_default_rays_hit(scene):

@@ -15,6 +15,8 @@ and coords.
   the 2^19 schema's dense levels and, with the bf16 pre-cast forced on, on
   a small hashed layout, where the JAX reference (which then scatters into
   bf16) lies far from the oracle.
+- Coordinate gradients: tests/test_torch_hash_coords_grad.py, and here the
+  twin of tests/test_ops.py:347-374.
 """
 import jax
 import jax.numpy as jnp
@@ -238,8 +240,28 @@ def test_plain_backward_stays_f32_under_precast(monkeypatch):
 
 
 def test_coords_grad_is_refused():
-    ts = he.HashGridSpec.from_config(EncodingConfig(**SMALL))
-    table = torch.zeros((ts.n_entries, ts.n_features))
-    coords = torch.rand((8, 3), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="coordinates"):
-        he.hash_encode(table, coords, ts)
+    """Once a refusal, now the twin of tests/test_ops.py:347-374
+    (test_coords_grad_matches_scatter_path) on its spec, coords and
+    cotangent weights: the port's gradient with respect to the coords is
+    nonzero and agrees with jax.grad of hash_encode (atol 1e-4, rtol 1e-3,
+    as there, and 1e-4 of the largest entry; float32 sums in another
+    order)."""
+    kw = dict(n_levels=3, n_features_per_level=2, log2_hashmap_size=8,
+              base_resolution=4)
+    js = jhe.HashGridSpec.from_config(JEncodingConfig(**kw))
+    ts = he.HashGridSpec.from_config(EncodingConfig(**kw))
+    rng = np.random.default_rng(1)
+    table = rng.uniform(-1e-4, 1e-4, (ts.n_entries, ts.n_features)).astype(
+        np.float32)
+    coords = rng.uniform(0.05, 0.95, (97, 3)).astype(np.float32)
+    w = rng.standard_normal((97, ts.n_output_dims)).astype(np.float32)
+    g_ref = np.asarray(jax.grad(lambda c: jnp.sum(
+        jhe.hash_encode(jnp.asarray(table), c, js) * w))(jnp.asarray(coords)))
+    c = torch.from_numpy(coords).requires_grad_(True)
+    (he.hash_encode(torch.from_numpy(table), c, ts)
+     * torch.from_numpy(w)).sum().backward()
+    assert float(np.abs(g_ref).max()) > 0
+    assert float(c.grad.abs().max()) > 0
+    np.testing.assert_allclose(c.grad.numpy(), g_ref, atol=1e-4, rtol=1e-3)
+    # and within 1e-4 of the largest entry, which is far below that atol
+    assert np.abs(c.grad.numpy() - g_ref).max() <= 1e-4 * np.abs(g_ref).max()

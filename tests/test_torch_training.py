@@ -191,6 +191,38 @@ def test_ssim_matches_jax_and_oracle():
     assert float(ssim_arrays(_t(gt), _t(gt))) == pytest.approx(1.0, abs=1e-5)
 
 
+def test_psnr_and_constants_match_jax():
+    """models/metrics.py::psnr (the host float of psnr_vs) on the same
+    numpy params and ground truth (float32 compute: the decodes differ in
+    the order of float32 sums, so 1e-3 dB), and config.py's
+    DEFAULT_TRAIN_BATCH and DEFAULT_WAVEFRONT_ITERS."""
+    from instantvnr_tpu import config as jconfig
+    from instantvnr_tpu.models.metrics import psnr as j_psnr
+    from instantvnr_torch import config as tconfig
+    from instantvnr_torch.models.metrics import psnr
+
+    jcfg, tcfg = _cfgs()
+    jfield, tfield = JNeuralField.from_config(jcfg), NeuralField.from_config(
+        tcfg)
+    rng = np.random.default_rng(8)
+    spec = tfield.spec
+    widths = [spec.n_output_dims, 16, 16, 1]
+    p = {"table": rng.uniform(-0.5, 0.5, (spec.n_entries, spec.n_features)
+                              ).astype(np.float32),
+         "mlp": [(rng.standard_normal((a, b)) * np.sqrt(2.0 / a)).astype(
+             np.float32) for a, b in zip(widths[:-1], widths[1:])]}
+    gt = rng.random((9, 10, 11)).astype(np.float32)
+    want = j_psnr(jfield, {"table": jnp.asarray(p["table"]),
+                           "mlp": [jnp.asarray(w) for w in p["mlp"]]},
+                  jnp.asarray(gt))
+    got = psnr(tfield, params_from_numpy(p, "cpu"), _t(gt))
+    assert isinstance(got, float) and np.isfinite(got)
+    assert got == pytest.approx(want, abs=1e-3)
+    for name in ("DEFAULT_TRAIN_BATCH", "DEFAULT_WAVEFRONT_ITERS"):
+        assert getattr(tconfig, name) == getattr(jconfig, name), name
+    assert trainer.DEFAULT_TRAIN_BATCH is tconfig.DEFAULT_TRAIN_BATCH
+
+
 def test_update_explicit_matches_jax():
     rng = np.random.default_rng(4)
     dims = (40, 33, 20)  # ragged last cells on every axis
