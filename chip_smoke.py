@@ -98,7 +98,15 @@ points:
   B = 2^16, tcnn and paired layouts, f32 and bf16 compute, against its
   plain version and a float64 oracle, its bits equal over two launches,
   timed beside the plain version; the differentiable march's frame
-  differentiated in its rays (above).
+  differentiated in its rays (above);
+- the emission's backward: raymarch_emit_backward against its plain
+  version (autograd of the plain emission) at the emission phase's shapes
+  and the ray frame's, its bits equal over two launches, timed beside the
+  plain version; in the ray-differentiated frame one launch for each
+  emission whose outputs reach the loss, and the frame's backward split by
+  device time (torch.profiler) into the emission's backward, the
+  coordinate pass, K2 and the rest; the coordinate pass also on one
+  sampling superstep's positions of that frame.
 
 Launch counts, reset before each of these paths and read after it, prove
 which kernels each ran. Any failed phase raises, so the script exits
@@ -1981,7 +1989,9 @@ def counters():
             "hash_encode_coords_backward": he.coords_counter,
             "composite_slabs": sc.counter,
             "composite_slabs_ext": sc.ext_counter, "iso_sweep": isw.counter,
-            "raymarch_emit": rm.emit_counter, "pt_track": opt.track_counter,
+            "raymarch_emit": rm.emit_counter,
+            "raymarch_emit_backward": rm.emit_backward_counter,
+            "pt_track": opt.track_counter,
             "pt_resolve": opt.resolve_counter, "brick_sample": bs.counter,
             "mt_count/mt_emit": mt.counter,
             "compact_rows": cp.compact_counter,
@@ -2202,6 +2212,92 @@ def phase_raymarch_emit(torch, sv):
         raise AssertionError(f"raymarch_emit differs from its plain "
                              f"version: {rec}")
     return rec
+
+
+def emit_backward_record(torch, name, org, dirn, t_far, state, mc, k,
+                         skips):
+    """raymarch_emit_backward on one emission's inputs and random
+    cotangents of all five outputs, against the plain backward (EMIT_BWD_
+    RTOL of each leaf's largest entry) and its bits over two launches;
+    device time beside the plain version's and the bound from this run's
+    bytes and the operations of the probes its data needs."""
+    from instantvnr_torch.render import raymarch as rm
+
+    r = org.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40 + k)
+    grads = [torch.randn(sh, generator=gen, device="cuda")
+             for sh in ((r,),) * 3 + ((r, k),) * 2]
+    ins = (org, dirn, t_far, state.t, state.t_cell_end, state.ss)
+    args = (mc, 1.0, k, skips, 1)
+    need = (True,) * 6
+
+    def kernel():
+        return rm._kernel_emit_backward(*ins, grads, need, *args)
+
+    def plain():
+        return rm._plain_emit_backward(*ins, grads, need, *args)
+
+    got, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    leaves = ("org", "dirn", "t_far", "t", "t_cell_end", "ss")
+    errs = {n: float((g - w).abs().max()) for n, g, w in zip(leaves, got,
+                                                              ref)}
+    largest = {n: float(w.abs().max()) for n, w in zip(leaves, ref)}
+    ok = all(errs[n] <= EMIT_BWD_RTOL * largest[n] for n in leaves)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    probes = rm._emit_samples(org, dirn, t_far, state, mc, 1.0, k, skips,
+                              count_probes=True)[-1]
+    n_bytes = (nbytes(*ins, mc.max_opacity) + nbytes(*grads)
+               + nbytes(*got))
+    ops = (probes * EMIT_BWD_PROBE_OPS + r * k * EMIT_BWD_SLOT_OPS
+           + r * EMIT_BWD_RAY_OPS)
+    b_ms, b_by = bound_ms(n_bytes, ops, H100_FP32_FLOPS)
+    rec = {"phase": f"raymarch_emit_backward[{name}]", "rays": r,
+           "slots": k, "max_skips": skips, "probes": probes,
+           "max_abs_err_by_leaf": errs, "largest_by_leaf": largest,
+           "max_abs_err": max(errs.values()),
+           "tol": f"{EMIT_BWD_RTOL} of each leaf's largest entry",
+           "same_bits": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "finite": finite,
+           "ms": device_ms(torch, kernel,
+                           ("raymarch_emit_backward_kernel",), per_call=1),
+           "call_ms": cuda_ms(torch, kernel),
+           "plain_ms": cuda_ms(torch, plain, iters=3, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "mbytes": n_bytes / 1e6, "gflop": ops / 1e9}
+    log(rec)
+    if not (ok and rec["same_bits"] and finite
+            and max(largest.values()) > 0):
+        raise AssertionError(f"raymarch_emit_backward differs from its "
+                             f"plain version: {rec}")
+    return rec
+
+
+def phase_raymarch_emit_backward(torch, sv):
+    """raymarch_emit_backward at phase_raymarch_emit's shapes (R = 512²
+    orbit rays over vorts 128³, K = 8, 8 skips, the state after a first
+    superstep) and at the differentiable march's (its 128² frame's rays,
+    K = FIXED_ITERS, 8 skips, the fresh state and the state after a first
+    superstep) → the 512² record (the kernels line's)."""
+    from instantvnr_torch.render import raymarch as rm
+
+    recs = []
+    for name, size, k, cam in (
+            (f"{SIZE}^2", SIZE, 8, orbit(1, N_FRAMES, max(DIMS))),
+            (f"{FIXED_SIZE}^2 frame", FIXED_SIZE, FIXED_ITERS,
+             orbit(0, N_FRAMES, max(DIMS)))):
+        org, dirn, t0, t1, _ = wavefront_rays(torch, sv, size, size, cam)
+        state = rm.init_ray_state(t0, t1)
+        if size == FIXED_SIZE:
+            recs.append(emit_backward_record(torch, name + ", fresh", org,
+                                             dirn, t1, state, sv.macrocell,
+                                             k, 8))
+        (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state,
+                                            sv.macrocell, 1.0, k, 8)
+        state = state._replace(t=t, t_cell_end=tce, ss=ss)
+        recs.append(emit_backward_record(torch, name, org, dirn, t1, state,
+                                         sv.macrocell, k, 8))
+    return recs[0]
 
 
 def run_wavefront_mode(torch, nv, mode):
@@ -3464,6 +3560,17 @@ FIXED_GRAD_TOL = {"network": 5e-2, "volume": 1e-4}
 # scale 3
 HASH_COORDS_RTOL = 1e-5
 COORDS_CELL_OPS, COORDS_CORNER_OPS = 15, 20
+# the emission's backward against its plain version (autograd of the plain
+# emission on the same card tensors), as a share of each leaf's largest
+# entry: float32 sums of the same derivatives in another order (forward
+# mode against autograd's reverse); its f32 operations (csrc/
+# raymarch_emit.cu): a probe the forward's EMIT_PROBE_OPS and about 60 on
+# its derivatives (the exits' two quotients an axis, the amin's and the
+# clamps' selections, the step's difference and quotient over ten
+# entries), a slot about 70 (t + ss and the min over ten entries, two
+# cotangent products into the sum), a ray 60 (the final state's three)
+EMIT_BWD_RTOL = 1e-5
+EMIT_BWD_PROBE_OPS, EMIT_BWD_SLOT_OPS, EMIT_BWD_RAY_OPS = 140, 70, 60
 FVSRN_STEPS = 100
 FVSRN_FRAMES = 6
 FVSRN_CMP_DIMS = (32, 32, 32)
@@ -3677,27 +3784,52 @@ def _coords_oracle(torch, spec, table, coords, g, compute):
     return out
 
 
-def phase_hash_coords_grad(torch):
+def frame_positions(torch, sv):
+    """The sample positions of one sampling superstep of the
+    differentiable march's ray frame (FIXED_SIZE², the 2^19 model with
+    its seeded weights, n_iters FIXED_ITERS): the superstep with the most
+    samples → float32 [n, 3] on the card. Positions along a ray and on
+    neighbouring rays are near each other, which uniform coords are not."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models.network import NeuralField
+
+    if not _VORTS:
+        _VORTS.append(sv.volume.data.cpu().numpy())
+    field = NeuralField.from_config(ModelConfig())
+    pos = []
+    _fixed_steps_frame(torch, "cuda", field, seeded_params(field, SEED + 20),
+                       FIXED_SIZE, rays=True, positions=pos)
+    return max(pos, key=len).contiguous()
+
+
+def phase_hash_coords_grad(torch, sv):
     """hash_encode_coords_backward on the main path's model, ModelConfig()
-    (8 levels × 8 features, 2^19), at B = 2^16 in both layouts and both
-    compute types from the f32 master table: against its plain version on
+    (8 levels × 8 features, 2^19), in both layouts and both compute types
+    from the f32 master table, on two inputs: B = 2^16 uniform coords, and
+    one sampling superstep's sample positions of the differentiable
+    march's ray frame (`frame_positions`): against its plain version on
     the card and a float64 oracle (HASH_COORDS_RTOL of the largest entry),
     its bits equal over two launches; timed beside the plain version, with
     its bound. No single PyTorch call computes it, so library_ms is null
-    → {(layout, compute): record}."""
+    → {(layout, compute): record} for the uniform coords, {(layout,
+    compute, "frame"): record} for the frame's."""
     from instantvnr_torch.config import EncodingConfig
     from instantvnr_torch.ops import hash_encoding as he
 
     out = {}
-    b = TRAIN_BATCH
-    for variant in ("tcnn", "paired"):
+    frame = frame_positions(torch, sv)
+    for variant, input_name in (("tcnn", "uniform"), ("paired", "uniform"),
+                                ("tcnn", "frame"), ("paired", "frame")):
         spec = he.HashGridSpec.from_config(EncodingConfig(
             hash_variant=variant))
         gen = torch.Generator(device="cuda").manual_seed(
-            SEED + 30 + len(out))
+            SEED + 30 + (variant == "paired"))
         table = torch.rand((spec.n_entries, spec.n_features), generator=gen,
                            device="cuda") * 2.0 - 1.0
-        coords = torch.rand((b, 3), generator=gen, device="cuda")
+        coords = torch.rand((TRAIN_BATCH, 3), generator=gen, device="cuda")
+        if input_name == "frame":
+            coords = frame
+        b = coords.shape[0]
         g32 = torch.randn((b, spec.n_output_dims), generator=gen,
                           device="cuda")
         rows = int(torch.unique(he._corners(spec, coords)[0]).numel())
@@ -3721,7 +3853,9 @@ def phase_hash_coords_grad(torch):
             n_ops = lanes * (COORDS_CELL_OPS + 8 * (
                 COORDS_CORNER_OPS + 2 * spec.n_features))
             bms, bby = bound_ms(n_bytes, n_ops, H100_FP32_FLOPS)
-            rec = {"phase": f"hash_coords_grad[{variant},{cname}]",
+            suffix = "" if input_name == "uniform" else ",frame"
+            rec = {"phase": f"hash_coords_grad[{variant},{cname}{suffix}]",
+                   "input": input_name,
                    "layout": "2^19", "batch": b, "levels": spec.n_levels,
                    "features": spec.n_features, "distinct_rows": rows,
                    "largest": largest, "max_abs_err": err,
@@ -3740,7 +3874,7 @@ def phase_hash_coords_grad(torch):
                     or not oracle_err <= HASH_COORDS_RTOL * largest
                     or not rec["same_bits"] or not largest > 0):
                 raise AssertionError(f"coordinate kernel disagrees: {rec}")
-            out[(variant, cname)] = rec
+            out[(variant, cname) + ((input_name,) if suffix else ())] = rec
         del table, coords, g32
         torch.cuda.empty_cache()
     return out
@@ -3822,19 +3956,23 @@ def phase_paired_training(torch, sv):
 
 
 def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None,
-                       rays=False):
+                       rays=False, backward=None, positions=None):
     """One fixed_steps frame of the 2^19 model (or, with `volume`, of the
     sampled volume) on `dev`, camera 0 of the orbit over vorts 128³, and
     its loss sum(frame²) backward → (leaves with their grads, forward ms,
-    backward ms, the samples' count: the supersteps that sampled). With
-    `rays` the params stay frozen and the leaves are the camera rays'
-    origins and directions (their t range fixed), made on the CPU and
-    marched as `_render_frame` marches them."""
+    backward ms, the samples' count: the supersteps that sampled, the
+    frame's largest alpha, the emission launches up to the last superstep
+    that sampled). With `rays` the params stay frozen and the leaves are
+    the camera rays' origins and directions (their t range fixed), made on
+    the CPU and marched as `_render_frame` marches them. `backward`: a
+    function of the loss that runs its backward (else loss.backward());
+    `positions`: a list that receives each sample call's positions."""
     from functools import partial
 
     from instantvnr_torch.accel import macrocell as mcmod
     from instantvnr_torch.config import TransferFunctionConfig
     from instantvnr_torch.models.network import params_from_numpy
+    from instantvnr_torch.render import raymarch as rm
     from instantvnr_torch.render.raymarch import RaymarchSettings, raymarch
     from instantvnr_torch.render.renderer import (_frame_rays,
                                                   _render_frame,
@@ -3878,8 +4016,13 @@ def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None,
     for t in leaves:
         t.requires_grad_(True)
 
+    emits0, reach = rm.emit_counter.launches, [0]
+
     def counted(ctx, p):
         calls[0] += 1
+        reach[0] = rm.emit_counter.launches - emits0
+        if positions is not None:
+            positions.append(p.detach().clone())
         return fn(ctx, p)
 
     sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
@@ -3895,14 +4038,95 @@ def _fixed_steps_frame(torch, dev, field, params_np, size, volume=None,
     loss = (frame ** 2).sum()
     sync()
     t1_ = time.perf_counter()
-    loss.backward()
+    (backward or (lambda x: x.backward()))(loss)
     sync()
     t2_ = time.perf_counter()
     return (leaves, (t1_ - t0_) * 1e3, (t2_ - t1_) * 1e3, calls[0],
-            float(frame[:, 3].detach().max()))
+            float(frame[:, 3].detach().max()), reach[0])
 
 
 _VORTS = []  # vorts 128³ as numpy, made once
+
+
+# kernels of the backward split's named parts (backward_split)
+SPLIT_COORDS = ("hash_encode_coords_backward_kernel",)
+SPLIT_K2 = ("fused_mlp_backward_kernel", "sum_partials_kernel")
+
+
+def kernels_by_range(trace, range_name):
+    """A Chrome trace of torch.profiler → {(in_range, kernel name): [n,
+    device µs]}: each kernel, by whether the host call that launched it
+    (matched by correlation id) lies inside a `range_name` annotation of
+    the same thread."""
+    events = trace["traceEvents"]
+    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name") == range_name]
+    launch = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        tid, ts = launch.get(e.get("args", {}).get("correlation"),
+                             (None, None))
+        inside = ts is not None and any(
+            t == tid and a <= ts <= b for t, a, b in ranges)
+        n_us = out.setdefault((inside, e["name"]), [0, 0.0])
+        n_us[0] += 1
+        n_us[1] += e["dur"]
+    return out
+
+
+def backward_split(torch, loss, record):
+    """loss.backward() under torch.profiler, its device time split into
+    the emission's backward (every kernel launched inside
+    render/raymarch.py::_Emit.backward, wrapped here in a
+    record_function range: one raymarch_emit_backward a call, or in a
+    tree without that kernel the plain emission's recompute and its
+    autograd), the coordinate pass, K2 and the rest; the host clock of the
+    profiled backward beside it → fills `record`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from instantvnr_torch.render import raymarch as rm
+
+    inner = rm._Emit.backward
+
+    def annotated(ctx, *grads):
+        with record_function("emit_backward"):
+            return inner(ctx, *grads)
+
+    rm._Emit.backward = staticmethod(annotated)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        rm._Emit.backward = staticmethod(inner)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            by = kernels_by_range(json.load(f), "emit_backward")
+    parts = {"emission_backward": 0.0, "coordinate_pass": 0.0, "k2": 0.0,
+             "rest": 0.0}
+    launches = dict.fromkeys(parts, 0)
+    for (inside, name), (n, us) in by.items():
+        part = ("emission_backward" if inside else
+                "coordinate_pass" if any(p in name for p in SPLIT_COORDS)
+                else "k2" if any(p in name for p in SPLIT_K2) else "rest")
+        parts[part] += us / 1e3
+        launches[part] += n
+    record.update({"profiled_backward_ms": wall,
+                   "device_ms": sum(parts.values()),
+                   **{f"{k}_ms": v for k, v in parts.items()},
+                   "kernels": launches,
+                   "emission_backward_kernels": sorted(
+                       {name[:60] for (inside, name) in by if inside})[:4]})
 
 
 def _timed_fixed_frames(torch, field, p_np, rays):
@@ -3916,10 +4140,11 @@ def _timed_fixed_frames(torch, field, p_np, rays):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        _, fwd_ms, bwd_ms, sampled, alpha = _fixed_steps_frame(
+        _, fwd_ms, bwd_ms, sampled, alpha, reach = _fixed_steps_frame(
             torch, "cuda", field, p_np, FIXED_SIZE, rays=rays)
         runs.append({"forward_ms": fwd_ms, "backward_ms": bwd_ms,
                      "sampled_supersteps": sampled, "alpha_max": alpha,
+                     "emissions_reaching_the_loss": reach,
                      "peak_memory_over_baseline":
                          torch.cuda.max_memory_allocated() - base,
                      "launches": {n: c.launches
@@ -3975,13 +4200,22 @@ def phase_differentiable_march(torch, sv):
     ray_launches = ray_runs[-1]["launches"]
     k_rays = ray_runs[-1]["sampled_supersteps"]
     want_rays = {n: 0 for n in counters()}
+    # an emission's backward runs where its outputs reach the loss: each
+    # emission up to the last superstep that sampled (a later one's reach
+    # only the final marching state, which the frame does not read)
     want_rays.update({"raymarch_emit": FIXED_SUPERSTEPS,
+                      "raymarch_emit_backward":
+                          ray_runs[-1]["emissions_reaching_the_loss"],
                       "hash_encode_forward": k_rays,
                       "fused_mlp_train_forward": k_rays,
                       "fused_mlp_backward": k_rays,
                       "hash_encode_coords_backward": k_rays})
     ray_cmp = dict(zip(("org", "dirn"),
                        _grad_errs(torch, field, p_np, rays=True)))
+    split = {}
+    _fixed_steps_frame(torch, "cuda", field, p_np, FIXED_SIZE, rays=True,
+                       backward=lambda loss: backward_split(torch, loss,
+                                                            split))
 
     def times(rs):
         return {"forward_ms": [r["forward_ms"] for r in rs],
@@ -4002,14 +4236,18 @@ def phase_differentiable_march(torch, sv):
                     "sampled_supersteps": k_rays,
                     "alpha_max": ray_runs[-1]["alpha_max"],
                     "launches": ray_launches,
+                    "emissions_reaching_the_loss":
+                        ray_runs[-1]["emissions_reaching_the_loss"],
                     "grad_rel_err_cuda_vs_cpu": ray_cmp,
-                    "tol": FIXED_GRAD_TOL["network"]},
+                    "tol": FIXED_GRAD_TOL["network"],
+                    "backward_split": split},
            "ray_launches": ray_launches}
     log(rec)
     if launches != want or not k > 0 or rec["alpha_max"] <= 0.05:
         raise AssertionError(f"differentiable march launches {launches} != "
                              f"{want}: {rec}")
-    if ray_launches != want_rays or not k_rays > 0:
+    if (ray_launches != want_rays or not k_rays > 0
+            or not split["emission_backward_ms"] > 0):
         raise AssertionError(f"ray-differentiated march launches "
                              f"{ray_launches} != {want_rays}: {rec}")
     if any(not e["l2_rel"] <= FIXED_GRAD_TOL[n] for n in cmp
@@ -5399,7 +5637,7 @@ def main() -> int:
     hashes = {log2: phase_hash_encode(torch, f"2^{log2}", log2)
               for log2 in (14, 19)}
     paired = phase_hash_paired(torch)
-    coords_grad = phase_hash_coords_grad(torch)
+    coords_grad = phase_hash_coords_grad(torch, sv)
     knots = np.linspace(0.0, 1.0, 70)
     alphas = np.random.default_rng(SEED + 4).uniform(0.0, 0.9, 70)
     tf70 = bake_transfer_function(TransferFunctionConfig(
@@ -5417,6 +5655,7 @@ def main() -> int:
                             ("shaded,lut70", tf70))}
     iso = phase_iso_sweep(torch, vol, grads, float(vol.median()))
     emit = phase_raymarch_emit(torch, sv)
+    emit_bwd = phase_raymarch_emit_backward(torch, sv)
     pt = phase_pt_kernels(torch, sv)
     compact_k, scatter_k = phase_compaction_kernels(torch)
     phase_small_parity(torch)
@@ -5592,6 +5831,10 @@ def main() -> int:
         # XLA in JAX, as the hash grid: the wavefront's emission scan
         row("raymarch_emit", "raymarch_emit.cu",
             "instantvnr_tpu/render/raymarch.py:214", emit),
+        # JAX's autodiff of the same scan (the frame differentiated in its
+        # rays), at the emission phase's shapes
+        row("raymarch_emit_backward", "raymarch_emit.cu",
+            "instantvnr_tpu/render/raymarch.py:214", emit_bwd),
         # XLA in JAX as well: the tracker's event (its halves, at the late
         # event's state) and the brick pool's sampler (the "auto" pool)
         row("pt_track", "pathtrace.cu",

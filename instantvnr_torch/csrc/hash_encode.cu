@@ -415,6 +415,59 @@ hash_encode_backward_kernel(const float* __restrict__ coords,
   }
 }
 
+// A table row as the coordinates' backward reads it: from global memory
+// through the read-only cache (the package's kernel), or from elsewhere
+// (scripts/coords_variants.cu serves coarse dense levels from shared
+// memory)
+template <typename T, int F>
+struct GlobalRows {
+  const T* __restrict__ table;
+  __device__ __forceinline__ void operator()(uint32_t idx,
+                                             float (&row)[F]) const {
+    load_row<F>(table + static_cast<size_t>(idx) * F, row);
+  }
+};
+
+// One (sample, level)'s term of the coordinates' gradient, added into
+// acc[3]: per corner in order, the row rounded to the compute type dotted
+// with the cotangent row gv in float32 in feature order, times the three
+// weight derivatives; then times scale_l.
+template <int F, bool kBf16, bool kPaired, class Rows>
+__device__ __forceinline__ void coords_level_term(const Rows& rows,
+                                                  const float* p,
+                                                  const float (&gv)[F],
+                                                  const Levels& lv, int l,
+                                                  float (&acc)[3]) {
+  const Cell c = level_cell(p, lv.scale[l]);
+  // the corner's bit along axis k is bit (k − a) mod 3: tcnn's x, y, z
+  // (a = 0), or a paired level's half along its pairing axis a = l mod 3
+  // and pair-row bits along the two after it (paired_corner)
+  const int a = kPaired && !((lv.dense_mask >> l) & 1u) ? l % 3 : 0;
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    uint32_t idx;
+    float w_unused;
+    level_corner<kPaired>(c, corner, lv, l, &idx, &w_unused);
+    float row[F];
+    rows(idx, row);
+    float dw = 0.0f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) dw += to_compute<kBf16>(row[f]) * gv[f];
+    bool up[3];
+    float w[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      up[k] = (corner >> ((k - a + 3) % 3)) & 1;
+      w[k] = up[k] ? c.frac[k] : 1.0f - c.frac[k];
+    }
+    const float d[3] = {w[1] * w[2], w[0] * w[2], w[0] * w[1]};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[k] += dw * (up[k] ? d[k] : -d[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[k] *= lv.scale[l];
+}
+
 // Coordinates' backward (hash_encode_coords_backward; plain version
 // ops/hash_encoding.py::_plain_coords_backward): grad_p[a] = Σ_l scale_l ·
 // Σ_c ±Π_{b≠a} w_c,b · ⟨g_l, T[idx_c]⟩, + where corner c lies on the upper
@@ -445,36 +498,10 @@ hash_encode_coords_backward_kernel(const T* __restrict__ table,
   const int l = static_cast<int>(t & (lp - 1));
   float acc[3] = {0.0f, 0.0f, 0.0f};
   if (b < n && l < n_levels) {
-    const Cell c = level_cell(coords + 3 * b, lv.scale[l]);
     float gv[F];
     load_row<F>(g + (b * n_levels + l) * F, gv);
-    // the corner's bit along axis k is bit (k − a) mod 3: tcnn's x, y, z
-    // (a = 0), or a paired level's half along its pairing axis a = l mod 3
-    // and pair-row bits along the two after it (paired_corner)
-    const int a = kPaired && !((lv.dense_mask >> l) & 1u) ? l % 3 : 0;
-#pragma unroll
-    for (int corner = 0; corner < 8; ++corner) {
-      uint32_t idx;
-      float w_unused;
-      level_corner<kPaired>(c, corner, lv, l, &idx, &w_unused);
-      float row[F];
-      load_row<F>(table + static_cast<size_t>(idx) * F, row);
-      float dw = 0.0f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) dw += to_compute<kBf16>(row[f]) * gv[f];
-      bool up[3];
-      float w[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        up[k] = (corner >> ((k - a + 3) % 3)) & 1;
-        w[k] = up[k] ? c.frac[k] : 1.0f - c.frac[k];
-      }
-      const float d[3] = {w[1] * w[2], w[0] * w[2], w[0] * w[1]};
-#pragma unroll
-      for (int k = 0; k < 3; ++k) acc[k] += dw * (up[k] ? d[k] : -d[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) acc[k] *= lv.scale[l];
+    coords_level_term<F, kBf16, kPaired>(GlobalRows<T, F>{table},
+                                         coords + 3 * b, gv, lv, l, acc);
   }
   for (int off = lp >> 1; off > 0; off >>= 1) {
 #pragma unroll

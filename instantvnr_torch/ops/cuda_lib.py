@@ -77,6 +77,11 @@ SIGNATURES = {
     # tce_out, ss_out, t_x, t_y, valid, stream
     "raymarch_emit": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _L, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # org, dirn, t_far, t, t_cell_end, ss, max_opacity, mx, my, mz,
+    # base_step, rate_scale, R, K, max_skips, samples_per_slot, g_t, g_tce,
+    # g_ss, g_tx, g_ty, d_org, d_dirn, d_t_far, d_t, d_tce, d_ss, stream
+    "raymarch_emit_backward": (_P,) * 7 + (_I, _I, _I, _F, _F, _L, _I, _I,
+                                           _I) + (_P,) * 12,
     # lut, packed, is_half, p, n, dx, dy, dz, mx, my, mz, ss, out, count,
     # offset, stream
     "brick_sample": (_P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P,

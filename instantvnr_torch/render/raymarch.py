@@ -42,7 +42,8 @@ from instantvnr_torch.config import (DEFAULT_WAVEFRONT_ITERS, NEARLY_ONE,
                                      env_int)
 from instantvnr_torch.ops.cuda_lib import LaunchCounter
 from instantvnr_torch.utils.device import device_constant
-from instantvnr_torch.utils.math import normalize, ray_box_intersect
+from instantvnr_torch.utils.math import (axis_quotient, normalize,
+                                         ray_box_intersect)
 from instantvnr_torch.utils.tfn import (TransferFunction, classify_controls,
                                         clip_ties)
 
@@ -58,6 +59,7 @@ DEFAULT_LIGHT = (0.7, 0.9, 0.4)
 _SCHEDULE_KNOBS: dict = {}
 
 emit_counter = LaunchCounter()
+emit_backward_counter = LaunchCounter()
 
 
 @dataclass(frozen=True)
@@ -136,11 +138,13 @@ class _RayState(NamedTuple):
 def _cell_exit_t(org, dirn, cell, w: float):
     """t at which the ray leaves `cell` (cells of w voxels). org/dirn [R,3]
     voxel space, cell [R,3] integer. Axis-parallel directions give ±inf or
-    NaN there and drop out of the min."""
+    NaN there and drop out of the min; they send 0 to the gradient
+    (`axis_quotient`; JAX's where gives NaN there, ROADMAP
+    Queue 3)."""
     step_pos = (dirn > 0).to(torch.float32)
     boundary = (cell.to(torch.float32) + step_pos) * w
-    t_ax = (boundary - org) / dirn
-    t_ax = torch.where(torch.isfinite(t_ax), t_ax, torch.inf)
+    t_ax, finite = axis_quotient(boundary - org, dirn)
+    t_ax = torch.where(finite, t_ax, torch.inf)
     return t_ax.amin(dim=-1)
 
 
@@ -256,63 +260,147 @@ def raymarch_emit(org, dirn, t_far, state: _RayState, mc: MacroCell,
     return _kernel_emit(*ins, *args)
 
 
-def _kernel_emit(org, dirn, t_far, t, t_cell_end, ss, mc: MacroCell,
-                 base_step: float, n_iters: int, max_skips: int,
-                 samples_per_slot: int):
-    """The `raymarch_emit` kernel on CUDA tensors → `_emit_samples`'s
-    outputs."""
+def _emit_inputs(name, org, dirn, t_far, t, t_cell_end, ss, mc: MacroCell):
+    """The emission kernels' inputs, checked (float32, shape, the device of
+    org) → {name: contiguous detached tensor}."""
     r = org.shape[0]
-    f32 = torch.float32
     mx, my, mz = mc.dims
     args = {"org": (org, (r, 3)), "dirn": (dirn, (r, 3)),
             "t_far": (t_far, (r,)), "t": (t, (r,)),
             "t_cell_end": (t_cell_end, (r,)), "ss": (ss, (r,)),
             "max_opacity": (mc.max_opacity, (mz, my, mx))}
     ins = {}
-    for name, (a, shape) in args.items():
-        if a.device != org.device or a.dtype != f32 or tuple(a.shape) != shape:
-            raise ValueError(f"raymarch_emit: expected {name} float32 {shape} "
-                             f"on {org.device}, got {a.dtype} "
-                             f"{tuple(a.shape)} on {a.device}")
-        ins[name] = a.detach().contiguous()
+    for key, (a, shape) in args.items():
+        if (a.device != org.device or a.dtype != torch.float32
+                or tuple(a.shape) != shape):
+            raise ValueError(f"{name}: expected {key} float32 {shape} on "
+                             f"{org.device}, got {a.dtype} {tuple(a.shape)} "
+                             f"on {a.device}")
+        ins[key] = a.detach().contiguous()
+    return ins
+
+
+def _emit_scalars(mc: MacroCell, base_step: float, r: int, n_iters: int,
+                  max_skips: int, samples_per_slot: int):
+    """The C entries' scalars after max_opacity, through samples_per_slot:
+    base_step and 15 · base_step are rounded to float once each, as the
+    plain version's Python scalars are."""
+    mx, my, mz = mc.dims
+    base_step = float(base_step)
+    return (mx, my, mz, base_step, 15.0 * base_step, r, int(n_iters),
+            int(max_skips), int(samples_per_slot))
+
+
+_EMIT_INPUTS = ("org", "dirn", "t_far", "t", "t_cell_end", "ss",
+                "max_opacity")
+
+
+def _kernel_emit(org, dirn, t_far, t, t_cell_end, ss, mc: MacroCell,
+                 base_step: float, n_iters: int, max_skips: int,
+                 samples_per_slot: int):
+    """The `raymarch_emit` kernel on CUDA tensors → `_emit_samples`'s
+    outputs."""
+    ins = _emit_inputs("raymarch_emit", org, dirn, t_far, t, t_cell_end, ss,
+                       mc)
     from instantvnr_torch.ops.cuda_lib import load_library
 
     lib = load_library()
+    r = org.shape[0]
+    f32 = torch.float32
     k = int(n_iters) * int(samples_per_slot)
     t_out, tce_out, ss_out = (torch.empty(r, dtype=f32, device=org.device)
                               for _ in range(3))
     t_x = torch.empty((r, k), dtype=f32, device=org.device)
     t_y = torch.empty((r, k), dtype=f32, device=org.device)
     valid = torch.empty((r, k), dtype=torch.bool, device=org.device)
-    base_step = float(base_step)
-    lib.call("raymarch_emit",
-             *(ins[n].data_ptr() for n in ("org", "dirn", "t_far", "t",
-                                           "t_cell_end", "ss",
-                                           "max_opacity")),
-             mx, my, mz, base_step, 15.0 * base_step, r, int(n_iters),
-             int(max_skips), int(samples_per_slot), t_out.data_ptr(),
-             tce_out.data_ptr(), ss_out.data_ptr(),
+    lib.call("raymarch_emit", *(ins[n].data_ptr() for n in _EMIT_INPUTS),
+             *_emit_scalars(mc, base_step, r, n_iters, max_skips,
+                            samples_per_slot),
+             t_out.data_ptr(), tce_out.data_ptr(), ss_out.data_ptr(),
              t_x.data_ptr(), t_y.data_ptr(), valid.data_ptr(),
              torch.cuda.current_stream(org.device).cuda_stream)
     emit_counter.launches += 1
     return (t_out, tce_out, ss_out), t_x, t_y, valid
 
 
+def _kernel_emit_backward(org, dirn, t_far, t, t_cell_end, ss, grads, need,
+                          mc: MacroCell, base_step: float, n_iters: int,
+                          max_skips: int, samples_per_slot: int):
+    """The `raymarch_emit_backward` kernel on CUDA tensors: the
+    vector-Jacobian product of the emission with the cotangents `grads` of
+    (t, t_cell_end, ss, t_x, t_y), each a tensor or None (zero) → the
+    gradients of (org, dirn, t_far, t, t_cell_end, ss), None where `need`
+    is false. One launch, no host sync."""
+    if org.device.type != "cuda":
+        raise ValueError(f"raymarch_emit_backward: CUDA tensors only, got "
+                         f"{org.device}")
+    ins = _emit_inputs("raymarch_emit_backward", org, dirn, t_far, t,
+                       t_cell_end, ss, mc)
+    from instantvnr_torch.ops.cuda_lib import load_library
+
+    r = org.shape[0]
+    k = int(n_iters) * int(samples_per_slot)
+    cts = []
+    for g, shape in zip(grads, ((r,),) * 3 + ((r, k),) * 2):
+        if g is not None:
+            if tuple(g.shape) != shape or g.device != org.device:
+                raise ValueError(f"raymarch_emit_backward: a cotangent of "
+                                 f"{shape} on {org.device}, got "
+                                 f"{tuple(g.shape)} on {g.device}")
+            g = g.detach().to(torch.float32).contiguous()
+        cts.append(g)
+    outs = [torch.empty(shape, dtype=torch.float32, device=org.device)
+            if n else None
+            for n, shape in zip(need, ((r, 3), (r, 3)) + ((r,),) * 4)]
+    lib = load_library()
+    lib.call("raymarch_emit_backward",
+             *(ins[n].data_ptr() for n in _EMIT_INPUTS),
+             *_emit_scalars(mc, base_step, r, n_iters, max_skips,
+                            samples_per_slot),
+             *(None if x is None else x.data_ptr() for x in cts + outs),
+             torch.cuda.current_stream(org.device).cuda_stream)
+    emit_backward_counter.launches += 1
+    return tuple(outs)
+
+
+def _plain_emit_backward(org, dirn, t_far, t, t_cell_end, ss, grads, need,
+                         *args):
+    """`_kernel_emit_backward`'s plain version: autograd of `_emit_samples`
+    recomputed on the same tensors, which makes the kernel's choices of
+    cells and slots bit for bit. The tests and chip_smoke.py hold the
+    kernel to it; no card path runs it."""
+    ins = [x.detach().requires_grad_(n)
+           for x, n in zip((org, dirn, t_far, t, t_cell_end, ss), need)]
+    with torch.enable_grad():
+        state = _RayState(t=ins[3], t_cell_end=ins[4], ss=ins[5], alpha=None,
+                          color=None, active=None, best_w=None,
+                          best_pos=None, best_rgb=None)
+        (t, tce, ss), t_x, t_y, _ = _emit_samples(ins[0], ins[1], ins[2],
+                                                  state, *args)
+    outs = [(o, g) for o, g in zip((t, tce, ss, t_x, t_y), grads)
+            if g is not None and o.requires_grad]
+    wanted = [x for x in ins if x.requires_grad]
+    got = iter(torch.autograd.grad(
+        [o for o, _ in outs], wanted, [g for _, g in outs],
+        allow_unused=True) if outs and wanted else ())
+    return tuple((next(got) if outs else None) if n else None for n in need)
+
+
 class _Emit(torch.autograd.Function):
     """The emission kernel, differentiable in the rays (org, dirn, t_far)
     and the marching state (t, t_cell_end, ss), as the JAX package's XLA
     scan is: a slot's interval ends and a ray's next t are the cell exits
-    and quantized steps of its origin and direction. The forward is the
-    kernel; the backward differentiates the plain emission
-    (`_emit_samples`, plain PyTorch on the same CUDA tensors), which makes
-    the kernel's choices of cells and slots bit for bit, so the gradient
-    is the CPU's. It is no kernel of its own: it runs only in a frame
-    differentiated in its rays (ROADMAP Queue 2)."""
+    and quantized steps of its origin and direction. The forward is
+    `raymarch_emit`, the backward `raymarch_emit_backward` (one launch,
+    no host sync): the vector-Jacobian product of the plain emission
+    (`_plain_emit_backward`), which its forward-mode re-run of the scan
+    gives within float32 rounding. A card path runs no plain emission."""
 
     @staticmethod
     def forward(ctx, org, dirn, t_far, t, t_cell_end, ss, *args):
         ctx.save_for_backward(org, dirn, t_far, t, t_cell_end, ss)
         ctx.args = args
+        ctx.set_materialize_grads(False)
         (t_o, tce_o, ss_o), t_x, t_y, valid = _kernel_emit(
             org, dirn, t_far, t, t_cell_end, ss, *args)
         ctx.mark_non_differentiable(valid)
@@ -320,23 +408,9 @@ class _Emit(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        need = ctx.needs_input_grad[:6]
-        ins = [x.detach().requires_grad_(n)
-               for x, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            state = _RayState(t=ins[3], t_cell_end=ins[4], ss=ins[5],
-                              alpha=None, color=None, active=None,
-                              best_w=None, best_pos=None, best_rgb=None)
-            (t, tce, ss), t_x, t_y, _ = _emit_samples(
-                ins[0], ins[1], ins[2], state, *ctx.args)
-        outs = [(o, g) for o, g in zip((t, tce, ss, t_x, t_y), grads[:5])
-                if g is not None and o.requires_grad]
-        wanted = [x for x in ins if x.requires_grad]
-        got = iter(torch.autograd.grad(
-            [o for o, _ in outs], wanted, [g for _, g in outs],
-            allow_unused=True) if outs and wanted else ())
-        return (*(next(got) if n else None for n in need),
-                *(None for _ in ctx.args))
+        got = _kernel_emit_backward(*ctx.saved_tensors, grads[:5],
+                                    ctx.needs_input_grad[:6], *ctx.args)
+        return (*got, *(None for _ in ctx.args))
 
 
 def _compose(values, t_x, t_y, valid, state_alpha, state_color,

@@ -49,14 +49,37 @@ def look_at_rays(eye, center, up, fovy_deg, width: int, height: int,
     return eye_t[None, :].expand(dirs.shape), dirs
 
 
+def axis_quotient(num, dirn, reciprocal=False):
+    """num / dirn per axis (num · (1 / dirn) with `reciprocal`), bit for bit
+    that expression, and its non-finite entries (a zero component of the
+    direction, or an overflow) → (quotient, finite mask). Under autograd a
+    non-finite entry sends exactly 0 to num and dirn: the quotient is taken
+    again with 1 in place of those entries' divisor (a "double where").
+    Dropping them with a single where would meet the division's own
+    derivative there, 0·(b − o)/0² = NaN; 0 is the true gradient's limit,
+    since an axis the ray never crosses sets no exit."""
+    def quotient(d):
+        return num * (1.0 / d) if reciprocal else num / d
+
+    with torch.no_grad():
+        raw = quotient(dirn)
+    finite = torch.isfinite(raw)
+    return torch.where(finite, quotient(torch.where(finite, dirn, 1.0)),
+                       raw), finite
+
+
 def ray_box_intersect(org, dirn, box_lo, box_hi, t_min=0.0, t_max=np.inf):
     """Slab-method ray/AABB intersection (reference raytracing.h:60-103).
     org, dirn [..., 3]. Returns (t0, t1, hit) with t0 <= t1 where hit;
-    axis-parallel rays go through IEEE 1/0 = ±inf."""
-    inv = 1.0 / dirn
+    axis-parallel rays go through IEEE 1/0 = ±inf, and send 0 to the
+    gradient on those axes (`axis_quotient`)."""
     dev = org.device
-    lo = (torch.as_tensor(box_lo, dtype=torch.float32, device=dev) - org) * inv
-    hi = (torch.as_tensor(box_hi, dtype=torch.float32, device=dev) - org) * inv
+    lo, _ = axis_quotient(
+        torch.as_tensor(box_lo, dtype=torch.float32, device=dev) - org, dirn,
+        reciprocal=True)
+    hi, _ = axis_quotient(
+        torch.as_tensor(box_hi, dtype=torch.float32, device=dev) - org, dirn,
+        reciprocal=True)
     near = torch.minimum(lo, hi)
     far = torch.maximum(lo, hi)
     # 0·inf → NaN when the origin sits ON a slab plane of a parallel axis:

@@ -1,8 +1,8 @@
 // Designs of the wavefront's emission (raymarch_emit) that the package does
 // not ship, built beside the package's kernel for scripts/emit_variants.py
 // to time against it on the card. Includes the package's source, so every
-// design shares its emit_slot (the scan's arithmetic, bit for bit the plain
-// version's), Stage and store_tile.
+// design shares its probe_cells and emit_interval (the scan's arithmetic,
+// bit for bit the plain version's), Stage and store_tile.
 //
 // emit_variant(..., variant) launches:
 //   0 previous           the design before this one as it was: one thread a
@@ -26,6 +26,15 @@
 namespace {
 
 constexpr int kPrevBlock = 256;
+
+// One slot of one sample: its probes, then its interval.
+template <class Occupancy>
+__device__ __forceinline__ void emit_slot(Ray& ray, const Occupancy& occ_at,
+                                          const Grid& g, float& tx, float& ty,
+                                          bool& v) {
+  probe_cells(ray, occ_at, g);
+  v = emit_interval(ray, tx, ty);
+}
 
 // The previous design, as it was.
 __global__ void __launch_bounds__(kPrevBlock)
@@ -62,7 +71,7 @@ emit_prev_kernel(const float* __restrict__ org,
       for (int a = 0; a < 3; ++a) {
         const float p = o[a] + tp * d[a];
         cell[a] = static_cast<int>(floorf(p / kCell));
-        t_exit = fminf(t_exit, exit_axis(o[a], d[a], cell[a]));
+        t_exit = fminf(t_exit, exit_axis<float>(o[a], d[a], cell[a], a));
       }
       t_exit = fmaxf(t_exit, tp);
       const int flat =

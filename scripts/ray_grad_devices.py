@@ -82,7 +82,8 @@ def plain_on_card():
     """Every kernel of the frame swapped for its plain version (on the
     card's tensors) → a function that undoes it."""
     saved = (fm._kernel_train_forward, fm._kernel_backward,
-             he._kernel_coords_backward, he._kernel_forward, rm._kernel_emit)
+             he._kernel_coords_backward, he._kernel_forward, rm._kernel_emit,
+             rm._kernel_emit_backward)
 
     def emit(o, d, tf, t, tce, ss, *a):
         state = rm._RayState(t=t, t_cell_end=tce, ss=ss, alpha=None,
@@ -96,11 +97,12 @@ def plain_on_card():
     he._kernel_forward = (lambda t, c, s, cd, count=None, offset=0:
                           he._gather_encode(t, c, s, cd))
     rm._kernel_emit = emit
+    rm._kernel_emit_backward = rm._plain_emit_backward
 
     def undo():
         (fm._kernel_train_forward, fm._kernel_backward,
          he._kernel_coords_backward, he._kernel_forward,
-         rm._kernel_emit) = saved
+         rm._kernel_emit, rm._kernel_emit_backward) = saved
     return undo
 
 

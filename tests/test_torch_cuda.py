@@ -1921,13 +1921,14 @@ def test_compact_rows_refuses_a_short_scratch_leaf_on_card(cuda):
     assert torch.equal(leaf, before)
 
 
-def _ray_grad_loss(dev, trainable, compute="bfloat16"):
+def _ray_grad_loss(dev, trainable, compute="bfloat16", sampled_at=None):
     """The differentiable-march scene of _fixed_steps_loss (the network)
     differentiated in its rays' origins and directions → (loss, [org,
     dirn] leaves, the params' leaves). The rays are made on the CPU on
     both devices: the frame is only piecewise smooth in them (a step's
     quantization, a skipped cell), so a ray made 1 ulp apart on the card
-    can take other steps and another gradient."""
+    can take other steps and another gradient. `sampled_at`: a list that
+    receives the emission kernel's launch count at each sample call."""
     from functools import partial
 
     from instantvnr_torch.accel import macrocell as mcmod
@@ -1974,37 +1975,49 @@ def _ray_grad_loss(dev, trainable, compute="bfloat16"):
         t.requires_grad_(trainable)
     rays = [org.detach().clone().requires_grad_(),
             dirn.detach().clone().requires_grad_()]
-    rgba = raymarch(partial(make_neural_sample_fn(field), p), *rays, t0, t1,
-                    mc, tf, jitter, settings, light_dir=light)
+    fn = partial(make_neural_sample_fn(field), p)
+    if sampled_at is not None:
+        from instantvnr_torch.render import raymarch as rm
+
+        def fn(*a, _fn=fn):
+            sampled_at.append(rm.emit_counter.launches)
+            return _fn(*a)
+    rgba = raymarch(fn, *rays, t0, t1, mc, tf, jitter, settings,
+                    light_dir=light)
     return (rgba ** 2).sum(), rays, params
 
 
 @pytest.mark.parametrize("trainable", [False, True])
 def test_ray_gradient_on_card_matches_cpu(cuda, trainable):
     """The fixed_steps frame differentiated in its rays on the card (the
-    emission kernel's backward through the plain emission, K3, K1's
-    training form, K2 and the coordinate kernel) against the CPU's plain
-    forms, within 5e-2 of each gradient's largest entry (the fused MLP's
-    tolerance carried through the blend). Launches: one emission a
-    superstep, one coordinate pass a sampling superstep, K4 only with the
-    params trainable."""
+    emission kernels, K3, K1's training form, K2 and the coordinate
+    kernel) against the CPU's plain forms, within 5e-2 of each gradient's
+    largest entry (the fused MLP's tolerance carried through the blend).
+    Launches: one emission a superstep, one emission backward for each
+    emission up to the last superstep that sampled (a later one's outputs
+    reach only the final marching state, which the frame does not read,
+    so autograd never runs its backward), one coordinate pass a sampling
+    superstep, K4 only with the params trainable."""
     from instantvnr_torch.render import raymarch as rm
 
     counters = (rm.emit_counter, he.counter, fm.train_forward_counter,
                 fm.backward_counter, he.coords_counter, he.backward_counter,
-                fm.counter)
+                fm.counter, rm.emit_backward_counter)
     grads = []
     for dev in ("cpu", cuda):
         before = [c.launches for c in counters]
-        loss, rays, params = _ray_grad_loss(dev, trainable)
+        sampled_at = []
+        loss, rays, params = _ray_grad_loss(dev, trainable,
+                                            sampled_at=sampled_at)
         loss.backward()
         if dev != "cpu":
             torch.cuda.synchronize()
-            emit, k3, k1t, k2, kc, k4, k1 = [c.launches - b for c, b in
-                                              zip(counters, before)]
+            emit, k3, k1t, k2, kc, k4, k1, emit_bwd = [
+                c.launches - b for c, b in zip(counters, before)]
             assert emit == 24 and k1 == 0
             assert 0 < k3 == k1t == k2 == kc <= emit
             assert k4 == (kc if trainable else 0)
+            assert emit_bwd == sampled_at[-1] - before[0] >= kc
         grads.append([t.grad.cpu().numpy() for t in rays]
                      + ([t.grad.cpu().numpy() for t in params] if trainable
                         else []))
@@ -2013,3 +2026,166 @@ def test_ray_gradient_on_card_matches_cpu(cuda, trainable):
         assert np.abs(cpu).max() > 0 and np.isfinite(card).all()
         np.testing.assert_allclose(card, cpu, rtol=0,
                                    atol=5e-2 * np.abs(cpu).max())
+
+
+# -- the emission's backward -------------------------------------------------
+
+
+def _emit_backward_both(org, dirn, t_far, state, mc, k, skips, s, grads,
+                        need=(True,) * 6):
+    """The kernel's and the plain version's gradients of one emission."""
+    from instantvnr_torch.render import raymarch as rm
+
+    ins = (org, dirn, t_far, state.t, state.t_cell_end, state.ss)
+    args = (mc, 1.0, k, skips, s)
+    before = rm.emit_backward_counter.launches
+    got = rm._kernel_emit_backward(*ins, grads, need, *args)
+    torch.cuda.synchronize()
+    assert rm.emit_backward_counter.launches == before + 1
+    want = rm._plain_emit_backward(*ins, grads, need, *args)
+    return got, want
+
+
+def _assert_grads_close(got, want, rtol=1e-5):
+    for name, a, b in zip(("org", "dirn", "t_far", "t", "tce", "ss"), got,
+                          want):
+        if a is None:
+            continue
+        b = torch.zeros_like(a) if b is None else b
+        assert torch.isfinite(a).all(), name
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=rtol * float(b.abs().max()),
+                                   err_msg=name)
+
+
+def _random_cotangents(gen, r, kk, device):
+    return [torch.randn(sh, generator=gen, device=device)
+            for sh in ((r,),) * 3 + ((r, kk),) * 2]
+
+
+@pytest.mark.parametrize("w,h,k,s,skips", [
+    *((512, 512, 8, s, skips) for s in (1, 2) for skips in (1, 8)),
+    *((300, 167, k, s, skips) for k in (1, 4, 8, 33) for s in (1, 2)
+      for skips in (1, 8))])
+def test_raymarch_emit_backward_matches_plain(cuda, w, h, k, s, skips):
+    """raymarch_emit_backward against the plain backward (autograd of
+    _emit_samples on the same card tensors) on a frame's rays over vorts
+    128³ (R = 2^18 at 512², and a ragged R), three supersteps from the
+    carried state, with dead rays (an empty range) and rays whose state is
+    past t_far: each leaf within 1e-5 of its largest entry, the same bits
+    on a second launch, one launch a call."""
+    from instantvnr_torch.render import raymarch as rm
+
+    sv, org, dirn, t0, t1, _ = _wavefront_rays(cuda, w, h)
+    t_far = t1.clone()
+    t_far[128:640] = t0[128:640]  # dead: the range is empty
+    state = rm.init_ray_state(t0, t_far)
+    state = state._replace(t=torch.where(
+        torch.arange(len(t0), device=cuda) % 97 == 0, t_far + 1.0, state.t))
+    gen = torch.Generator(device=cuda).manual_seed(k * 10 + s + skips)
+    for _ in range(3):
+        grads = _random_cotangents(gen, len(t0), k * s, cuda)
+        got, want = _emit_backward_both(org, dirn, t_far, state,
+                                        sv.macrocell, k, skips, s, grads)
+        _assert_grads_close(got, want)
+        again = rm._kernel_emit_backward(
+            org, dirn, t_far, state.t, state.t_cell_end, state.ss, grads,
+            (True,) * 6, sv.macrocell, 1.0, k, skips, s)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        (t, tce, ss), *_ = rm._emit_samples(org, dirn, t_far, state,
+                                            sv.macrocell, 1.0, k, skips, s)
+        state = state._replace(t=t, t_cell_end=tce, ss=ss)
+
+
+def test_raymarch_emit_backward_ties_and_axis_parallel(cuda):
+    """The scan's ties (tests/torch_emit_rays.py: t_y at the cell end, the
+    last cell's exit at t_far, two axes' exits, the probe on an exit face)
+    split on the card as autograd splits them, and axis-parallel rays (one
+    and two zero components) get finite gradients, 0 on the zero axes:
+    the kernel against the plain backward within 1e-5 of each leaf's
+    largest entry, and against each tie's stated split."""
+    from torch_emit_rays import (BASE_STEP, port_macrocell, random_rays,
+                                 tie_cases, tie_cotangents)
+
+    from instantvnr_torch.render import raymarch as rm
+
+    mc = port_macrocell(cuda)
+    for c in tie_cases().values():
+        ins = [torch.tensor(c[x], device=cuda)
+               for x in ("org", "dirn", "t_far", "t", "tce", "ss")]
+        grads = [torch.tensor(g, device=cuda) for g in tie_cotangents(c)]
+        args = (mc, BASE_STEP, c["k"], c["skips"], 1)
+        got = rm._kernel_emit_backward(*ins, grads, (True,) * 6, *args)
+        want = rm._plain_emit_backward(*ins, grads, (True,) * 6, *args)
+        _assert_grads_close(got, want)
+        if c["want"] is not None:
+            leaves = dict(zip(("org", "dirn", "t_far", "t", "tce", "ss"),
+                              got))
+            exp = {leaf: torch.zeros_like(x) for leaf, x in leaves.items()}
+            for (leaf, i), v in c["want"].items():
+                exp[leaf].view(-1)[i] = v
+            for leaf, x in leaves.items():
+                torch.testing.assert_close(x, exp[leaf], rtol=0, atol=1e-6)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for zero_axes in (1, 2):
+        org, dirn, t0, t1 = (torch.tensor(x, device=cuda) for x in
+                             random_rays(4096, 50 + zero_axes, zero_axes))
+        state = rm.init_ray_state(t0, t1)
+        for _ in range(3):
+            grads = _random_cotangents(gen, 4096, 4, cuda)
+            got, want = _emit_backward_both(org, dirn, t1, state, mc, 4, 8,
+                                            1, grads)
+            _assert_grads_close(got, want)
+            zero = dirn == 0
+            assert (got[0][zero] == 0).all() and (got[1][zero] == 0).all()
+            (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state, mc,
+                                                BASE_STEP, 4, 8)
+            state = state._replace(t=t, t_cell_end=tce, ss=ss)
+
+
+def test_emit_backward_partial_needs_and_cotangents(cuda):
+    """Only the gradients asked for are computed (the others None), and a
+    missing cotangent counts as zero: the same numbers as the full call
+    with zeros in its place."""
+    from instantvnr_torch.render import raymarch as rm
+
+    sv, org, dirn, t0, t1, _ = _wavefront_rays(cuda, 64, 64)
+    state = rm.init_ray_state(t0, t1)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    grads = _random_cotangents(gen, len(t0), 8, cuda)
+    sparse = [None, grads[1], None, grads[3], None]
+    dense = [g if g is not None else torch.zeros_like(z)
+             for g, z in zip(sparse, grads)]
+    args = (sv.macrocell, 1.0, 8, 8, 1)
+    ins = (org, dirn, t1, state.t, state.t_cell_end, state.ss)
+    need = (True, True, False, True, False, False)
+    got = rm._kernel_emit_backward(*ins, sparse, need, *args)
+    full = rm._kernel_emit_backward(*ins, dense, (True,) * 6, *args)
+    for g, f, n in zip(got, full, need):
+        assert (g is None) == (not n)
+        if n:
+            assert torch.equal(g, f)
+
+
+def test_card_backward_never_runs_the_plain_emission(cuda, monkeypatch):
+    """The ray-differentiated frame's backward on the card goes through
+    raymarch_emit_backward alone: with the plain emission and its plain
+    backward patched to raise, the frame still differentiates, one
+    emission backward for each emission up to the last that sampled."""
+    from instantvnr_torch.render import raymarch as rm
+
+    def refuse(*a, **k):
+        raise AssertionError("a card backward reached the plain emission")
+
+    monkeypatch.setattr(rm, "_plain_emit_backward", refuse)
+    monkeypatch.setattr(rm, "_emit_samples", refuse)
+    before = (rm.emit_counter.launches, rm.emit_backward_counter.launches)
+    sampled_at = []
+    loss, rays, _ = _ray_grad_loss(cuda, False, sampled_at=sampled_at)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert rm.emit_counter.launches - before[0] == 24
+    assert (rm.emit_backward_counter.launches - before[1]
+            == sampled_at[-1] - before[0] > 0)
+    assert all(torch.isfinite(r.grad).all() and r.grad.abs().max() > 0
+               for r in rays)

@@ -209,11 +209,12 @@ def test_ray_gradients_match_jax(scene, compute_dtype, rtol, trainable):
 
 
 def test_emission_backward_is_the_plain_emissions():
-    """The card's emission (`_Emit`: the kernel forward, the backward
-    through the plain emission recomputed) gives the gradient of the plain
-    emission under autograd, for every output and input: here with the
-    kernel's launch replaced by the plain emission, its twin bit for bit
-    (tests/test_torch_cuda.py holds the kernel to it)."""
+    """The card's emission (`_Emit`: the `raymarch_emit` kernel forward,
+    the `raymarch_emit_backward` kernel backward) gives the gradient of the
+    plain emission under autograd, for every output and input: here with
+    each kernel's launch replaced by its plain version (the forward's twin
+    bit for bit, the backward's `_plain_emit_backward`;
+    tests/test_torch_cuda.py holds the kernels to them)."""
     from instantvnr_torch.render import raymarch as rm
 
     vol = synthetic_volume(DIMS, kind="sphere", device="cpu")
@@ -246,14 +247,15 @@ def test_emission_backward_is_the_plain_emissions():
                           best_rgb=None)
         return rm._emit_samples(o, d, tf, st, *a)
 
-    orig = rm._kernel_emit
+    orig = rm._kernel_emit, rm._kernel_emit_backward
     rm._kernel_emit = plain_launch
+    rm._kernel_emit_backward = rm._plain_emit_backward
     try:
         got = grads(lambda o, d, tf, st: (
             lambda r: ((r[0], r[1], r[2]), r[3], r[4], r[5]))(rm._Emit.apply(
                 o, d, tf, st.t, st.t_cell_end, st.ss, *args)))
     finally:
-        rm._kernel_emit = orig
+        rm._kernel_emit, rm._kernel_emit_backward = orig
     for g, w in zip(got, want):
         assert w is not None and w.abs().sum() > 0
         torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -163,8 +163,9 @@ def test_cpu_wrappers_never_build(monkeypatch):
     x = torch.from_numpy(rng.standard_normal((33, 16)).astype(np.float32))
     counters = (fm.counter, fm.train_forward_counter, fm.backward_counter,
                 he.counter, he.backward_counter, sc.counter, sc.ext_counter,
-                isw.counter, rm.emit_counter, opt.track_counter,
-                opt.resolve_counter, bs.counter, mt.counter)
+                isw.counter, rm.emit_counter, rm.emit_backward_counter,
+                opt.track_counter, opt.resolve_counter, bs.counter,
+                mt.counter)
     before = [c.launches for c in counters]
     y = fm.fused_mlp_apply(ws, x, NetworkConfig(n_neurons=16,
                                                 n_hidden_layers=1))
@@ -221,6 +222,11 @@ def test_cpu_wrappers_never_build(monkeypatch):
     _, t_x, t_y, valid = rm.raymarch_emit(org, dirn, torch.full((r,), 30.0),
                                           state, mc, 1.0, 8, 8)
     assert t_x.shape == t_y.shape == valid.shape == (r, 8) and valid.any()
+    # its gradient in the rays: autograd of the plain emission
+    leaf = dirn.clone().requires_grad_()
+    rm.raymarch_emit(org, leaf, torch.full((r,), 30.0), state, mc, 1.0, 8,
+                     8)[2].sum().backward()
+    assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().max() > 0
     # the path tracer's event and the brick pool's sample
     track = opt.pt_track(org, dirn, state.t, torch.full((r,), 30.0),
                          torch.ones(r), mc.max_opacity, (20, 20, 20), 1.0, 2)
@@ -268,7 +274,8 @@ def test_loader_is_lazy():
         "hash_encode_forward", "hash_encode_backward",
         "hash_encode_coords_backward", "slab_composite_forward",
         "slab_composite_ext_forward",
-        "iso_sweep_forward", "raymarch_emit", "pt_track", "pt_resolve",
+        "iso_sweep_forward", "raymarch_emit", "raymarch_emit_backward",
+        "pt_track", "pt_resolve",
         "brick_sample", "mt_count", "mt_emit", "compact_rows",
         "scatter_rows"}
 
