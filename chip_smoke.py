@@ -2273,30 +2273,38 @@ def emit_backward_record(torch, name, org, dirn, t_far, state, mc, k,
     return rec
 
 
-def phase_raymarch_emit_backward(torch, sv):
-    """raymarch_emit_backward at phase_raymarch_emit's shapes (R = 512²
-    orbit rays over vorts 128³, K = 8, 8 skips, the state after a first
-    superstep) and at the differentiable march's (its 128² frame's rays,
-    K = FIXED_ITERS, 8 skips, the fresh state and the state after a first
-    superstep) → the 512² record (the kernels line's)."""
+def emit_backward_shapes(torch, sv):
+    """The emission's backward's three main-path shapes over sv: R = 512²
+    orbit rays over vorts 128³, K = 8 (the emission phase's, the state
+    after a first superstep), and the differentiable march's 128² frame's
+    rays, K = FIXED_ITERS, from the fresh state and after a first
+    superstep; 8 skips → [(name, org, dirn, t_far, state, K)]."""
     from instantvnr_torch.render import raymarch as rm
 
-    recs = []
-    for name, size, k, cam in (
-            (f"{SIZE}^2", SIZE, 8, orbit(1, N_FRAMES, max(DIMS))),
+    shapes = []
+    for name, size, k, cam, fresh in (
+            (f"{SIZE}^2", SIZE, 8, orbit(1, N_FRAMES, max(DIMS)), False),
+            (f"{FIXED_SIZE}^2 frame, fresh", FIXED_SIZE, FIXED_ITERS,
+             orbit(0, N_FRAMES, max(DIMS)), True),
             (f"{FIXED_SIZE}^2 frame", FIXED_SIZE, FIXED_ITERS,
-             orbit(0, N_FRAMES, max(DIMS)))):
+             orbit(0, N_FRAMES, max(DIMS)), False)):
         org, dirn, t0, t1, _ = wavefront_rays(torch, sv, size, size, cam)
         state = rm.init_ray_state(t0, t1)
-        if size == FIXED_SIZE:
-            recs.append(emit_backward_record(torch, name + ", fresh", org,
-                                             dirn, t1, state, sv.macrocell,
-                                             k, 8))
-        (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state,
-                                            sv.macrocell, 1.0, k, 8)
-        state = state._replace(t=t, t_cell_end=tce, ss=ss)
-        recs.append(emit_backward_record(torch, name, org, dirn, t1, state,
-                                         sv.macrocell, k, 8))
+        if not fresh:
+            (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state,
+                                                sv.macrocell, 1.0, k, 8)
+            state = state._replace(t=t, t_cell_end=tce, ss=ss)
+        shapes.append((name, org, dirn, t1, state, k))
+    return shapes
+
+
+def phase_raymarch_emit_backward(torch, sv):
+    """raymarch_emit_backward at its three main-path shapes
+    (emit_backward_shapes) → the 512² record (the kernels line's)."""
+    recs = [emit_backward_record(torch, name, org, dirn, t_far, state,
+                                 sv.macrocell, k, 8)
+            for name, org, dirn, t_far, state, k in
+            emit_backward_shapes(torch, sv)]
     return recs[0]
 
 

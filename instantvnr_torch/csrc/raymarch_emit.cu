@@ -64,11 +64,24 @@
 // the side it selects, floor, the quantized step's count and the adaptive
 // rate carry none, and an axis whose quotient is not finite carries 0. No
 // tape and no atomics (a reverse-mode design would store a slot's probes
-// or re-run them backward); the ten inputs make forward mode cheap. Bound
-// on an H100: bytes, 40 B a ray in, 12 B of state cotangents, 8 B a slot
-// of interval cotangents, 40 B a ray out, the macrocell grid once (about
-// 41 MB, 12 us at R = 2^18, K = 8); at the 128² differentiable frame's
-// R = 16,384, K = 4 about 2 MB, where a launch's latency dominates.
+// or re-run them backward); the ten inputs make forward mode cheap.
+//
+// What sets its time is the instructions its warps run, not memory: a
+// warp runs a slot's probe body while any of its rays probes, so a probe's
+// derivative arithmetic is paid about once a slot a warp. That arithmetic
+// is kept lean: only the axis at the min carries an exit derivative (two
+// entries), a division's derivative is one rounded reciprocal and
+// products, and the cotangent sums are FMAs; the value chain stays
+// unfused, bit for bit the forward's.
+// More lanes a ray (each re-running the value chain for its share of the
+// directions) and cotangent rows staged in shared memory were slower
+// (scripts/emit_backward_variants.py): the duplicated value chains add
+// instructions, and staging adds registers and a barrier for reads the
+// L1 already serves. Bound on an H100: bytes, 40 B a ray in, 12 B of state
+// cotangents, 8 B a slot of interval cotangents, 40 B a ray out, the
+// macrocell grid once (about 41 MB, 12 us at R = 2^18, K = 8); at the 128²
+// differentiable frame's R = 16,384, K = 4 about 2 MB, where a launch's
+// latency dominates.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -99,15 +112,10 @@ struct Dual {
 __device__ __forceinline__ float value(float x) { return x; }
 __device__ __forceinline__ float value(const Dual& x) { return x.v; }
 
-// an input: its value, and in the backward the unit derivative at `in`
-template <class V>
-__device__ __forceinline__ V seed(float v, int in);
-template <>
-__device__ __forceinline__ float seed<float>(float v, int) {
-  return v;
-}
-template <>
-__device__ __forceinline__ Dual seed<Dual>(float v, int in) {
+// an input of the same type as `like`: its value, and in the backward the
+// unit derivative at direction `in`
+__device__ __forceinline__ float seed(float, float v, int) { return v; }
+__device__ __forceinline__ Dual seed(const Dual&, float v, int in) {
   Dual r;
   r.v = v;
 #pragma unroll
@@ -138,13 +146,15 @@ __device__ __forceinline__ Dual sub(const Dual& a, const Dual& b) {
   return r;
 }
 
-// a / c for a constant c (no derivative: the quantized step's count)
+// a / c for a constant c (no derivative: the quantized step's count); the
+// derivatives scale by one rounded reciprocal
 __device__ __forceinline__ float div(float a, float c) { return a / c; }
 __device__ __forceinline__ Dual div(const Dual& a, float c) {
   Dual r;
   r.v = a.v / c;
+  const float inv = __frcp_rn(c);
 #pragma unroll
-  for (int i = 0; i < kIn; ++i) r.d[i] = a.d[i] / c;
+  for (int i = 0; i < kIn; ++i) r.d[i] = a.d[i] * inv;
   return r;
 }
 
@@ -173,65 +183,14 @@ __device__ __forceinline__ Dual vmax(const Dual& a, const Dual& b) {
   return pick(a, b, fmaxf(a.v, b.v));
 }
 
-// The ray's exit t of `cell` along axis a: +inf where the quotient is not
-// finite (a zero direction component, or an overflow), which drops out of
-// the min, as in _cell_exit_t; such an axis has derivative 0 (the plain
-// version's double where, utils/math.py::axis_quotient).
-__device__ __forceinline__ float exit_quotient(float o, float d, int c) {
+// The ray's exit t of `cell` along one axis: +inf where the quotient is
+// not finite (a zero direction component, or an overflow), which drops out
+// of the min, as in _cell_exit_t.
+__device__ __forceinline__ float exit_axis(float o, float d, int c) {
   const float step_pos = d > 0.0f ? 1.0f : 0.0f;
   const float boundary = (static_cast<float>(c) + step_pos) * kCell;
-  return (boundary - o) / d;
-}
-
-template <class V>
-__device__ __forceinline__ V exit_axis(float o, float d, int c, int a);
-template <>
-__device__ __forceinline__ float exit_axis<float>(float o, float d, int c,
-                                                  int) {
-  const float t = exit_quotient(o, d, c);
+  const float t = (boundary - o) / d;
   return isfinite(t) ? t : INFINITY;
-}
-template <>
-__device__ __forceinline__ Dual exit_axis<Dual>(float o, float d, int c,
-                                                int a) {
-  const float t = exit_quotient(o, d, c);
-  const bool finite = isfinite(t);
-  Dual r = seed<Dual>(finite ? t : INFINITY, -1);
-  if (finite) {  // t = (b − o) / d: ∂t/∂o = −1/d, ∂t/∂d = −t/d
-    r.d[kOrgIn + a] = -1.0f / d;
-    r.d[kDirIn + a] = -(t / d);
-  }
-  return r;
-}
-
-// amin over the three axes (_cell_exit_t): autograd splits the derivative
-// evenly among tied axes
-__device__ __forceinline__ float amin3(const float (&e)[3]) {
-  return fminf(fminf(fminf(INFINITY, e[0]), e[1]), e[2]);
-}
-__device__ __forceinline__ Dual amin3(const Dual (&e)[3]) {
-  Dual r;
-  r.v = fminf(fminf(fminf(INFINITY, e[0].v), e[1].v), e[2].v);
-  int ties = 0;
-#pragma unroll
-  for (int i = 0; i < kIn; ++i) r.d[i] = 0.0f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (e[a].v == r.v) {
-      ++ties;
-#pragma unroll
-      for (int i = 0; i < kIn; ++i) r.d[i] += e[a].d[i];
-    }
-  }
-  if (ties > 1) {
-#pragma unroll
-    for (int i = 0; i < kIn; ++i) r.d[i] /= static_cast<float>(ties);
-  }
-  return r;
-}
-
-__device__ __forceinline__ int clamp_cell(int c, int m) {
-  return c < 0 ? 0 : (c > m - 1 ? m - 1 : c);
 }
 
 // A ray's marching state, carried in registers across its slots.
@@ -242,6 +201,40 @@ struct RayT {
   V t, tce, ss;
 };
 using Ray = RayT<float>;
+
+// The cell's exit t: t_min, the min of the axes' exits e (_cell_exit_t's
+// amin). In the backward only the axes at the min carry a derivative, and
+// only in their own origin and direction component (t = (b − o) / d:
+// ∂t/∂o = −1/d, ∂t/∂d = −t/d, from one rounded reciprocal); autograd's
+// amin splits it evenly among tied axes, and an axis whose quotient is not
+// finite carries 0 (the plain version's double where, utils/math.py::
+// axis_quotient).
+__device__ __forceinline__ float cell_exit(const Ray&, const float (&)[3],
+                                           float t_min) {
+  return t_min;
+}
+__device__ __forceinline__ Dual cell_exit(const RayT<Dual>& ray,
+                                          const float (&e)[3], float t_min) {
+  Dual r;
+  r.v = t_min;
+#pragma unroll
+  for (int i = 0; i < kIn; ++i) r.d[i] = 0.0f;
+  if (!isfinite(r.v)) return r;
+  const int ties = (e[0] == r.v) + (e[1] == r.v) + (e[2] == r.v);
+  const float share = ties == 1 ? 1.0f : (ties == 2 ? 0.5f : 1.0f / 3.0f);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (e[a] != r.v) continue;
+    const float inv = __frcp_rn(ray.d[a]);
+    r.d[kOrgIn + a] = -inv * share;
+    r.d[kDirIn + a] = -(e[a] * inv) * share;
+  }
+  return r;
+}
+
+__device__ __forceinline__ int clamp_cell(int c, int m) {
+  return c < 0 ? 0 : (c > m - 1 ? m - 1 : c);
+}
 
 // The macrocell grid's max opacity through the read-only data cache.
 struct LdgOccupancy {
@@ -271,13 +264,15 @@ __device__ __forceinline__ void probe_cells(RayT<V>& ray,
     // probe the cell just past the current position
     const V tp = add(ray.t, kProbeEps);
     int cell[3];
-    V t_ax[3];
+    float e[3];
+    float t_min = INFINITY;
     for (int a = 0; a < 3; ++a) {
       const float p = ray.o[a] + value(tp) * ray.d[a];
       cell[a] = static_cast<int>(floorf(p / kCell));
-      t_ax[a] = exit_axis<V>(ray.o[a], ray.d[a], cell[a], a);
+      e[a] = exit_axis(ray.o[a], ray.d[a], cell[a]);
+      t_min = fminf(t_min, e[a]);
     }
-    const V t_exit = vmax(amin3(t_ax), tp);
+    const V t_exit = vmax(cell_exit(ray, e, t_min), tp);
     const int flat =
         (clamp_cell(cell[2], g.mz) * g.my + clamp_cell(cell[1], g.my)) *
             g.mx +
@@ -291,7 +286,7 @@ __device__ __forceinline__ void probe_cells(RayT<V>& ray,
     // adaptiveSamplingRate (raytracing.h:188-194) quantized so the
     // interval divides evenly (method_raymarching.cu:263-267); the rate
     // and the count carry no derivative
-    const V t_exit_c = vmin(t_exit, seed<V>(ray.t_far, kTFarIn));
+    const V t_exit_c = vmin(t_exit, seed(ray.t, ray.t_far, kTFarIn));
     const float rr = fabsf(fminf(fmaxf(occ, 0.1f), 1.0f) - 1.0f);
     const float step =
         fmaxf(g.base_step + g.rate_scale * rr * rr, g.base_step);
@@ -484,7 +479,7 @@ __device__ __forceinline__ float load_or_zero(const float* p, long long i) {
 __device__ __forceinline__ void add_scaled(float (&acc)[kIn], float g,
                                            const Dual& x) {
 #pragma unroll
-  for (int i = 0; i < kIn; ++i) acc[i] += g * x.d[i];
+  for (int i = 0; i < kIn; ++i) acc[i] = __fmaf_rn(g, x.d[i], acc[i]);
 }
 
 __global__ void __launch_bounds__(kRays)
@@ -505,9 +500,9 @@ raymarch_emit_backward_kernel(const float* __restrict__ org,
     ray.d[a] = dirn[3 * r + a];
   }
   ray.t_far = t_far_in[r];
-  ray.t = seed<Dual>(t_in[r], kTIn);
-  ray.tce = seed<Dual>(tce_in[r], kTceIn);
-  ray.ss = seed<Dual>(ss_in[r], kSsIn);
+  ray.t = seed(ray.t, t_in[r], kTIn);
+  ray.tce = seed(ray.t, tce_in[r], kTceIn);
+  ray.ss = seed(ray.t, ss_in[r], kSsIn);
   const LdgOccupancy occ{max_opacity};
   float acc[kIn];
 #pragma unroll

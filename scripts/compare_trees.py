@@ -37,7 +37,10 @@ checks as its phases). Per run, one JSON line:
   2-6) and the training step at 2^19 (CUDA events over 100 steps, and its
   device busy time from torch.profiler over 20);
 - the wavefront's emission kernel at `chip_smoke.phase_raymarch_emit`'s
-  shapes (R = 512², K = 8, 8 skips; device time) and the marching-
+  shapes (R = 512², K = 8 and 16, 8 skips; device time), its backward
+  (where the tree has one) at `chip_smoke.emit_backward_shapes`' three
+  (R = 512², K = 8; the 128² ray frame's K = 4, fresh and after a first
+  superstep; device time, one kernel a call) and the marching-
   tetrahedra kernels on its 33-plane slab of vorts 128³ (the kernels'
   device time, all the call's device work, the call by CUDA events);
 - the compaction kernels at `chip_smoke.compaction_cases`' shapes (the
@@ -57,7 +60,17 @@ checks as its phases). Per run, one JSON line:
 
 Then the card's name and power limit, as nvidia-smi prints them. Needs one
 card.
+
+    python3 scripts/compare_trees.py --emission TREE [TREE ...]
+
+reads only the emission's kernels (the forward at K = 8 and 16, the
+backward at its three shapes) a run, with the count and a digest of each
+one's SASS instructions in the tree's library (`cuobjdump -sass`, the
+addresses and encodings left out: the same digest is the same machine
+code): about 15 s a run once each tree is built, so that many readings of
+each tree can alternate in one call.
 """
+import hashlib
 import importlib.util
 import json
 import os
@@ -103,13 +116,23 @@ def host_ms(torch, fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def measure():
-    """One run in the current directory's checkout → one JSON line."""
+def measure(emission_only=False):
+    """One run in the current directory's checkout → one JSON line; with
+    `emission_only` the emission's kernels alone."""
     import torch
 
     sys.path.insert(0, os.getcwd())
     cs = chip_smoke()
     cs.COMPACTION_KERNEL_NAMES += PREVIOUS_COMPACTION_KERNELS
+    if emission_only:
+        from instantvnr_torch import api
+        from instantvnr_torch.ops import cuda_lib
+
+        lib = cuda_lib.load_library()
+        sv = api.SimpleVolume.synthetic(cs.DIMS, "vorts", device="cuda")
+        print(json.dumps({"tree": os.getcwd(), **emission(torch, cs, sv),
+                          "sass": sass_digests(lib.path)}), flush=True)
+        return
     from instantvnr_torch import api
     from instantvnr_torch.config import ModelConfig
     from instantvnr_torch.models.network import NeuralField
@@ -244,22 +267,74 @@ def measure():
     print(json.dumps(rec), flush=True)
 
 
-def emission_and_isosurface(torch, cs, sv):
-    """raymarch_emit and the marching-tetrahedra kernels at the smoke's
-    shapes, through the tree's own wrappers."""
-    from instantvnr_torch.ops import isosurface as mt
+def emission(torch, cs, sv):
+    """raymarch_emit at the smoke's shapes (K = 8 and 16) and, where the
+    tree has it, raymarch_emit_backward at its three, through the tree's
+    own wrappers (the smoke's random cotangents)."""
     from instantvnr_torch.render import raymarch as rm
 
     org, dirn, t0, t1, _ = cs.wavefront_rays(
         torch, sv, cs.SIZE, cs.SIZE, cs.orbit(1, cs.N_FRAMES, max(cs.DIMS)))
-    mc, k, skips = sv.macrocell, 8, 8
-    state = rm.init_ray_state(t0, t1)
-    (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state, mc, 1.0, k,
-                                        skips)
-    state = state._replace(t=t, t_cell_end=tce, ss=ss)
-    out = {"raymarch_emit_ms": cs.device_ms(
-        torch, lambda: rm.raymarch_emit(org, dirn, t1, state, mc, 1.0, k,
-                                        skips), ("raymarch_emit_kernel",))}
+    mc, skips = sv.macrocell, 8
+    out = {}
+    for k in (8, 16):
+        state = rm.init_ray_state(t0, t1)
+        (t, tce, ss), *_ = rm._emit_samples(org, dirn, t1, state, mc, 1.0, k,
+                                            skips)
+        state = state._replace(t=t, t_cell_end=tce, ss=ss)
+        out["raymarch_emit_ms" if k == 8 else f"raymarch_emit_k{k}_ms"] = (
+            cs.device_ms(torch, lambda: rm.raymarch_emit(
+                org, dirn, t1, state, mc, 1.0, k, skips),
+                ("raymarch_emit_kernel",)))
+    if not hasattr(rm, "_kernel_emit_backward"):
+        return out
+    for name, o, d, t_far, state, k in cs.emit_backward_shapes(torch, sv):
+        r = o.shape[0]
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 40 + k)
+        grads = [torch.randn(sh, generator=gen, device="cuda")
+                 for sh in ((r,),) * 3 + ((r, k),) * 2]
+        ins = (o, d, t_far, state.t, state.t_cell_end, state.ss)
+        out[f"raymarch_emit_backward[{name}]_ms"] = cs.device_ms(
+            torch, lambda: rm._kernel_emit_backward(
+                *ins, grads, (True,) * 6, mc, 1.0, k, skips, 1),
+            ("raymarch_emit_backward_kernel",), per_call=1)
+    return out
+
+
+def sass_digests(lib_path, kernels=("raymarch_emit_kernel",
+                                     "raymarch_emit_backward_kernel")):
+    """{kernel: (SASS instructions, sha1 of their text)} of the library's
+    functions whose names hold `<length><kernel>` (as mangled), from
+    `cuobjdump -sass` with each line's address and encoding left out."""
+    import re
+
+    from instantvnr_torch.ops.cuda_lib import _nvcc
+
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass",
+         lib_path], capture_output=True, text=True, check=True).stdout
+    lines, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((k for k in kernels if f"{len(k)}{k}" in m.group(1)),
+                      None)
+            if fn:
+                lines[fn] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if fn and ins:
+            lines[fn].append(ins.group(1))
+    return {k: (len(v), hashlib.sha1("\n".join(v).encode()).hexdigest())
+            for k, v in lines.items()}
+
+
+def emission_and_isosurface(torch, cs, sv):
+    """The emission's kernels (`emission`) and the marching-tetrahedra
+    kernels at the smoke's shapes, through the tree's own wrappers."""
+    from instantvnr_torch.ops import isosurface as mt
+
+    out = emission(torch, cs, sv)
     vol = sv.volume.data
     g, iso = vol[:33].contiguous(), float(vol.median())
 
@@ -316,16 +391,18 @@ def wavefront_and_extraction(torch, cs, sv, nv):
 
 
 def main():
-    if sys.argv[1:] == ["--measure"]:
-        measure()
+    if sys.argv[1:2] == ["--measure"]:
+        measure(emission_only=sys.argv[2:] == ["--emission"])
         return 0
-    if len(sys.argv) < 2:
+    mode = ["--emission"] if sys.argv[1:2] == ["--emission"] else []
+    trees = sys.argv[1 + len(mode):]
+    if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
-    for tree in sys.argv[1:]:
+    for tree in trees:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--measure"], cwd=os.path.abspath(tree),
+                              "--measure", *mode], cwd=os.path.abspath(tree),
                              capture_output=True, text=True)
         lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
         if out.returncode or not lines:

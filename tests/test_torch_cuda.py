@@ -2066,14 +2066,18 @@ def _random_cotangents(gen, r, kk, device):
 @pytest.mark.parametrize("w,h,k,s,skips", [
     *((512, 512, 8, s, skips) for s in (1, 2) for skips in (1, 8)),
     *((300, 167, k, s, skips) for k in (1, 4, 8, 33) for s in (1, 2)
-      for skips in (1, 8))])
+      for skips in (1, 8)),
+    *((w, 1, k, 1, 8) for w in (1, 31, 127, 129, 16385) for k in (4, 8)),
+    (16385, 1, 33, 2, 8)])
 def test_raymarch_emit_backward_matches_plain(cuda, w, h, k, s, skips):
     """raymarch_emit_backward against the plain backward (autograd of
     _emit_samples on the same card tensors) on a frame's rays over vorts
-    128³ (R = 2^18 at 512², and a ragged R), three supersteps from the
-    carried state, with dead rays (an empty range) and rays whose state is
-    past t_far: each leaf within 1e-5 of its largest entry, the same bits
-    on a second launch, one launch a call."""
+    128³ (R = 2^18 at 512², a ragged R, and a frame's middle row of 1, 31,
+    127, 129 and 16,385 rays: the edges of a lane group and of a block of
+    rays), three supersteps from the carried state, with dead rays (an
+    empty range) and rays whose state is past t_far: each leaf within 1e-5
+    of its largest entry, the same bits on a second launch, one launch a
+    call."""
     from instantvnr_torch.render import raymarch as rm
 
     sv, org, dirn, t0, t1, _ = _wavefront_rays(cuda, w, h)
@@ -2143,28 +2147,36 @@ def test_raymarch_emit_backward_ties_and_axis_parallel(cuda):
             state = state._replace(t=t, t_cell_end=tce, ss=ss)
 
 
-def test_emit_backward_partial_needs_and_cotangents(cuda):
-    """Only the gradients asked for are computed (the others None), and a
+@pytest.mark.parametrize("need", [
+    (True, True, False, True, False, False),
+    (True, True, False, False, False, False),
+    (False, False, False, True, True, True)])
+@pytest.mark.parametrize("nulls", [(0, 2, 4), (0,), (1,), (2,), (3,), (4,)])
+def test_emit_backward_partial_needs_and_cotangents(cuda, need, nulls):
+    """Only the gradients asked for are computed (the others None; the
+    rays alone and the state alone, as a frame asks for them), and a
     missing cotangent counts as zero: the same numbers as the full call
-    with zeros in its place."""
+    with zeros in its place, within 1e-5 of the plain backward's largest
+    entry."""
     from instantvnr_torch.render import raymarch as rm
 
     sv, org, dirn, t0, t1, _ = _wavefront_rays(cuda, 64, 64)
     state = rm.init_ray_state(t0, t1)
     gen = torch.Generator(device=cuda).manual_seed(4)
     grads = _random_cotangents(gen, len(t0), 8, cuda)
-    sparse = [None, grads[1], None, grads[3], None]
+    sparse = [None if i in nulls else g for i, g in enumerate(grads)]
     dense = [g if g is not None else torch.zeros_like(z)
              for g, z in zip(sparse, grads)]
     args = (sv.macrocell, 1.0, 8, 8, 1)
     ins = (org, dirn, t1, state.t, state.t_cell_end, state.ss)
-    need = (True, True, False, True, False, False)
     got = rm._kernel_emit_backward(*ins, sparse, need, *args)
     full = rm._kernel_emit_backward(*ins, dense, (True,) * 6, *args)
     for g, f, n in zip(got, full, need):
         assert (g is None) == (not n)
         if n:
             assert torch.equal(g, f)
+    _assert_grads_close(got, rm._plain_emit_backward(*ins, dense,
+                                                     (True,) * 6, *args))
 
 
 def test_card_backward_never_runs_the_plain_emission(cuda, monkeypatch):
