@@ -65,6 +65,7 @@ from instantvnr_torch.render.camera import Camera
 from instantvnr_torch.render.raymarch import DEFAULT_LIGHT, RaymarchSettings
 from instantvnr_torch.render.transform import default_transform
 from instantvnr_torch.utils.device import resolve_device
+from instantvnr_torch.utils.profiling import span
 from instantvnr_torch.utils.tfn import TransferFunction, bake_transfer_function
 
 
@@ -392,20 +393,24 @@ class NeuralVolume:
               chunk: int = 10) -> TrainingStatistics:
         """Run `steps` training steps in chunks of `chunk`
         (vnrNeuralVolumeTrain, api.cpp:222 → Impl::train,
-        network.cu:231-259). fast_mode skips the online macrocell update."""
+        network.cu:231-259). fast_mode skips the online macrocell update.
+        The call is a `train.call` span, its closing read of the loss (the
+        wait for the card) a `train.wait` (utils/profiling.py)."""
         if self.simple is None:
             raise ValueError("training needs a reference volume (simple=...)")
-        vol = self.simple.volume.data
-        done = 0
-        while done < steps:
-            n = min(chunk, steps - done)
-            self.state = train_steps(self.field, vol, self.state, n,
-                                     self.train_batch)
-            done += n
-        self.step += steps
-        if not fast_mode:
-            self._update_macrocell_online()
-        return self.statistics()
+        with span("train.call"):
+            vol = self.simple.volume.data
+            done = 0
+            while done < steps:
+                n = min(chunk, steps - done)
+                self.state = train_steps(self.field, vol, self.state, n,
+                                         self.train_batch)
+                done += n
+            self.step += steps
+            if not fast_mode:
+                self._update_macrocell_online()
+            with span("train.wait"):
+                return self.statistics()
 
     def _update_macrocell_online(self):
         """Online macrocell refresh from a fresh sample batch and the TF's

@@ -8,6 +8,11 @@ hash-grid scatter) → tcnn Adam. On CUDA tensors the encode and the MLP run
 through their kernels (`ops/hash_encoding.py`, `ops/fused_mlp.py`), each
 once forward and once backward per step.
 
+Each step is a `train.step` span (utils/profiling.py::span) holding its
+stages, `train.sample`, `train.forward` (encode, MLP and loss),
+`train.backward` and `train.adam`: while a profiler records, they split
+the host's time to enqueue a step.
+
 Every step returns a new params dict (new tensors, the old ones
 untouched), as JAX's functional update does: renderers key their decoded
 grids on the params object, so an update in place would leave them
@@ -27,6 +32,7 @@ from instantvnr_torch.models.network import (NeuralField, init_params,
 from instantvnr_torch.models.optimizer import (AdamState, adam_init,
                                                adam_update, mlp_l2_mask)
 from instantvnr_torch.ops.trilinear import sample_volume_tex
+from instantvnr_torch.utils.profiling import span
 
 
 class TrainState(NamedTuple):
@@ -104,17 +110,21 @@ def value_and_grad(field: NeuralField, params: dict, coords: torch.Tensor,
     leaves = [params["table"], *params["mlp"]]
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss = make_loss_fn(field)({"table": live[0], "mlp": live[1:]},
-                                   coords, targets)
-        grads = torch.autograd.grad(loss, live)
+        with span("train.forward"):
+            loss = make_loss_fn(field)({"table": live[0], "mlp": live[1:]},
+                                       coords, targets)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, live)
     return loss.detach(), {"table": grads[0], "mlp": list(grads[1:])}
 
 
 def _apply(field: NeuralField, state: TrainState, coords, targets
            ) -> TrainState:
     loss, grads = value_and_grad(field, state.params, coords, targets)
-    params, opt = adam_update(field.cfg.optimizer, state.params, grads,
-                              state.opt, l2_mask=mlp_l2_mask(state.params))
+    with span("train.adam"):
+        params, opt = adam_update(field.cfg.optimizer, state.params, grads,
+                                  state.opt,
+                                  l2_mask=mlp_l2_mask(state.params))
     return state._replace(params=params, opt=opt, loss=loss)
 
 
@@ -122,8 +132,10 @@ def train_step(field: NeuralField, volume: torch.Tensor, state: TrainState,
                batch: int = DEFAULT_TRAIN_BATCH) -> TrainState:
     """One sample → forward → backward → Adam step on the volume's
     device."""
-    coords, targets = sample_static(volume, state.generator, batch)
-    return _apply(field, state, coords, targets)
+    with span("train.step"):
+        with span("train.sample"):
+            coords, targets = sample_static(volume, state.generator, batch)
+        return _apply(field, state, coords, targets)
 
 
 def train_steps(field: NeuralField, volume: torch.Tensor, state: TrainState,
@@ -141,9 +153,10 @@ def train_step_hostbatch(field: NeuralField, state: TrainState,
     """One step on a caller-provided batch (the reference's out-of-core
     path, neural_sampler.cpp:1066-1120). The sample stream still advances,
     so the online macrocell refreshes stay deterministic."""
-    torch.rand((1,), generator=state.generator,
-               device=state.generator.device)
-    return _apply(field, state, coords, targets)
+    with span("train.step"):
+        torch.rand((1,), generator=state.generator,
+                   device=state.generator.device)
+        return _apply(field, state, coords, targets)
 
 
 def test_loss(field: NeuralField, volume: torch.Tensor, state: TrainState,
@@ -170,8 +183,10 @@ def train_steps_source(field: NeuralField, sampler, state: TrainState,
     the batch's device, in place of a volume's texture; no volume exists
     anywhere."""
     for _ in range(n_steps):
-        coords, targets = sampler.sample(state.generator, batch)
-        state = _apply(field, state, coords, targets)
+        with span("train.step"):
+            with span("train.sample"):
+                coords, targets = sampler.sample(state.generator, batch)
+            state = _apply(field, state, coords, targets)
     return state
 
 

@@ -23,9 +23,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from instantvnr_torch.ops.cuda_lib import LaunchCounter
+from instantvnr_torch.utils.profiling import span
 
 counter = LaunchCounter()  # one a launch: mt_count and mt_emit, per slab
 _CELLS_A_BLOCK = 256  # csrc/isosurface.cu kCells
@@ -237,27 +237,28 @@ def _extract_loop(get_slab, dz: int, isovalue: float, slab: int,
     """The slab loop, then the verts/faces epilogue on the host.
     get_slab(z, n) → grid rows z..z+n−1 ([n, sy, sx]); consecutive slabs
     overlap by one plane (stride `slab`, n = slab + 1). Its stages are
-    profiler ranges (isosurface.slab, .extract, .weld: the concatenation
-    and the weld, .to_host), so that one torch.profiler trace of a call
-    splits its time."""
+    spans that are also profiler ranges while a profiler records
+    (isosurface.slab, .extract, .weld: the concatenation and the weld,
+    .to_host; utils/profiling.py::span), so that one torch.profiler trace
+    of a call splits its time."""
     out_v, out_i = [], []
     z = 0
     while z < dz - 1:
         n = min(slab + 1, dz - z)
-        with record_function("isosurface.slab"):
+        with span("isosurface.slab", annotate=True):
             grid = get_slab(z, n)
-        with record_function("isosurface.extract"):
+        with span("isosurface.extract", annotate=True):
             tris, ids = extract_slab(grid, isovalue, z)
         out_v.append(tris)
         out_i.append(ids)
         z += slab
     if not out_v:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
-    with record_function("isosurface.weld"):
+    with span("isosurface.weld", annotate=True):
         v = torch.cat(out_v, dim=0)
         if weld:
             verts, faces = weld_triangles(v, torch.cat(out_i, dim=0))
-    with record_function("isosurface.to_host"):
+    with span("isosurface.to_host", annotate=True):
         if weld:
             return verts.cpu().numpy(), faces.cpu().numpy()
         verts = v.reshape(-1, 3).cpu().numpy()

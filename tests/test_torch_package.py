@@ -319,6 +319,11 @@ OMITTED_NAMES = {
     "render/brickcache.py": {"emission_parity_handle"},
     # the port's fingerprint, fused_lookup and FusedFrame.capture
     "render/compaction.py": {"compile_frame_async", "shape_fingerprint"},
+    # StackTimer printed a host time that no caller read: the port's
+    # stages are spans (span, span_summary), kept while a profiler
+    # records; FPSCounter's exponential smoothing hid a stall in the rate
+    # it gave, and nothing read it either
+    "utils/profiling.py": {"StackTimer", "FPSCounter"},
 }
 
 
