@@ -179,8 +179,11 @@ VIEWER_WINDOW_S = 3.0
 # means has a standard error of about 1.2 dB: 4 dB is 3 of them)
 PSNR_BAR_2E14, SSIM_MIN, PSNR_MIN_2E19 = 55.0, 0.999, 49.0
 KERNEL_LOSS_MAX_DB = 4.0
-TRAIN_KERNELS = ("fused_mlp_train_forward", "fused_mlp_backward",
-                 "hash_encode_forward", "hash_encode_backward")
+# a gradient's kernels, each launched once (K3, K1's training form, K2, K4)
+GRAD_KERNELS = ("fused_mlp_train_forward", "fused_mlp_backward",
+                "hash_encode_forward", "hash_encode_backward")
+# a training step's: the gradient's, then Adam's tree in one launch
+TRAIN_KERNELS = GRAD_KERNELS + ("adam_step",)
 # the MLP backward against its plain version, as a share of each
 # gradient's largest entry: dW sums float32 products in another order;
 # dx is rounded to bf16 (one step is 2^-8 of its value)
@@ -826,11 +829,13 @@ def run_training(torch, sv, cfg, seed, name):
 def run_plain_control(torch, sv, cfg, seed, name, mlp_fn):
     """The same seed, batch, steps and PSNR tail as run_training, in a loop
     built here from the plain functions (plain hash encode, `mlp_fn`,
-    adam_update) on CUDA tensors: no kernel may launch in its steps."""
+    adam_update_plain) on CUDA tensors: no kernel may launch in its
+    steps."""
     from instantvnr_torch import api
     from instantvnr_torch.data.sampler import sample_static
     from instantvnr_torch.models.metrics import psnr_vs
-    from instantvnr_torch.models.optimizer import adam_update, mlp_l2_mask
+    from instantvnr_torch.models.optimizer import (adam_update_plain,
+                                                   mlp_l2_mask)
     from instantvnr_torch.ops.hash_encoding import hash_encode_reference
 
     nv = api.NeuralVolume(cfg, sv, seed=seed, device="cuda",
@@ -848,9 +853,9 @@ def run_plain_control(torch, sv, cfg, seed, name, mlp_fn):
         pred = mlp_fn(live[1:], feats, field.cfg.network)
         loss = torch.mean(torch.abs(pred - targets))
         grads = torch.autograd.grad(loss, live)
-        return adam_update(field.cfg.optimizer, params,
-                           {"table": grads[0], "mlp": list(grads[1:])}, opt,
-                           l2_mask=mlp_l2_mask(params)), loss
+        return adam_update_plain(field.cfg.optimizer, params,
+                                 {"table": grads[0], "mlp": list(grads[1:])},
+                                 opt, l2_mask=mlp_l2_mask(params)), loss
 
     launches, tail = {}, []
     t0 = time.perf_counter()
@@ -952,16 +957,74 @@ def phase_training(torch, sv):
     return k14, nv19
 
 
+def adam_record(torch, cfg, params, grads, state):
+    """The adam_step kernel on a tree against the plain form: p', m' and v'
+    bit for bit; the kernel's time by CUDA events over launches of its C
+    entry back to back on outputs made once (the card's time sets it: a
+    launch's host work is a ctypes call; profiled readings of this kernel
+    lost up to 16 of 20 events), the wrapper's call, the plain form's
+    device time and that of one PyTorch call as the yardstick,
+    torch._fused_adam_ in place on copies, by CUDA events over calls back
+    to back (its ε and decay are its own; the port never calls it)."""
+    from instantvnr_torch.models import optimizer as opt
+    from instantvnr_torch.ops import adam as kadam
+    from instantvnr_torch.ops.cuda_lib import load_library
+
+    mask = opt.mlp_l2_mask(params)
+
+    def kernel():
+        return opt.adam_update(cfg, params, grads, state, l2_mask=mask)
+
+    def plain():
+        return opt.adam_update_plain(cfg, params, grads, state, l2_mask=mask)
+
+    (new, st), (ref, rst) = kernel(), plain()
+    pairs = list(zip(
+        [*opt._leaves(new), *opt._leaves(st.mu), *opt._leaves(st.nu)],
+        [*opt._leaves(ref), *opt._leaves(rst.mu), *opt._leaves(rst.nu)]))
+    leaves, gs, mu, nu = (opt._leaves(t)
+                          for t in (params, grads, state.mu, state.nu))
+    n = sum(p.numel() for p in leaves)
+    s = opt.adam_scalars(cfg, state.step + 1)
+    tables = kadam.pack_groups(list(zip(leaves, gs, mu, nu)),
+                               list(zip(*map(opt._leaves, (new, st.mu,
+                                                          st.nu)))),
+                               opt._l2_flags(cfg, params, mask))
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launches():
+        for table in tables:
+            lib.call("adam_step", table.ctypes.data, len(table), *s, stream)
+
+    copies = [[t.clone() for t in tree] for tree in (leaves, mu, nu)]
+    steps = [torch.tensor(float(state.step), device=leaves[0].device)
+             for _ in leaves]
+    plain_ms, plain_call_ms = library_times(torch, plain)
+    library_ms = cuda_ms(torch, lambda: torch._fused_adam_(
+        copies[0], gs, copies[1], copies[2], [], steps, lr=s.lr,
+        beta1=s.beta1, beta2=s.beta2, weight_decay=0.0, eps=s.epsilon,
+        amsgrad=False, maximize=False))
+    ms, by = bound_ms(28 * n, 0, 1.0)
+    return {"phase": "adam_step", "leaves": len(leaves), "params": n,
+            "step": state.step + 1, "launches_a_call": len(tables),
+            "differing": sum(int((a != b).sum()) for a, b in pairs),
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in pairs),
+            "ms": cuda_ms(torch, launches), "call_ms": cuda_ms(torch, kernel),
+            "plain_ms": plain_ms, "plain_call_ms": plain_call_ms,
+            "library_ms": library_ms, "bound_ms": ms, "bound_by": by}
+
+
 def phase_train_breakdown(torch, nv):
     """Where a training step's time goes at 2^19: each stage of one step
-    alone (CUDA events, on the trained params and a fresh batch), then the
-    device time of 20 steps by kernel from torch.profiler, and the device's
-    busy share of their wall time."""
+    alone (CUDA events, on the trained params and a fresh batch), Adam's
+    kernel against its plain form (adam_record), then the device time of 20
+    steps by kernel from torch.profiler, and the device's busy share of
+    their wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from instantvnr_torch.data.sampler import sample_static
     from instantvnr_torch.models import trainer
-    from instantvnr_torch.models.optimizer import adam_update, mlp_l2_mask
     from instantvnr_torch.ops import fused_mlp as fm
     from instantvnr_torch.ops import hash_encoding as he
 
@@ -992,9 +1055,8 @@ def phase_train_breakdown(torch, nv):
                spec.n_entries, coords, spec, feats, bf16)),
            "zero_grad_table_ms": cuda_ms(torch, lambda: torch.zeros_like(
                params["table"])),
-           "adam_ms": cuda_ms(torch, lambda: adam_update(
-               field.cfg.optimizer, params, grads, state.opt,
-               l2_mask=mlp_l2_mask(params))),
+           "adam": adam_record(torch, field.cfg.optimizer, params, grads,
+                               state.opt),
            "value_and_grad_ms": cuda_ms(torch, lambda: trainer.value_and_grad(
                field, params, coords, targets)),
            "step_ms": cuda_ms(torch, step)}
@@ -1015,7 +1077,7 @@ def phase_train_breakdown(torch, nv):
               "fused_mlp_train_forward": ("fused_mlp_forward_kernel",),
               "hash_encode_backward": ("hash_encode_backward_kernel",),
               "hash_encode_forward": ("hash_encode_forward_kernel",),
-              "adam (multi-tensor elementwise)": ("multi_tensor_apply",),
+              "adam_step": ("adam_step_kernel",),
               "zero fill": ("FillFunctor",)}
     device = {name: 0.0 for name in list(groups) + ["other"]}
     n_kernels = 0
@@ -1034,6 +1096,9 @@ def phase_train_breakdown(torch, nv):
                 "device_idle_share": max(0.0, 1.0 - busy / step_ms),
                 "device_ops_per_step": n_kernels / n})
     log(rec)
+    if rec["adam"]["differing"]:
+        raise AssertionError(f"adam_step differs from its plain form: "
+                             f"{rec['adam']}")
     return rec
 
 
@@ -1969,6 +2034,7 @@ def phase_breakdown(torch, nv, renderer, r_iso):
 
 def counters():
     """Every kernel's launch counter, by kernel name."""
+    from instantvnr_torch.ops import adam as kadam
     from instantvnr_torch.ops import brick_sample as bs
     from instantvnr_torch.ops import compaction as cp
     from instantvnr_torch.ops import fused_mlp as fm
@@ -1995,7 +2061,7 @@ def counters():
             "pt_resolve": opt.resolve_counter, "brick_sample": bs.counter,
             "mt_count/mt_emit": mt.counter,
             "compact_rows": cp.compact_counter,
-            "scatter_rows": cp.scatter_counter}
+            "scatter_rows": cp.scatter_counter, "adam_step": kadam.counter}
 
 
 def decode_launches(torch, fn):
@@ -3915,7 +3981,8 @@ def phase_paired_training(torch, sv):
                                              "hash_encode_backward_paired"))
         want = {k3: PAIRED_STEPS, k4: PAIRED_STEPS,
                 "fused_mlp_train_forward": PAIRED_STEPS,
-                "fused_mlp_backward": PAIRED_STEPS}
+                "fused_mlp_backward": PAIRED_STEPS,
+                "adam_step": PAIRED_STEPS}
         if launches != want:
             raise AssertionError(f"{variant} training launches {launches} "
                                  f"!= {want}")
@@ -4374,7 +4441,8 @@ def phase_fvsrn(torch, sv, tmp):
            "view_model": {k: info[k] for k in ("n_params", "psnr", "ssim")},
            "import_cuda_vs_cpu_max_abs_err": imp_err}
     log(rec)
-    if (launches or frame_launches != {"composite_slabs": FVSRN_FRAMES}
+    if (launches != {"adam_step": FVSRN_STEPS}
+            or frame_launches != {"composite_slabs": FVSRN_FRAMES}
             or not psnr > psnr0 + DATA_PSNR_GAIN or not npz_equal
             or not grid_err <= MLP_ATOL or not grid_mean <= MLP_MEAN_TOL
             or not frame_err <= MLP_ATOL or not imp_err <= MLP_ATOL
@@ -4536,8 +4604,9 @@ PAR_W2_DP_STEPS = 3
 # the DP step against the single-device step, in turns: rounds of steps
 PAR_TIME_ROUNDS, PAR_TIME_STEPS = 5, 10
 # a step's launches on every path that trains: K3, K1's training form, K2,
-# K4 once each
+# K4 and Adam once each; a gradient's without Adam
 STEP_LAUNCHES = {k: 1 for k in TRAIN_KERNELS}
+GRAD_LAUNCHES = {k: 1 for k in GRAD_KERNELS}
 # the TP gradient against the single-device gradient of the same function
 # (the split-grad backward's float32 products on the whole table, the
 # torch.matmul MLP): the table at K4's tolerance; W1 and the tail within
@@ -4707,7 +4776,7 @@ def par_world1(rank, dev, payload):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     c, t = sample_static(vol, gen, TRAIN_BATCH)
     # the host-batch step against train_step_hostbatch on one gradient (the
-    # DP step takes the single-device step's, so it launches no kernel)
+    # DP step takes the single-device step's, so it launches only Adam)
     restore = _memo_grads()
     try:
         s1 = trainer.train_step_hostbatch(field, trainer.state_for_params(
@@ -4761,7 +4830,8 @@ def par_world1(rank, dev, payload):
                single_step_ms=times["single"],
                dp_step_ms_median=float(np.median(times["dp"])),
                single_step_ms_median=float(np.median(times["single"])))
-    if not (same and reduce_same and hostbatch == {"all_reduce": 1}
+    if not (same and reduce_same
+            and hostbatch == {"all_reduce": 1, "adam_step": 1}
             and np.isfinite(rec["loss"])):
         raise AssertionError(f"dp_train[world=1]: {rec}")
     total = dict(launches)
@@ -4853,7 +4923,7 @@ def _par_tp(torch, dev, rank, vol):
     step = tp.make_tp_train_step(field, mesh, TRAIN_BATCH)
     total = {k: v for k, v in launched.items() if k in counters()}
     state, launches, ms = _par_steps(torch, rec, step, state, vol,
-                                     PAR_TP_STEPS, want)
+                                     PAR_TP_STEPS, dict(want, adam_step=1))
     add_launches(total, launches)
     rec.update(steps=PAR_TP_STEPS, ms_per_step=ms, step_loss=float(
         state.loss), launches=launches)
@@ -5007,7 +5077,7 @@ def par_world2(rank, dev, payload):
            "loss_halves": float(loss_m), "loss_whole": float(loss_w),
            "grad_launches": launched, "all_reduce_mb": n_floats * 4 / 1e6,
            "all_reduce_ms": ar_ms}
-    if not ok or launched != dict(STEP_LAUNCHES, all_reduce=1):
+    if not ok or launched != dict(GRAD_LAUNCHES, all_reduce=1):
         raise AssertionError(f"dp_train[world=2]: {rec}")
     step = pt.make_dp_train_step(field, mesh, TRAIN_BATCH)
     state, launches, ms = _par_steps(torch, rec, step, state, vol,
@@ -5740,7 +5810,7 @@ def main() -> int:
 
     # -- training: 2^14 against its controls, 2^19 over three seeds -------
     train14, nv19 = phase_training(torch, sv)
-    phase_train_breakdown(torch, nv19)
+    adam = phase_train_breakdown(torch, nv19)["adam"]
     phase_online_loop(torch, nv19)
 
     # -- the paired layout's path, the differentiable march, fV-SRN, VDB --
@@ -5864,6 +5934,9 @@ def main() -> int:
             "instantvnr_tpu/render/compaction.py:168", compact_k),
         row("scatter_rows", "compaction.cu",
             "instantvnr_tpu/render/compaction.py:816", scatter_k),
+        # no TPU kernel: the JAX package leaves Adam to XLA; C1's tree
+        row("adam_step", "adam.cu",
+            "instantvnr_tpu/models/optimizer.py::adam_update", adam),
     ]
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -106,6 +106,9 @@ SIGNATURES = {
     "mt_count": (_P, _F, _I, _I, _I, _P, _P, _P),
     # grid, iso, z_offset, sz, sy, sx, ws, cases, tris, ids, stream
     "mt_emit": (_P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # table, n_leaves, lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+    # c1, c2, epsilon, l2_reg, stream
+    "adam_step": (_P, _I) + (_F,) * 9 + (_P,),
 }
 
 

@@ -2201,3 +2201,130 @@ def test_card_backward_never_runs_the_plain_emission(cuda, monkeypatch):
             == sampled_at[-1] - before[0] > 0)
     assert all(torch.isfinite(r.grad).all() and r.grad.abs().max() > 0
                for r in rays)
+
+
+# -- the fused Adam (csrc/adam.cu) against the plain form, bit for bit ------
+
+
+def _adam_case(case, step, cuda):
+    """(params, grads, state, l2 mask) of a test case on the card: C1's own
+    tree (the 2^19 schema, 23.4 M parameters), ragged leaves (some views 4
+    bytes into their buffers), or a tree longer than a launch takes. At
+    step 1 the moments are zero, as a fresh state's are."""
+    from instantvnr_torch.config import ModelConfig
+    from instantvnr_torch.models import optimizer as opt
+    from instantvnr_torch.models.network import NeuralField
+    from instantvnr_torch.models.trainer import create_train_state
+    from instantvnr_torch.ops import adam as kadam
+
+    gen = torch.Generator(device=cuda).manual_seed(step)
+
+    def like(t, scale, offset=0):
+        buf = torch.randn(t.numel() + offset, generator=gen, device=cuda)
+        out = (buf * scale)[offset:].view(t.shape)
+        out[torch.rand(t.shape, generator=gen, device=cuda) < 0.05] = 0.0
+        return out
+
+    if case == "c1_tree":
+        params = create_train_state(NeuralField.from_config(ModelConfig()),
+                                    device=cuda).params
+        offsets = [0] * (1 + len(params["mlp"]))
+    else:
+        sizes = ([1, 3, 5, 1001, (1 << 20) + 3] if case == "ragged"
+                 else [17, 64 * 64, 1, 4096, 3, 8] * 3 + [2])
+        assert case == "ragged" or len(sizes) > kadam.MAX_LEAVES
+        offsets = [0, 1, 0, 1, 1] if case == "ragged" else [0, 1] * 9 + [0]
+        leaves = [like(torch.empty(n), 1e-2, o)
+                  for n, o in zip(sizes, offsets)]
+        params = {"table": leaves[0], "mlp": leaves[1:]}
+    leaves = opt._leaves(params)
+    grads = [like(p, 1e-3, o) for p, o in zip(leaves, offsets)]
+    mu = [like(p, 1e-4, o) for p, o in zip(leaves, offsets)]
+    nu = [like(p, 1e-3, o).square_() for p, o in zip(leaves, offsets)]
+    if step == 1:
+        mu, nu = [torch.zeros_like(p) for p in leaves], \
+            [torch.zeros_like(p) for p in leaves]
+    tree = opt._tree
+    state = opt.AdamState(step=step - 1, mu=tree(mu), nu=tree(nu))
+    return params, tree(grads), state, opt.mlp_l2_mask(params)
+
+
+@pytest.mark.parametrize("step", [1, 2, 2001, 3001])
+@pytest.mark.parametrize("case", ["c1_tree", "ragged", "longer_tree"])
+def test_adam_kernel_matches_plain_bit_for_bit(cuda, case, step):
+    """p', m' and v' of the kernel equal the plain form's bit for bit; the
+    inputs are left as they were; a tree of up to MAX_LEAVES leaves is one
+    launch."""
+    from instantvnr_torch.config import OptimizerConfig
+    from instantvnr_torch.models import optimizer as opt
+    from instantvnr_torch.ops import adam as kadam
+
+    cfg = OptimizerConfig()
+    params, grads, state, mask = _adam_case(case, step, cuda)
+    inputs = [opt._leaves(t) for t in (params, grads, state.mu, state.nu)]
+    before = [[t.clone() for t in ts] for ts in inputs]
+    n0 = kadam.counter.launches
+    new, st = opt.adam_update(cfg, params, grads, state, l2_mask=mask)
+    torch.cuda.synchronize()
+    launches = kadam.counter.launches - n0
+    ref, rst = opt.adam_update_plain(cfg, params, grads, state, l2_mask=mask)
+    n_leaves = len(opt._leaves(params))
+    assert launches == -(-n_leaves // kadam.MAX_LEAVES)
+    if case == "c1_tree":
+        assert launches == 1
+        assert sum(p.numel() for p in opt._leaves(params)) > 23_000_000
+    assert st.step == rst.step == step
+    for name, a, b in (("p", new, ref), ("m", st.mu, rst.mu),
+                       ("v", st.nu, rst.nu)):
+        for i, (x, y) in enumerate(zip(opt._leaves(a), opt._leaves(b))):
+            assert x.dtype == torch.float32 and x.shape == y.shape
+            diff = int((x != y).sum())
+            assert diff == 0, f"{name}[{i}]: {diff} of {x.numel()} differ"
+    for ts, olds in zip(inputs, before):
+        for t, old in zip(ts, olds):
+            assert torch.equal(t, old)
+    assert new["table"] is not params["table"]
+
+
+def test_adam_kernel_refuses_what_it_does_not_take(cuda):
+    from instantvnr_torch.config import OptimizerConfig
+    from instantvnr_torch.models import optimizer as opt
+
+    cfg = OptimizerConfig()
+    p = {"table": torch.zeros((64, 8), device=cuda),
+         "mlp": [torch.zeros((8, 4), device=cuda)]}
+    g = {"table": torch.ones((64, 8), device=cuda),
+         "mlp": [torch.ones((8, 4), device=cuda)]}
+    state = opt.adam_init(p)
+    opt.adam_update(cfg, p, g, state)  # the sound tree runs
+    bad = [{"table": g["table"].to(torch.bfloat16), "mlp": g["mlp"]},
+           {"table": g["table"].t().contiguous().t(), "mlp": g["mlp"]},
+           {"table": g["table"][:32], "mlp": g["mlp"]},
+           {"table": g["table"].cpu(), "mlp": g["mlp"]}]
+    for grads in bad:
+        with pytest.raises(ValueError, match="contiguous float32"):
+            opt.adam_update(cfg, p, grads, state)
+    half = {"table": p["table"].half(), "mlp": p["mlp"]}
+    with pytest.raises(ValueError, match="contiguous float32"):
+        opt.adam_update(cfg, half, g, opt.adam_init(p))
+
+
+def test_foreach_scalar_division_is_a_float32_reciprocal_product(cuda):
+    """What csrc/adam.cu repeats: PyTorch's foreach kernels divide a float32
+    list by a scalar as a product with the scalar's float32 reciprocal, for
+    the bias corrections of steps 1-5000 and of every 97th step to 10^5."""
+    from instantvnr_torch.config import OptimizerConfig
+    from instantvnr_torch.models import optimizer as opt
+
+    cfg = OptimizerConfig()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(1 << 16, generator=gen, device=cuda) * 1e-3
+    f32 = np.float32
+    apart = 0
+    for step in [*range(1, 5001), *range(5001, 100_001, 97)]:
+        s = opt.adam_scalars(cfg, step)
+        for c in (s.c1, s.c2):
+            got = torch._foreach_div([x], c)[0]
+            assert torch.equal(got, x * float(f32(1) / f32(c))), (step, c)
+            apart += not torch.equal(got, x / torch.full_like(x, c))
+    assert apart > 0  # a true division parts from it

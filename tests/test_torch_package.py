@@ -268,7 +268,8 @@ def test_loader_is_lazy():
     srcs = [os.path.basename(p) for p in cuda_lib._sources()]
     assert {"fused_mlp.cu", "hash_encode.cu", "slab_composite.cu",
             "iso_sweep.cu", "raymarch_emit.cu", "pathtrace.cu",
-            "brick_sample.cu", "isosurface.cu", "compaction.cu"} <= set(srcs)
+            "brick_sample.cu", "isosurface.cu", "compaction.cu",
+            "adam.cu"} <= set(srcs)
     assert set(cuda_lib.SIGNATURES) == {
         "fused_mlp_forward", "fused_mlp_train_forward", "fused_mlp_backward",
         "hash_encode_forward", "hash_encode_backward",
@@ -277,7 +278,7 @@ def test_loader_is_lazy():
         "iso_sweep_forward", "raymarch_emit", "raymarch_emit_backward",
         "pt_track", "pt_resolve",
         "brick_sample", "mt_count", "mt_emit", "compact_rows",
-        "scatter_rows"}
+        "scatter_rows", "adam_step"}
 
 
 def test_ctypes_signatures_match_sources():
