@@ -157,6 +157,29 @@ def device_info(torch, count: int) -> dict:
     return info
 
 
+# the card's state that can slow a run: nvidia-smi's names
+CARD_STATE = ("clocks.sm", "clocks_throttle_reasons.active",
+              "temperature.gpu")
+
+
+def card_state() -> str:
+    """The card's SM clock, its active clock-throttle reasons (a bit mask;
+    0x0000000000000000 is none, 0x...01 idle) and its temperature, read
+    once by nvidia-smi."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=" + ",".join(CARD_STATE),
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not read ({e})"
+    line = out.stdout.split("\n")[0].strip()
+    if out.returncode or not line:
+        return f"not read ({(out.stderr or out.stdout).strip()[:200]})"
+    return ", ".join(f"{k} {v.strip()}"
+                     for k, v in zip(CARD_STATE, line.split(",")))
+
+
 def _metric_applies(entry: dict, cell: str, e2e_of_cell: set) -> bool:
     if "workloads" in entry:
         return cell in entry["workloads"]
@@ -232,6 +255,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     spans = Spans()
     units = sess.run_until(t0 + seconds, spans)  # ends synchronized
     window_s = time.perf_counter() - t0
+    if on_card:  # whether a slow window ran at lowered clocks
+        log("card at the window's close: " + card_state())
     reading = None
     if trace and on_card:
         from benchmark.trace import traced_window

@@ -1,8 +1,8 @@
-"""Device time a step of Adam's update (`models/optimizer.py::
-adam_update`, whose `torch._foreach_*` operations run as
-`multi_tensor_apply_kernel`s) takes, from the profiled window."""
+"""Device time a step of Adam's update takes, from the profiled window:
+`csrc/adam.cu`'s `adam_step_kernel`, which `models/optimizer.py::
+adam_update` launches once a step for the whole tree."""
 
-PATTERNS = ("multi_tensor_apply_kernel",)
+PATTERNS = ("adam_step_kernel",)
 
 
 def read(m):

@@ -12,6 +12,7 @@ import torch
 
 from benchmark import harness
 from benchmark.tests import frame_cell
+from benchmark.tests.cells import training_cells
 
 ROOT = harness.os.path.dirname(harness.PACKAGE_DIR)
 SEED = 2**31 + 77
@@ -37,10 +38,8 @@ def run(cell, overrides, root=ROOT):
     return out["correct"], out["checks"]
 
 
-def train_overrides(cell):
-    if cell == "train_vnr_b19":
-        return {**TRAIN, "config": {"encoding": GRID}}
-    return TRAIN
+# every training cell runs the 2^19 reference model: a smaller table here
+TRAIN_SMALL = {**TRAIN, "config": {"encoding": GRID}}
 
 
 # -- training ----------------------------------------------------------------
@@ -77,13 +76,23 @@ def decay_off_after_set_up(mp):
                                                      else 1.0))
 
 
-TRAIN_CELLS = ["train_vnr_b19"]
+TRAIN_CELLS = training_cells()
+CELL = {w["name"]: w for w in harness.load_manifest(ROOT)["workloads"]}[
+    TRAIN_CELLS[0]]
 
 
+@pytest.mark.parametrize("trace", [False, True], ids=["untraced", "traced"])
 @pytest.mark.parametrize("cell", TRAIN_CELLS)
-def test_a_sound_training_run_is_correct(cell):
-    ok, checks = run(cell, train_overrides(cell))
-    assert ok, checks
+def test_a_sound_training_run_is_correct(cell, trace):
+    out = harness.run_cell(ROOT, cell, SEED, 0.5, trace, time.perf_counter(),
+                           device="cpu", overrides=TRAIN_SMALL)
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+    m = harness.load_manifest(ROOT)
+    if not trace:
+        assert set(out["metrics"]) == set(harness.end_to_end_names(m, cell))
+    else:  # the host clock's layers; the device's need the card
+        assert {"dispatch_ms.train", "train_mfu"} <= set(out["metrics"])
 
 
 @pytest.mark.parametrize("fault", [state_unchanged, half_batch,
@@ -93,7 +102,7 @@ def test_a_sound_training_run_is_correct(cell):
 @pytest.mark.parametrize("cell", TRAIN_CELLS)
 def test_a_faulty_training_step_is_not_correct(cell, fault, monkeypatch):
     fault(monkeypatch)
-    ok, checks = run(cell, train_overrides(cell))
+    ok, checks = run(cell, TRAIN_SMALL)
     assert not ok, checks
 
 
@@ -161,10 +170,9 @@ def test_a_faulty_frame_is_not_correct(cell, fault, monkeypatch, tmp_path):
 def test_the_sessions_free_the_program_before_the_reference():
     # the check runs after release(): the program's objects are gone
     ctx = harness.Context(
-        root=ROOT, cell={"name": "train_vnr_b19"},
-        config={**harness.data_file(ROOT, "configs", "vnr_ref_2e19"),
-                "encoding": GRID},
-        traffic={**harness.data_file(ROOT, "workloads", "train_b19"),
+        root=ROOT, cell=CELL, config={**harness.data_file(
+            ROOT, "configs", CELL["config"]), "encoding": GRID},
+        traffic={**harness.data_file(ROOT, "workloads", CELL["traffic"]),
                  **TRAIN["traffic"]}, seed=SEED, device=torch.device("cpu"))
     sess = harness.load_module(ROOT, "traffic", "train").Session(ctx)
     sess.setup()
@@ -182,7 +190,7 @@ class _Reading:
         self.dropped = dropped
         self.window_s, self.units, self.busy_s = 1.0, 100, 0.9
         self.kernels = {"hash_encode_backward_kernel": [100, 0.2],
-                        "multi_tensor_apply_kernel": [1400, 0.1]}
+                        "adam_step_kernel": [100, 0.022]}
 
     def mismatched(self):
         return self.dropped
@@ -199,13 +207,12 @@ class _Reading:
                          ids=["consistent", "dropped"])
 def test_a_reading_that_dropped_events_reports_no_device_metric(dropped):
     m = harness.load_manifest(ROOT)
-    cell = "train_vnr_b19"
+    cell = CELL["name"]
     spans = harness.Spans()
     spans.add("train_call", 0.05)
     inputs = harness.MetricInputs(
-        cell={"name": cell}, config=harness.data_file(
-            ROOT, "configs", "vnr_ref_2e19"),
-        traffic=harness.data_file(ROOT, "workloads", "train_b19"),
+        cell=CELL, config=harness.data_file(ROOT, "configs", CELL["config"]),
+        traffic=harness.data_file(ROOT, "workloads", CELL["traffic"]),
         spans=spans, units=10, window_s=0.05, trace=_Reading(dropped),
         reference={"flops_per_sample": 98688}, root=ROOT)
     out = harness.per_layer_metrics(m, cell, inputs)

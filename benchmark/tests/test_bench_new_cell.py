@@ -7,6 +7,7 @@ import shutil
 import time
 
 from benchmark import harness
+from benchmark.tests.cells import training_cells
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -39,12 +40,14 @@ def test_a_cell_added_as_data_runs_unedited(tmp_path):
                            "traffic": "train_tiny", "chips": 1,
                            "why": "a throwaway"})
     for e in m["end_to_end"] + m["per_layer"]:
-        if "train_vnr_b19" in e.get("workloads", []):
+        if set(training_cells()) & set(e.get("workloads", [])):
             e["workloads"].append("train_tiny_grid")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
+    # a window of 0 s runs one call: the late step comes at the same
+    # optimizer count in every run, and so do its widest gaps
     for trace in (False, True):
         out = harness.run_cell(str(tmp_path), "train_tiny_grid", 2**31 + 9,
-                               0.3, trace, time.perf_counter(), device="cpu")
+                               0.0, trace, time.perf_counter(), device="cpu")
         assert out["correct"], out["checks"]
         assert out["attempted"] > 0 and out["failed"] == 0
         if not trace:

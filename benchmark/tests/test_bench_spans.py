@@ -1,6 +1,7 @@
 """The per-layer metrics that read the program's spans
 (`instantvnr_torch/utils/profiling.py`): each reader against a planted
-span store, and on the card a traced run of C1 that reports them.
+span store, and on the card a traced run of the first training cell that
+reports them.
 
     python3 -m pytest benchmark/tests/test_bench_spans.py -q -p no:cacheprovider
 """
@@ -11,10 +12,11 @@ import subprocess
 import pytest
 
 from benchmark import harness
+from benchmark.tests.cells import training_cells
 from instantvnr_torch.utils import profiling
 
 ROOT = os.path.dirname(harness.PACKAGE_DIR)
-CELL = "train_vnr_b19"
+CELL = training_cells()[0]
 READERS = {"host_step_ms.train": "train.step",
            "host_wait_ms.train": "train.wait",
            "host_sample_ms.train": "train.sample",
@@ -100,9 +102,11 @@ def test_the_manifest_lists_the_span_metrics_for_c1():
         e = entries[name]
         assert (e["source"], e["unit"], e["better"], e["moves"],
                 e["workloads"]) == ("program_span", "ms", "lower",
-                                    "train_msamples_per_s", [CELL])
-    assert set(READERS) <= set(harness.per_layer_names(
-        harness.load_manifest(ROOT), CELL))
+                                    "train_msamples_per_s",
+                                    training_cells())
+    for cell in training_cells():
+        assert set(READERS) <= set(harness.per_layer_names(
+            harness.load_manifest(ROOT), cell))
 
 
 @pytest.fixture

@@ -38,6 +38,8 @@ PORT_KERNELS = {
         ("instantvnr_torch.ops.compaction", "scatter_counter"),),
     "brick_sample_kernel": (
         ("instantvnr_torch.ops.brick_sample", "counter"),),
+    "adam_step_kernel": (
+        ("instantvnr_torch.ops.adam", "counter"),),
 }
 
 TRACE_ATTEMPTS = 3

@@ -27,6 +27,7 @@ took them and the change of the parameters of both.
 """
 from __future__ import annotations
 
+import math
 import time
 
 from benchmark.harness import Check, data_file
@@ -206,13 +207,15 @@ class Session:
 
     def counts(self) -> dict:
         """What the per-layer metrics count from these inputs: the MLP's
-        widths and FLOPs a sample (forward once, backward twice) and, for
-        the hash grid, the distinct table rows a step's coordinates touch."""
+        widths and FLOPs a sample (forward once, backward twice), the
+        parameters Adam updates a step and, for the hash grid, the
+        distinct table rows a step's coordinates touch."""
         import torch
 
         model = self.model
         out = {"mlp_widths": model.widths(),
-               "flops_per_sample": 3 * 2 * model.mlp_macs()}
+               "flops_per_sample": 3 * 2 * model.mlp_macs(),
+               "n_params": sum(math.prod(s) for s in model.leaf_shapes())}
         if isinstance(model, fields.HashGridModel):
             gen = training.coord_stream(self.ctx.seed, self.ctx.device)
             coords = torch.rand((self.batch, 3), generator=gen,
